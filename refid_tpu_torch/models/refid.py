@@ -1,0 +1,192 @@
+"""REFID flagship network — FinalBidirectionAttenfusion (NCHW), mirroring
+``refid_tpu/models/refid.py``.
+
+The two temporal loops are Python loops over the voxel-bin pairs (the JAX
+package's ``nn.scan``s): first backward over t, then forward.  Module names
+are upstream REFID's (``head``, ``head_img``, ``img_encoders``,
+``encoders_backward``, ``encoders_forward``, ``resblocks``, ``decoders``,
+``pred``).
+
+Parity notes, as in the JAX package:
+  * ``aliased_backward_states=True`` (default, upstream's quirk): every
+    forward step fuses the FINAL backward state, the one computed at frame 0.
+    ``False`` fuses each frame's own backward state.
+  * The event head (5x5, leaky 0.2) is one module shared by both directions
+    and applied per step.
+  * Scale 0 gets no image feature; EGACA replaces the first conv at the
+    scales in ``atten_fuse_at`` (scale 1).
+  * The first bottleneck resblock adds the deepest image feature; the
+    prediction conv runs on ``decoder output + image head`` with no output
+    activation.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import torch
+import torch.nn as nn
+
+from refid_tpu_torch.models.layers import (
+    ConvLayer, ImageEncoderConvBlock, ResidualBlock,
+)
+from refid_tpu_torch.models.recurrent import (
+    RecurrentEncoderStage, TransposeRecurrentConvLayer,
+)
+
+__all__ = ["RefidConfig", "FinalBidirectionAttenfusion"]
+
+
+@dataclasses.dataclass(frozen=True)
+class RefidConfig:
+    """Hyperparameters; the defaults are the production blur-VFI 11+1 config
+    (options/train/GoPro/Final_bidirectionEncoder_XXNet_1attenfusion.yml).
+    The ablation axes after ``aliased_backward_states`` keep the JAX
+    config's names; only their production values are ported."""
+    img_chn: int = 26
+    ev_chn: int = 2
+    out_chn: int = 3
+    num_encoders: int = 3
+    base_num_channels: int = 32
+    num_block: int = 1            # blocks per SimpleRecurrentConv trunk
+    num_residual_blocks: int = 2  # bottleneck resblocks
+    atten_fuse_at: Tuple[int, ...] = (1,)
+    aliased_backward_states: bool = True
+    use_first_dcn: bool = False
+    bidirectional: bool = True
+    recurrent_cell: str = "simpleconv"
+    encoder_stage: str = "then_down"
+    decoder_type: str = "transpose_recurrent"
+    bottleneck_img_add: bool = True
+    apply_resblocks: bool = True
+    bidir_decoder: bool = False
+    siamese_fusion: Optional[str] = None
+
+    @property
+    def encoder_in_sizes(self) -> Tuple[int, ...]:
+        return tuple(self.base_num_channels * 2 ** i
+                     for i in range(self.num_encoders))
+
+    @property
+    def encoder_out_sizes(self) -> Tuple[int, ...]:
+        return tuple(self.base_num_channels * 2 ** (i + 1)
+                     for i in range(self.num_encoders))
+
+    @property
+    def max_num_channels(self) -> int:
+        return self.base_num_channels * 2 ** self.num_encoders
+
+
+# the production value of every ablation axis; only these are ported
+_PORTED_AXES = {
+    "use_first_dcn": False, "bidirectional": True,
+    "recurrent_cell": "simpleconv", "encoder_stage": "then_down",
+    "decoder_type": "transpose_recurrent", "bottleneck_img_add": True,
+    "apply_resblocks": True, "bidir_decoder": False, "siamese_fusion": None,
+}
+
+
+class FinalBidirectionAttenfusion(nn.Module):
+    """Bidirectional event-recurrent UNet for blurry VFI.
+
+    Inputs (NCHW): ``x`` ``(b, img_chn, h, w)``, or ``(b, 2, c, h, w)``
+    concatenated along channels; ``event`` ``(b, t, ev_chn, h, w)`` adjacent
+    voxel-bin pairs.  Output ``(b, t, out_chn, h, w)``.  ``h`` and ``w`` must
+    be multiples of ``2**num_encoders``.
+    """
+
+    def __init__(self, cfg: RefidConfig = RefidConfig()):
+        super().__init__()
+        for axis, value in _PORTED_AXES.items():
+            if getattr(cfg, axis) != value:
+                raise NotImplementedError(
+                    f"RefidConfig.{axis}={getattr(cfg, axis)!r} is not ported "
+                    f"(only {value!r})")
+        self.cfg = cfg
+        base, ne = cfg.base_num_channels, cfg.num_encoders
+        self.head = ConvLayer(cfg.ev_chn, base, 5, 1, 2, 0.2)
+        self.head_img = ConvLayer(cfg.img_chn, base, 5, 1, 2, 0.2)
+        self.img_encoders = nn.ModuleList(
+            ImageEncoderConvBlock(cfg.encoder_in_sizes[i],
+                                  cfg.encoder_out_sizes[i])
+            for i in range(ne))
+
+        def stages(fuse_two_direction):
+            return nn.ModuleList(
+                RecurrentEncoderStage(
+                    cfg.encoder_in_sizes[i], cfg.encoder_out_sizes[i],
+                    cfg.num_block,
+                    use_atten_fuse=i in cfg.atten_fuse_at and i != 0,
+                    fuse_two_direction=fuse_two_direction)
+                for i in range(ne))
+
+        self.encoders_backward = stages(False)
+        self.encoders_forward = stages(True)
+        self.resblocks = nn.ModuleList(
+            ResidualBlock(cfg.max_num_channels)
+            for _ in range(cfg.num_residual_blocks))
+        self.decoders = nn.ModuleList(
+            TransposeRecurrentConvLayer(cfg.encoder_out_sizes[ne - i - 1],
+                                        cfg.encoder_out_sizes[ne - i - 1] // 2)
+            for i in range(ne))
+        self.pred = ConvLayer(base, cfg.out_chn, 3, 1, 1, relu_slope=None)
+
+    def _zero_states(self, b, h, w, like):
+        ne, out = self.cfg.num_encoders, self.cfg.encoder_out_sizes
+        enc = [like.new_zeros(b, out[i], h // 2 ** i, w // 2 ** i)
+               for i in range(ne)]
+        dec = [like.new_zeros(b, out[ne - i - 1] // 2,
+                              h // 2 ** (ne - i - 1), w // 2 ** (ne - i - 1))
+               for i in range(ne)]
+        return enc, dec
+
+    def forward(self, x, event):
+        if x.dim() == 5:   # (b, 2, c, h, w) -> (b, 2c, h, w)
+            x = torch.cat(x.unbind(1), 1)
+        b, t, _, h, w = event.shape
+        ne = self.cfg.num_encoders
+
+        head = self.head_img(x)
+        x_blocks = []
+        cur = head
+        for enc in self.img_encoders:
+            cur = enc(cur)
+            x_blocks.append(cur)
+        y_of = [None] + x_blocks[:-1]   # image feature fused at each scale
+
+        enc_zero, dec_states = self._zero_states(b, h, w, head)
+
+        bwd_states = enc_zero
+        bwd_by_time = [None] * t
+        for k in range(t - 1, -1, -1):
+            e = self.head(event[:, k])
+            new = []
+            for i, stage in enumerate(self.encoders_backward):
+                e, s = stage(e, y_of[i], bwd_states[i])
+                new.append(s)
+            bwd_states = new
+            if not self.cfg.aliased_backward_states:
+                bwd_by_time[k] = new
+
+        fwd_states = enc_zero
+        outs = []
+        for k in range(t):
+            bwd = (bwd_states if self.cfg.aliased_backward_states
+                   else bwd_by_time[k])
+            e = self.head(event[:, k])
+            e_blocks, new = [], []
+            for i, stage in enumerate(self.encoders_forward):
+                e, s = stage(e, y_of[i], fwd_states[i], bwd[i])
+                e_blocks.append(e)
+                new.append(s)
+            fwd_states = new
+            for i, block in enumerate(self.resblocks):
+                e = block(e + x_blocks[-1] if i == 0 else e)
+            new_dec = []
+            for i, dec in enumerate(self.decoders):
+                e, s = dec(e + e_blocks[ne - i - 1], dec_states[i])
+                new_dec.append(s)
+            dec_states = new_dec
+            outs.append(self.pred(e + head))
+        return torch.stack(outs, 1)

@@ -1,0 +1,61 @@
+"""refid_tpu_torch stands alone: it imports with jax, flax and refid_tpu blocked,
+and no module of it (nor chip_smoke.py) names them in an import statement."""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+REPO = Path(__file__).resolve().parent.parent
+PKG = REPO / "refid_tpu_torch"
+FORBIDDEN = ("jax", "jaxlib", "flax", "refid_tpu")
+
+_IMPORT_ALL = f"""
+import importlib, pkgutil, sys
+for name in {FORBIDDEN!r}:
+    sys.modules[name] = None     # any import of it now raises ImportError
+import refid_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(refid_tpu_torch.__path__,
+                                               "refid_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+print(len(names))
+"""
+
+
+def test_every_module_imports_with_jax_and_refid_tpu_blocked():
+    env = {**os.environ, "PYTHONPATH": str(REPO)}
+    out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.split()[-1]) >= 12
+
+
+def _imported_modules(path):
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            yield from (alias.name for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"],
+                         ids=lambda p: str(p.relative_to(REPO)))
+def test_no_import_names_the_jax_package(path):
+    bad = [m for m in _imported_modules(path)
+           if m.split(".")[0] in FORBIDDEN]
+    assert not bad, f"{path.name} imports {bad}"
+
+
+def test_import_builds_nothing():
+    """Importing the package (and the kernel wrapper) must not build or load
+    the CUDA library: the CPU has no nvcc."""
+    env = {**os.environ, "PYTHONPATH": str(REPO)}
+    code = ("import refid_tpu_torch.events.voxel_cuda as v, refid_tpu_torch.ops.build as b;"
+            "print(v._lib is None, b._loaded == {})")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.stdout.split() == ["True", "True"], out.stderr
