@@ -6,29 +6,49 @@ Run from the root of a checkout on a machine with one CUDA card (Hopper):
     python3 chip_smoke.py
 
 It builds the CUDA kernels from ``refid_tpu_torch/csrc``, holds each kernel
-against its plain PyTorch version on the card, drives the port's main path
-(``BlurVFIPipeline``, blurry VFI 11+1, production width ``RefidConfig()``
-with seeded random weights) against the same pipeline on the CPU, then
-serves full-size 1280x720 windows with 2**20 events in float32 and bf16.
+against its plain PyTorch version on the card, and drives the port's two
+main paths with production-width ``RefidConfig()`` networks and seeded
+random weights:
+
+* serving (K1): ``BlurVFIPipeline``, blurry VFI 11+1, against the same
+  pipeline on the CPU, then full-size 1280x720 windows with 2**20 events in
+  float32 and bf16;
+* training (K2): one optimiser step on the card against the CPU, then the
+  recipe ``options/train/GoPro/Final_bidirectionEncoder_XXNet_1attenfusion.yml``
+  (validation removed) through ``python -m refid_tpu_torch.cli.train``'s
+  ``main`` on a synthetic 1280x720 GoPro tree written to a temporary
+  directory, in float32 and bf16, and a fixed batch overfitted for 10 steps.
+
 Each phase prints one JSON line; the last two lines are the ``kernels``
 line and ``{"ok": true, "device": {...}}``.  Any failed phase exits
 non-zero without the ``ok`` line; so does a machine without CUDA.
 """
 
 import json
+import logging
 import math
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
 from refid_tpu_torch import BlurVFIPipeline, RefidConfig
+from refid_tpu_torch.cli import train as train_cli
+from refid_tpu_torch.data.img_util import png_encode
 from refid_tpu_torch.events import voxel_cuda
-from refid_tpu_torch.events.voxel import voxelize_padded_reference
+from refid_tpu_torch.events.voxel import (
+    events_to_voxel_grid_reference, voxelize_padded_reference,
+)
+from refid_tpu_torch.models.convert import known_unused_keys
 from refid_tpu_torch.models.refid import FinalBidirectionAttenfusion
 from refid_tpu_torch.ops import build
+from refid_tpu_torch.tasks.base import to_nchw
+from refid_tpu_torch.train.losses import charbonnier_loss
+from refid_tpu_torch.train.trainer import Trainer
 
 # H100 SXM peaks (NVIDIA data sheet): HBM rate and float32 non-tensor rate
 HBM_BYTES_PER_S = 3.35e12
@@ -36,6 +56,10 @@ F32_OPS_PER_S = 67e12
 
 BINS, WIDTH, HEIGHT = 24, 1280, 720      # blurry VFI 11+1 at 720p
 FULL_EVENTS = 1 << 20
+RECIPE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "options",
+                      "train", "GoPro", "Final_bidirectionEncoder_XXNet_1attenfusion.yml")
+TRAIN_ITERS = 8
+OVERFIT_STEPS = 10
 KERNEL_TOL = 1e-4   # f32 atomics add in varying order; a cell sums a few votes of |v| <= 1
 PARITY_DB = 60.0
 
@@ -132,6 +156,42 @@ def phase_kernel_check():
     return max(errs.values()), main, cap - 1000
 
 
+def phase_grid_kernel_check():
+    """K2 (numpy in, numpy out) against its plain version on the card."""
+    rng = np.random.RandomState(3)
+    main = random_events(rng, FULL_EVENTS, WIDTH, HEIGHT)
+    same_t = random_events(rng, 5000, WIDTH, HEIGHT)
+    same_t[:, 0] = 123.5
+    outside = random_events(rng, 20000, WIDTH, HEIGHT)
+    outside[:, 1] = rng.randint(-8, WIDTH + 8, 20000)
+    outside[:, 2] = rng.randint(-8, HEIGHT + 8, 20000)
+    cases = {
+        "main_chw": (main, BINS, "CHW"),
+        "main_hwc": (main, BINS, "HWC"),
+        "empty": (np.zeros((0, 4), np.float32), BINS, "HWC"),
+        "equal_stamps": (same_t, BINS, "HWC"),
+        "out_of_frame": (outside, BINS, "HWC"),
+        "two_bins": (random_events(rng, 200000, WIDTH, HEIGHT), 2, "HWC"),
+    }
+    errs, votes = {}, {}
+    for name, (ev, bins, fmt) in cases.items():
+        got = voxel_cuda.events_to_voxel_grid_cuda(ev, bins, WIDTH, HEIGHT, fmt)
+        want = events_to_voxel_grid_reference(
+            torch.from_numpy(ev).cuda(), bins, WIDTH, HEIGHT, fmt).cpu().numpy()
+        shape = (HEIGHT, WIDTH, bins) if fmt == "HWC" else (bins, HEIGHT, WIDTH)
+        check(isinstance(got, np.ndarray) and got.shape == shape,
+              f"voxel_grid {name}: shape {getattr(got, 'shape', None)}")
+        errs[name] = float(np.abs(got - want).max())
+        votes[name] = int((got != 0).sum())
+        check(errs[name] <= KERNEL_TOL,
+              f"voxel_grid {name}: max|diff| {errs[name]} > {KERNEL_TOL}")
+    check(votes["empty"] == 0 and min(v for k, v in votes.items() if k != "empty") > 0,
+          f"unexpected nonzero cell counts {votes}")
+    emit("kernel_check", kernel="voxel_grid", max_abs_err=errs, tol=KERNEL_TOL,
+         nonzero_cells=votes)
+    return max(errs.values()), main
+
+
 def phase_kernel_timing(events, n_valid):
     ev_d = torch.from_numpy(events).cuda()
     ms = cuda_ms(lambda: voxel_cuda.voxelize_cuda(ev_d, n_valid, BINS, WIDTH, HEIGHT), 50)
@@ -146,6 +206,36 @@ def phase_kernel_timing(events, n_valid):
               "library_ms": None}
     emit("kernel_timing", kernel="voxelize", n_valid=n_valid, bytes=bytes_moved,
          **timing)
+    return timing
+
+
+def phase_grid_kernel_timing(events, calls=20):
+    """K2 at the datasets' shape (2**20 events, 24 bins, 720x1280, HWC):
+    the wrapper's own CUDA-event split of upload, zeroing + kernel, and the
+    copy back to pinned host memory, the host-clock wall time of a call, and
+    the plain version on the card."""
+    for _ in range(3):
+        voxel_cuda.events_to_voxel_grid_cuda(events, BINS, WIDTH, HEIGHT, "HWC")
+    voxel_cuda.reset_grid_stats()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        voxel_cuda.events_to_voxel_grid_cuda(events, BINS, WIDTH, HEIGHT, "HWC")
+    wall_ms = (time.perf_counter() - t0) * 1e3 / calls
+    per = {k: v / calls for k, v in voxel_cuda.GRID_TIMES.items()}
+    ev_d = torch.from_numpy(events).cuda()
+    plain_ms = cuda_ms(lambda: events_to_voxel_grid_reference(
+        ev_d, BINS, WIDTH, HEIGHT, "HWC"), 10)
+    n = events.shape[0]
+    bytes_moved = n * 16 + BINS * HEIGHT * WIDTH * 4
+    bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
+    ops_ms = n * 16 / F32_OPS_PER_S * 1e3
+    timing = {"ms": per["kernel_ms"], "plain_ms": plain_ms,
+              "bound_ms": max(bytes_ms, ops_ms),
+              "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+              "library_ms": None}
+    emit("kernel_timing", kernel="voxel_grid", events=n, format="HWC",
+         bytes=bytes_moved, upload_ms=per["upload_ms"], copy_ms=per["copy_ms"],
+         wall_ms=wall_ms, **timing)
     return timing
 
 
@@ -227,14 +317,21 @@ def phase_serve(pipe, requests, dtype_name, conv_flops):
 
 
 def phase_profile(pipe, request, window_ms, top=12):
-    """One bf16 window under torch.profiler: device time by kernel, and the
-    device's idle share against the unprofiled window time."""
+    """One bf16 window under torch.profiler."""
+    def run():
+        with torch.autocast("cuda", dtype=torch.bfloat16):
+            pipe(*request)
+    profile_window("profile", run, window_ms, top)
+
+
+def profile_window(phase, run, window_ms, top=12):
+    """``run()`` under torch.profiler: device time by kernel, and the
+    device's idle share against the unprofiled wall time ``window_ms``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        with torch.autocast("cuda", dtype=torch.bfloat16):
-            pipe(*request)
+        run()
         torch.cuda.synchronize()
     by_name = {}
     for e in prof.events():
@@ -245,11 +342,168 @@ def phase_profile(pipe, request, window_ms, top=12):
     busy_ms = sum(ms for ms, _ in by_name.values())
     check(busy_ms > 0, "the profiler recorded no device time")
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])
-    emit("profile", dtype="bf16", device_busy_ms=busy_ms, window_ms=window_ms,
+    emit(phase, dtype="bf16", device_busy_ms=busy_ms, window_ms=window_ms,
          idle_share=max(0.0, 1.0 - busy_ms / window_ms),
          kernel_launches=sum(n for _, n in by_name.values()),
          top=[{"kernel": name[:90], "ms": ms, "launches": n,
                "share": ms / busy_ms} for name, (ms, n) in ranked[:top]])
+
+
+def write_gopro_tree(root, seed=0, num_blur=4, num_gt=48, num_windows=47,
+                     events_per_window=FULL_EVENTS // BINS):
+    """A GoPro-layout tree at 1280x720, one video: ``num_blur`` blur frames,
+    ``num_gt`` gt frames (PNG, the port's writer) and ``num_windows`` event
+    windows, so that one blur-VFI 11+1 item votes about 2**20 events."""
+    rng = np.random.RandomState(seed)
+    video = os.path.join(root, "train", "SYNTH")
+    ev_dir = os.path.join(root, "train_event", "SYNTH")
+    for sub in ("blur", "gt"):
+        os.makedirs(os.path.join(video, sub), exist_ok=True)
+    os.makedirs(ev_dir, exist_ok=True)
+    # smooth frames: a coarse random field, upsampled, plus noise
+    coarse = rng.rand(num_blur + num_gt, HEIGHT // 40, WIDTH // 40, 3) * 200
+    for k in range(num_blur + num_gt):
+        img = np.kron(coarse[k], np.ones((40, 40, 1))) + rng.rand(HEIGHT, WIDTH, 3) * 55
+        sub, idx = ("blur", k) if k < num_blur else ("gt", k - num_blur)
+        with open(os.path.join(video, sub, "%06d.png" % idx), "wb") as f:
+            f.write(png_encode(img.astype(np.uint8)))
+    for k in range(num_windows):
+        n = events_per_window
+        np.savez(os.path.join(ev_dir, "%06d.npz" % k),
+                 timestamp=np.sort(rng.uniform(k * 1e4, (k + 1) * 1e4, n)).astype(np.float32),
+                 x=rng.randint(0, WIDTH, n).astype(np.int16),
+                 y=rng.randint(0, HEIGHT, n).astype(np.int16),
+                 polarity=rng.randint(0, 2, n).astype(np.int8))
+
+
+def recipe_overrides(opt, data_root, name, dtype):
+    """The production recipe as ``chip_smoke`` trains it: validation removed
+    (it comes with the eval slice), the synthetic tree, a log line per
+    iteration, no periodic checkpoints, no TensorBoard, and the compute
+    dtype.  Everything else (network, crop, flips, sampler, loader,
+    optimiser, schedule, loss, remat) is the recipe's."""
+    opt = json.loads(json.dumps(opt))
+    opt.pop("val", None)
+    opt["datasets"].pop("val", None)
+    opt["name"] = name
+    opt["datasets"]["train"].update(dataroot=data_root, video_list=["SYNTH"])
+    opt["logger"].update(print_freq=1, save_checkpoint_freq=0, use_tb_logger=False)
+    if dtype == "bf16":
+        opt["network_g"]["compute_dtype"] = "bfloat16"
+    return opt
+
+
+def phase_train_parity(state):
+    """One optimiser step of the recipe's network and optimiser, t=23 on a
+    32x48 crop, on the card (TF32 off) and on the CPU from the same weights
+    and batch."""
+    import yaml
+
+    with open(RECIPE) as f:
+        train_opt = yaml.safe_load(f)["train"]
+    set_tf32(False)
+    rng = np.random.RandomState(4)
+    h, w, t = 32, 48, 23
+    batch = [rng.rand(1, h, w, 26), rng.randn(1, t, h, w, 2), rng.rand(1, t, h, w, 3)]
+    results = {}
+    for device in ("cuda", "cpu"):
+        net = FinalBidirectionAttenfusion(RefidConfig(remat=True))
+        net.load_state_dict(state)
+        net.to(device)
+        trainer = Trainer(net, charbonnier_loss, train_opt, train_opt["total_iter"],
+                          frozen=known_unused_keys(net))
+        before = {k: p.detach().clone() for k, p in trainer.named}
+        args = [to_nchw(torch.from_numpy(a.astype(np.float32)).to(device)) for a in batch]
+        metrics = trainer.train_step(*args)
+        after = {k: p.detach().float().cpu() for k, p in trainer.named}
+        results[device] = (float(metrics["loss"]), float(metrics["grad_norm"]),
+                           torch.cat([(after[k] - before[k].cpu()).flatten() for k in after]),
+                           torch.cat([after[k].flatten() for k in after]))
+    (lc, gc, dc, pc), (lp, gp, dp, pp) = results["cuda"], results["cpu"]
+    update_db, params_db = parity_db(dp, dc), parity_db(pp, pc)
+    emit("train_parity", shape=[32, 48], t=23, loss_cuda=lc, loss_cpu=lp,
+         loss_rel_diff=abs(lc - lp) / abs(lp), grad_norm_rel_diff=abs(gc - gp) / abs(gp),
+         update_db=update_db, params_db=params_db, min_db=PARITY_DB)
+    check(math.isfinite(lc) and abs(lc - lp) / abs(lp) < 1e-4,
+          f"train step loss card {lc} vs CPU {lp}")
+    check(update_db >= PARITY_DB and params_db >= PARITY_DB,
+          f"train step card vs CPU: update {update_db:.1f} dB, params "
+          f"{params_db:.1f} dB < {PARITY_DB}")
+
+
+def phase_train(data_root, work, dtype):
+    """The recipe through the train CLI's ``main``; returns the task."""
+    import yaml
+
+    with open(RECIPE) as f:
+        opt = recipe_overrides(yaml.safe_load(f), data_root, f"chip_smoke_{dtype}", dtype)
+    path = os.path.join(work, f"{dtype}.yml")
+    with open(path, "w") as f:
+        yaml.safe_dump(opt, f)
+    voxel_cuda.reset_grid_stats()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    task = train_cli.main(["-opt", path, "--root", work, "--max-iters", str(TRAIN_ITERS)])
+    seconds = time.perf_counter() - t0
+    timing = dict(task.train_loader.dataset.timing)
+    items, launches = timing.pop("items"), voxel_cuda.GRID_LAUNCHES
+    losses = [h["loss"] for h in task.history]
+    step_ms = [h["time"] * 1e3 for h in task.history]
+    check(len(losses) == TRAIN_ITERS and all(math.isfinite(v) for v in losses),
+          f"{dtype} training losses {losses}")
+    check(items > 0 and launches == items,
+          f"{dtype} training: K2 launched {launches} times for {items} items")
+    per_item = {k: v / items for k, v in timing.items()}
+    per_item.update({k.replace("_ms", "_cuda_ms"): v / launches
+                     for k, v in voxel_cuda.GRID_TIMES.items()})
+    emit("train", dtype=dtype, iters=TRAIN_ITERS, crop=opt["datasets"]["train"]["gt_size"],
+         t=23, losses=losses, step_ms=step_ms,
+         mean_step_ms_after_first=sum(step_ms[1:]) / len(step_ms[1:]),
+         items_loaded=items, voxel_grid_launches=launches, data_ms_per_item=per_item,
+         max_memory_allocated=torch.cuda.max_memory_allocated(), seconds=seconds)
+    return task, launches
+
+
+def timed_steps(task, batch, steps):
+    """Host-clock ms of each of ``steps`` train steps on one host batch
+    (copy to the card included, no data loading), and their losses."""
+    losses, ms = [], []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(float(task.train_step(batch)["loss"]))   # syncs
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return losses, ms
+
+
+def phase_overfit(task):
+    """One fixed batch from the loader, OVERFIT_STEPS steps: the loss falls."""
+    batch = next(iter(task.train_loader))
+    losses, ms = timed_steps(task, batch, OVERFIT_STEPS)
+    emit("overfit", dtype="f32", steps=OVERFIT_STEPS, losses=losses, step_ms=ms,
+         mean_step_ms_after_first=sum(ms[1:]) / len(ms[1:]))
+    check(all(math.isfinite(v) for v in losses) and losses[-1] < losses[0],
+          f"fixed-batch loss did not fall: {losses}")
+    return batch
+
+
+def phase_train_profile(task, batch, top=12):
+    """bf16 training steps on one fixed batch: the batch's copy to the card
+    alone, host-clock step times without data loading, and one step under
+    torch.profiler against that step time."""
+    h2d = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        task._ready(task._to_device(batch))
+        torch.cuda.synchronize()
+        h2d.append((time.perf_counter() - t0) * 1e3)
+    _, ms = timed_steps(task, batch, 4)
+    step_ms = sum(ms[1:]) / len(ms[1:])
+    emit("train_fixed_batch", dtype="bf16", h2d_ms=h2d, step_ms=ms,
+         mean_step_ms_after_first=step_ms,
+         batch_bytes=sum(v.nbytes for v in batch.values() if isinstance(v, np.ndarray)))
+    profile_window("train_profile", lambda: task.train_step(batch), step_ms, top)
 
 
 def main():
@@ -271,6 +525,8 @@ def main():
 
     max_err, events, n_valid = phase_kernel_check()
     timing = phase_kernel_timing(events, n_valid)
+    grid_err, grid_events = phase_grid_kernel_check()
+    grid_timing = phase_grid_kernel_timing(grid_events)
 
     model = FinalBidirectionAttenfusion(RefidConfig())
     fill_random(model, seed=0)
@@ -293,13 +549,40 @@ def main():
           f"voxelize launched {launches} times for {2 * len(requests)} windows")
     emit("serve_bf16_vs_f32", db=parity_db(out32.float(), out16.float()))
     phase_profile(pipe, requests[-1], bf16_ms)
+    del pipe, requests, out32, out16
+
+    phase_train_parity(state)
+    logging.getLogger("refid_tpu_torch").setLevel(logging.WARNING)   # the CLI's log
+    with tempfile.TemporaryDirectory() as work:
+        data_root = os.path.join(work, "gopro")
+        t0 = time.perf_counter()
+        write_gopro_tree(data_root)
+        emit("train_data", seconds=time.perf_counter() - t0, frame=[HEIGHT, WIDTH],
+             events_per_item=FULL_EVENTS // BINS * BINS)
+        torch.backends.cudnn.allow_tf32 = True       # PyTorch's defaults
+        torch.backends.cuda.matmul.allow_tf32 = False
+        voxel_cuda.LAUNCHES = 0                    # the training path starts here
+        task, grid_launches = phase_train(data_root, work, "f32")
+        phase_overfit(task)
+        del task
+        task, bf16_launches = phase_train(data_root, work, "bf16")
+        grid_launches += bf16_launches
+        check(voxel_cuda.LAUNCHES == 0, "training launched the serving voxelizer K1")
+        batch = next(iter(task.train_loader))
+        phase_train_profile(task, batch)            # ... and ends here
+        del task
 
     print(smi, flush=True)
     print(json.dumps({"kernels": [{
         "name": "voxelize", "route": "cuda",
         "source": "refid_tpu_torch/csrc/voxelize.cu",
         "replaces": "refid_tpu/events/voxel_pallas.py:311",
-        "launches": launches, "max_abs_err": max_err, **timing}]}), flush=True)
+        "launches": launches, "max_abs_err": max_err, **timing}, {
+        "name": "voxel_grid", "route": "cuda",
+        "source": "refid_tpu_torch/csrc/voxelize.cu",
+        "replaces": "refid_tpu/events/voxel_pallas.py:129",
+        "launches": grid_launches, "max_abs_err": grid_err, **grid_timing}]}),
+        flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}),
           flush=True)

@@ -1,0 +1,143 @@
+"""Training CLI: ``python -m refid_tpu_torch.cli.train -opt <yml>``
+(mirrors ``refid_tpu/cli/train.py``).
+
+One process on one card (``--device``, default ``cuda``; ``cpu`` runs the
+plain versions).  Reads the reference's option files through the port's
+own ``parse_options``; ``--max-iters`` overrides ``train.total_iter``.
+Validation is not ported yet: options that ask for it (``val.val_freq >
+0`` or a ``val*`` dataset) raise instead of training without it.
+
+:func:`train` is what :func:`main` calls after parsing, for callers that
+build the option dict themselves.  It returns the task, with
+``task.train_loader`` and ``task.history`` (the logged iterations: loss,
+grad norm, lr and seconds since the previous iteration ended).
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import random
+import time
+
+import numpy as np
+import torch
+
+from refid_tpu_torch.core.config import dict2str, parse_options
+from refid_tpu_torch.core.device import resolve_device
+from refid_tpu_torch.core.logging_util import MessageLogger, get_root_logger
+from refid_tpu_torch.data.loader import build_dataset, build_loader
+from refid_tpu_torch.tasks import build_task
+from refid_tpu_torch.tasks.recurrent import VALIDATION_NOT_PORTED
+
+__all__ = ["main", "parse_args", "train"]
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(prog="python -m refid_tpu_torch.cli.train")
+    p.add_argument("-opt", required=True, help="Path to YAML option file.")
+    p.add_argument("--root", default=None,
+                   help="Experiment root (default: cwd).")
+    p.add_argument("--max-iters", type=int, default=None,
+                   help="Override train.total_iter (smoke runs).")
+    p.add_argument("--device", default="cuda",
+                   help="Device to train on (default: cuda; cpu runs the "
+                        "plain versions of the kernels).")
+    return p.parse_args(argv)
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    opt = parse_options(args.opt, is_train=True, root=args.root)
+    if args.max_iters:
+        opt["train"]["total_iter"] = args.max_iters
+    return train(opt, args.device)
+
+
+def _refuse_validation(opt: dict) -> None:
+    val_freq = int((opt.get("val") or {}).get("val_freq", 0) or 0)
+    val_sets = [p for p in opt.get("datasets", {}) if p.startswith("val")]
+    if val_freq > 0 or val_sets:
+        raise NotImplementedError(
+            f"{VALIDATION_NOT_PORTED}; the options ask for it (val.val_freq="
+            f"{val_freq}, datasets {val_sets}): remove the val section and "
+            "the val datasets to train")
+
+
+def train(opt: dict, device="cuda"):
+    device = resolve_device(device)
+    _refuse_validation(opt)
+
+    seed = opt.get("manual_seed", 0) or 0
+    random.seed(seed)
+    np.random.seed(seed)
+    torch.manual_seed(seed)
+
+    os.makedirs(opt["path"]["experiments_root"], exist_ok=True)
+    logger = get_root_logger(
+        log_file=f"{opt['path']['log']}/train_{opt['name']}.log")
+    logger.info(f"device: {device}" + (f" ({torch.cuda.get_device_name(device)})"
+                                       if device.type == "cuda" else ""))
+    logger.info(dict2str(opt))
+
+    dataset_opt = opt["datasets"].get("train")
+    if dataset_opt is None:
+        raise ValueError("no train dataset in options")
+    dataset_opt.setdefault("seed", seed)
+    train_set = build_dataset(dataset_opt, device)
+    train_loader = build_loader(train_set, dataset_opt, True, seed)
+    logger.info(f"train dataset: {len(train_set)} items, "
+                f"{len(train_loader)} batches/epoch")
+    if len(train_loader) == 0:
+        raise ValueError(
+            "train loader is empty: batch_size_per_gpu exceeds the enlarged "
+            "dataset; raise dataset_enlarge_ratio or lower batch_size_per_gpu")
+
+    task = build_task(opt, device)
+    task.train_loader = train_loader
+    pretrain = opt["path"].get("pretrain_network_g")
+    if pretrain:
+        task.load_pretrained(pretrain)
+        logger.info(f"loaded pretrained weights from {pretrain}")
+    else:
+        task.init_params(seed)
+    task.setup_train_state()
+    if task.auto_resume():
+        logger.info(f"auto-resumed from iter {task.start_iter}")
+
+    total_iter = opt["train"]["total_iter"]
+    print_freq = opt.get("logger", {}).get("print_freq", 100)
+    save_freq = int(opt.get("logger", {}).get("save_checkpoint_freq", 0) or 0)
+    msg_logger = MessageLogger(opt, task.start_iter + 1)
+
+    current_iter = task.start_iter
+    epoch = task.start_epoch
+    t_iter = time.time()
+    logger.info(f"start training from iter {current_iter} to {total_iter}")
+    while current_iter < total_iter:
+        train_loader.set_epoch(epoch)
+        for dev_batch in task.device_prefetch(train_loader):
+            if current_iter >= total_iter:
+                break
+            current_iter += 1
+            metrics = task.train_step_device(dev_batch)
+            if current_iter % print_freq == 0:
+                log_vars = {"iter": current_iter, "epoch": epoch,
+                            "lr": task.current_lr()}
+                log_vars.update({k: float(v) for k, v in metrics.items()})
+                log_vars["time"] = time.time() - t_iter   # after the sync above
+                task.history.append(dict(log_vars))
+                msg_logger(log_vars)
+            t_iter = time.time()
+            if save_freq and current_iter % save_freq == 0:
+                logger.info(f"saving checkpoint at iter {current_iter}")
+                task.save(current_iter, epoch)
+        epoch += 1
+
+    logger.info("training complete; saving final checkpoint")
+    task.save(current_iter, epoch)
+    return task
+
+
+if __name__ == "__main__":
+    main()

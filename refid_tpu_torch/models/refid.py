@@ -18,6 +18,12 @@ Parity notes, as in the JAX package:
   * The first bottleneck resblock adds the deepest image feature; the
     prediction conv runs on ``decoder output + image head`` with no output
     activation.
+
+Training options, as in the JAX config: ``remat`` recomputes each
+backward and forward recurrent step in the backward pass
+(``torch.utils.checkpoint``, the JAX package's ``nn.remat`` of
+``_BackwardStep`` / ``_ForwardStep``); ``dtype=torch.bfloat16`` runs the
+network under bf16 autocast with float32 parameters and returns float32.
 """
 
 from __future__ import annotations
@@ -27,6 +33,7 @@ from typing import Optional, Tuple
 
 import torch
 import torch.nn as nn
+from torch.utils.checkpoint import checkpoint
 
 from refid_tpu_torch.models.layers import (
     ConvLayer, ImageEncoderConvBlock, ResidualBlock,
@@ -53,6 +60,9 @@ class RefidConfig:
     num_residual_blocks: int = 2  # bottleneck resblocks
     atten_fuse_at: Tuple[int, ...] = (1,)
     aliased_backward_states: bool = True
+    remat: bool = False           # recompute recurrent steps in the backward
+    remat_policy: str = "all"     # only 'all' (recompute everything) is ported
+    dtype: Optional[torch.dtype] = None   # compute dtype: None (f32) or bf16
     use_first_dcn: bool = False
     bidirectional: bool = True
     recurrent_cell: str = "simpleconv"
@@ -103,6 +113,13 @@ class FinalBidirectionAttenfusion(nn.Module):
                 raise NotImplementedError(
                     f"RefidConfig.{axis}={getattr(cfg, axis)!r} is not ported "
                     f"(only {value!r})")
+        if cfg.remat_policy != "all":
+            raise NotImplementedError(
+                f"RefidConfig.remat_policy={cfg.remat_policy!r} is not ported "
+                "(only 'all')")
+        if cfg.dtype not in (None, torch.float32, torch.bfloat16):
+            raise ValueError(f"RefidConfig.dtype must be None, float32 or "
+                             f"bfloat16, got {cfg.dtype}")
         self.cfg = cfg
         base, ne = cfg.base_num_channels, cfg.num_encoders
         self.head = ConvLayer(cfg.ev_chn, base, 5, 1, 2, 0.2)
@@ -134,18 +151,59 @@ class FinalBidirectionAttenfusion(nn.Module):
 
     def _zero_states(self, b, h, w, like):
         ne, out = self.cfg.num_encoders, self.cfg.encoder_out_sizes
-        enc = [like.new_zeros(b, out[i], h // 2 ** i, w // 2 ** i)
-               for i in range(ne)]
-        dec = [like.new_zeros(b, out[ne - i - 1] // 2,
-                              h // 2 ** (ne - i - 1), w // 2 ** (ne - i - 1))
-               for i in range(ne)]
+        enc = tuple(like.new_zeros(b, out[i], h // 2 ** i, w // 2 ** i)
+                    for i in range(ne))
+        dec = tuple(like.new_zeros(b, out[ne - i - 1] // 2,
+                                   h // 2 ** (ne - i - 1), w // 2 ** (ne - i - 1))
+                    for i in range(ne))
         return enc, dec
 
+    def _backward_step(self, ev_k, y_of, states):
+        """One backward-loop step over all encoder scales; returns the new
+        states."""
+        e = self.head(ev_k)
+        new = []
+        for i, stage in enumerate(self.encoders_backward):
+            e, s = stage(e, y_of[i], states[i])
+            new.append(s)
+        return tuple(new)
+
+    def _forward_step(self, ev_k, y_of, x_last, head, fwd_states, dec_states,
+                      bwd):
+        """One forward-loop step: encoders (fusing ``bwd``), bottleneck,
+        recurrent decoders, prediction.  Returns (frame, fwd_states,
+        dec_states)."""
+        ne = self.cfg.num_encoders
+        e = self.head(ev_k)
+        e_blocks, new = [], []
+        for i, stage in enumerate(self.encoders_forward):
+            e, s = stage(e, y_of[i], fwd_states[i], bwd[i])
+            e_blocks.append(e)
+            new.append(s)
+        for i, block in enumerate(self.resblocks):
+            e = block(e + x_last if i == 0 else e)
+        new_dec = []
+        for i, dec in enumerate(self.decoders):
+            e, s = dec(e + e_blocks[ne - i - 1], dec_states[i])
+            new_dec.append(s)
+        return self.pred(e + head), tuple(new), tuple(new_dec)
+
+    def _step(self, fn, *args):
+        if self.cfg.remat and torch.is_grad_enabled():
+            return checkpoint(fn, *args, use_reentrant=False)
+        return fn(*args)
+
     def forward(self, x, event):
+        if self.cfg.dtype != torch.bfloat16:
+            return self._forward(x, event)
+        with torch.autocast(x.device.type, dtype=torch.bfloat16):
+            out = self._forward(x, event)
+        return out.float()
+
+    def _forward(self, x, event):
         if x.dim() == 5:   # (b, 2, c, h, w) -> (b, 2c, h, w)
             x = torch.cat(x.unbind(1), 1)
         b, t, _, h, w = event.shape
-        ne = self.cfg.num_encoders
 
         head = self.head_img(x)
         x_blocks = []
@@ -153,40 +211,25 @@ class FinalBidirectionAttenfusion(nn.Module):
         for enc in self.img_encoders:
             cur = enc(cur)
             x_blocks.append(cur)
-        y_of = [None] + x_blocks[:-1]   # image feature fused at each scale
+        y_of = tuple([None] + x_blocks[:-1])   # image feature fused at each scale
 
         enc_zero, dec_states = self._zero_states(b, h, w, head)
 
         bwd_states = enc_zero
         bwd_by_time = [None] * t
         for k in range(t - 1, -1, -1):
-            e = self.head(event[:, k])
-            new = []
-            for i, stage in enumerate(self.encoders_backward):
-                e, s = stage(e, y_of[i], bwd_states[i])
-                new.append(s)
-            bwd_states = new
+            bwd_states = self._step(self._backward_step, event[:, k], y_of,
+                                    bwd_states)
             if not self.cfg.aliased_backward_states:
-                bwd_by_time[k] = new
+                bwd_by_time[k] = bwd_states
 
         fwd_states = enc_zero
         outs = []
         for k in range(t):
             bwd = (bwd_states if self.cfg.aliased_backward_states
                    else bwd_by_time[k])
-            e = self.head(event[:, k])
-            e_blocks, new = [], []
-            for i, stage in enumerate(self.encoders_forward):
-                e, s = stage(e, y_of[i], fwd_states[i], bwd[i])
-                e_blocks.append(e)
-                new.append(s)
-            fwd_states = new
-            for i, block in enumerate(self.resblocks):
-                e = block(e + x_blocks[-1] if i == 0 else e)
-            new_dec = []
-            for i, dec in enumerate(self.decoders):
-                e, s = dec(e + e_blocks[ne - i - 1], dec_states[i])
-                new_dec.append(s)
-            dec_states = new_dec
-            outs.append(self.pred(e + head))
+            frame, fwd_states, dec_states = self._step(
+                self._forward_step, event[:, k], y_of, x_blocks[-1], head,
+                fwd_states, dec_states, bwd)
+            outs.append(frame)
         return torch.stack(outs, 1)

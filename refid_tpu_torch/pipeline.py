@@ -19,22 +19,12 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from refid_tpu_torch.core.device import resolve_device
 from refid_tpu_torch.events.voxel import voxel_norm, voxelize_padded
 from refid_tpu_torch.models.convert import load_state
 from refid_tpu_torch.models.refid import FinalBidirectionAttenfusion, RefidConfig
 
 __all__ = ["BlurVFIPipeline", "SharpVFIPipeline"]
-
-
-def _resolve_device(device: Union[str, torch.device]) -> torch.device:
-    """``device`` as a ``torch.device``; raise if it names CUDA and no CUDA
-    device is present (no silent fall back to the CPU)."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"device {str(device)!r} requested but torch.cuda.is_available() "
-            "is False; pass device='cpu' to run on the CPU")
-    return device
 
 
 class BlurVFIPipeline:
@@ -59,7 +49,7 @@ class BlurVFIPipeline:
         if voxelizer not in ("scatter", "pallas"):
             raise ValueError(f"voxelizer must be 'scatter' or 'pallas'; "
                              f"got {voxelizer!r}")
-        self.device = _resolve_device(device)
+        self.device = resolve_device(device)
         self.cfg = cfg
         self.m, self.n = m, n
         self.num_bins = self._derive_num_bins(m, n)

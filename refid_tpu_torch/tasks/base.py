@@ -1,0 +1,179 @@
+"""Task layer, training half (mirrors ``refid_tpu/tasks/base.py``).
+
+A task owns the network (from the ARCHS registry) on its device, the
+:class:`~refid_tpu_torch.train.trainer.Trainer` (optimiser, step, EMA),
+the checkpoint manager, and the move of host batches to the card.
+
+Batches arrive from the datasets as NHWC numpy arrays and go to the
+network as NCHW tensors: lq ``(b, h, w, 26)`` -> ``(b, 26, h, w)``, voxel
+``(b, t, h, w, 2)`` -> ``(b, t, 2, h, w)``, gt ``(b, T, h, w, 3)`` ->
+``(b, T, 3, h, w)``.
+
+The JAX task trains the production config through a width-folded scan
+forward (``refid_tpu/serve/fast_scan.py``), a TPU re-expression that is
+exactly the plain network's math; the port trains the plain
+:class:`FinalBidirectionAttenfusion`, whatever ``train.folded_apply`` says.
+Validation and prediction come with the eval slice.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Dict, Iterable, Optional
+
+import numpy as np
+import torch
+
+from refid_tpu_torch.core.checkpoint import CheckpointManager
+from refid_tpu_torch.core.device import resolve_device
+from refid_tpu_torch.core.registry import ARCHS, MODELS
+from refid_tpu_torch.models import archs as _archs  # noqa: F401 (registers archs)
+from refid_tpu_torch.models.convert import known_unused_keys, load_state
+from refid_tpu_torch.train.losses import build_loss
+from refid_tpu_torch.train.trainer import Trainer
+
+__all__ = ["RestorationTaskBase", "build_task", "to_nchw"]
+
+_DEFAULT_LOSS = {"type": "CharbonnierLoss", "loss_weight": 1.0,
+                 "reduction": "mean"}
+
+
+def build_task(opt: dict, device="cuda"):
+    from refid_tpu_torch.tasks import recurrent  # noqa: F401 (registers tasks)
+    return MODELS.get(opt["model_type"])(opt, device)
+
+
+def to_nchw(x: torch.Tensor) -> torch.Tensor:
+    """Channels from the last axis to the third from last."""
+    return x.movedim(-1, -3).contiguous()
+
+
+class RestorationTaskBase:
+    """Common wiring of the restoration tasks."""
+
+    def __init__(self, opt: dict, device="cuda"):
+        self.opt = opt
+        self.device = resolve_device(device)
+        self.is_train = opt.get("is_train", True)
+        self.net = self._build_net().to(self.device)
+        self.trainer: Optional[Trainer] = None
+        self.start_iter = 0
+        self.start_epoch = 0
+        self.train_loader = None     # set by the train CLI
+        self.history = []            # the CLI's logged iterations
+        self._copy_stream = None
+        if self.is_train and "train" in opt:
+            t = opt["train"]
+            self.loss_fn = build_loss(t.get("pixel_opt", _DEFAULT_LOSS))
+            self.total_iter = t.get("total_iter", 200000)
+            self.ema_decay = t.get("ema_decay")
+        models_dir = opt.get("path", {}).get("models")
+        self.ckpt = CheckpointManager(models_dir) if models_dir else None
+
+    def _build_net(self):
+        return ARCHS.get(self.opt["network_g"]["type"])(self.opt["network_g"])
+
+    # --- parameter lifecycle -------------------------------------------------
+
+    def init_params(self, seed: int = 0):
+        """Fresh parameters from ``seed`` (PyTorch's default inits, drawn
+        from a generator seeded here, whatever the global state)."""
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(seed)
+            fresh = self._build_net()
+        self.net.load_state_dict(fresh.state_dict())
+
+    def load_pretrained(self, path: str, param_key: str = "params"):
+        """Load an upstream ``.pth`` (``params``, else ``params_ema``,
+        ``module.`` prefixes stripped), a port checkpoint file, or the
+        latest checkpoint of a port checkpoint directory.  Only the
+        known-unused parameters may be missing."""
+        if os.path.isdir(path):
+            state = CheckpointManager(path).restore()["params"]
+        else:
+            state = torch.load(path, map_location="cpu", weights_only=True)
+            if param_key in state:
+                state = state[param_key]
+            elif "params_ema" in state:
+                state = state["params_ema"]
+        state = {k[len("module."):] if k.startswith("module.") else k: v
+                 for k, v in state.items()}
+        load_state(self.net, state)
+
+    def setup_train_state(self) -> Trainer:
+        t = self.opt["train"]
+        self.trainer = Trainer(self.net, self.loss_fn, t, self.total_iter,
+                               ema_decay=self.ema_decay,
+                               frozen=known_unused_keys(self.net))
+        return self.trainer
+
+    # --- checkpointing / resume ---------------------------------------------
+
+    def save(self, current_iter: int, epoch: int = 0):
+        if self.ckpt is None:
+            return
+        tr = self.trainer
+        self.ckpt.save(current_iter, self.net.state_dict(),
+                       opt_state=tr.optimizer.state_dict() if tr else None,
+                       ema_params=tr.ema if tr else None, epoch=epoch)
+
+    def auto_resume(self) -> bool:
+        """Resume from the latest checkpoint if one exists."""
+        if self.ckpt is None or self.ckpt.latest_step() is None:
+            return False
+        if self.trainer is None:
+            raise RuntimeError("setup_train_state before auto_resume")
+        restored = self.ckpt.restore()
+        load_state(self.net, restored["params"])
+        self.trainer.load_state_dict({"step": restored["step"],
+                                      "optimizer": restored["opt_state"],
+                                      "ema": restored.get("ema_params")})
+        self.start_iter = int(restored["step"])
+        self.start_epoch = int(restored.get("epoch", 0))
+        return True
+
+    # --- steps ----------------------------------------------------------------
+
+    def _to_device(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+        """The batch's arrays as NCHW tensors on the device.  On CUDA the
+        copies go from pinned memory, without blocking, on a side stream;
+        :meth:`_ready` makes the compute stream wait for them."""
+        arrays = {k: torch.from_numpy(np.ascontiguousarray(v))
+                  for k, v in batch.items() if isinstance(v, np.ndarray)}
+        if self.device.type != "cuda":
+            return {k: to_nchw(v.to(self.device)) for k, v in arrays.items()}
+        if self._copy_stream is None:
+            self._copy_stream = torch.cuda.Stream(self.device)
+        with torch.cuda.stream(self._copy_stream):
+            return {k: to_nchw(v.pin_memory().to(self.device, non_blocking=True))
+                    for k, v in arrays.items()}
+
+    def _ready(self, dev_batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        if self._copy_stream is not None:
+            compute = torch.cuda.current_stream(self.device)
+            compute.wait_stream(self._copy_stream)
+            for v in dev_batch.values():
+                v.record_stream(compute)
+        return dev_batch
+
+    def train_step(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+        return self.train_step_device(self._ready(self._to_device(batch)))
+
+    def train_step_device(self, dev_batch) -> Dict[str, torch.Tensor]:
+        return self.trainer.train_step(dev_batch["lq"], dev_batch["voxel"],
+                                       dev_batch["gt"])
+
+    def device_prefetch(self, batch_iter: Iterable[dict]):
+        """Yield device batches, the copy of batch k+1 issued before batch k
+        is handed out (upstream's CUDAPrefetcher)."""
+        it = iter(batch_iter)
+        nxt = next(it, None)
+        pending = self._to_device(nxt) if nxt is not None else None
+        while pending is not None:
+            nxt = next(it, None)
+            following = self._to_device(nxt) if nxt is not None else None
+            yield self._ready(pending)
+            pending = following
+
+    def current_lr(self) -> float:
+        return self.trainer.current_lr() if self.trainer else 0.0

@@ -64,3 +64,53 @@ def test_voxelize_kernel_rejects_misaligned_buffer(cuda):
     ev = torch.zeros(65, device=cuda)[1:].view(16, 4)
     with pytest.raises(ValueError, match="aligned"):
         voxel_cuda.voxelize_cuda(ev, 4, 3, 8, 8)
+
+
+def _stream(seed, n, w, h, margin=0):
+    return _events(seed, n, n, w, h, margin)
+
+
+@pytest.mark.parametrize("n,bins,w,h,margin,fmt", [
+    (1 << 20, 24, 1280, 720, 0, "HWC"),    # the training datasets' shape
+    (1 << 20, 24, 1280, 720, 0, "CHW"),
+    (0, 24, 1280, 720, 0, "HWC"),          # empty stream: no launch
+    (20000, 24, 1280, 720, 8, "HWC"),      # out-of-frame events
+    (200000, 2, 1280, 720, 0, "HWC"),      # one_voxel_flag: false
+    (1900, 5, 160, 48, 4, "CHW"),
+])
+def test_voxel_grid_kernel_matches_plain(cuda, n, bins, w, h, margin, fmt):
+    from refid_tpu_torch.events.voxel import (
+        events_to_voxel_grid, events_to_voxel_grid_reference,
+    )
+    ev = _stream(2, n, w, h, margin)
+    before = voxel_cuda.GRID_LAUNCHES
+    got = events_to_voxel_grid(ev, bins, w, h, fmt)
+    assert voxel_cuda.GRID_LAUNCHES == before + (1 if n else 0)
+    want = events_to_voxel_grid_reference(torch.from_numpy(ev).to(cuda), bins, w, h,
+                                          fmt).cpu().numpy()
+    assert isinstance(got, np.ndarray) and got.shape == want.shape
+    assert np.abs(got - want).max() <= TOL
+
+
+def test_voxel_grid_kernel_equal_stamps(cuda):
+    ev = _stream(3, 5000, 64, 32)
+    ev[:, 0] = 7.0
+    got = voxel_cuda.events_to_voxel_grid_cuda(ev, 24, 64, 32, "HWC")
+    assert not got[..., 1:].any() and got[..., 0].any()
+
+
+def test_voxel_grid_kernel_from_loader_threads(cuda):
+    """The loader's threads each work on a stream of their own."""
+    from concurrent.futures import ThreadPoolExecutor
+    streams = [_stream(s, 50000, 320, 96) for s in range(8)]
+
+    def work(ev):
+        torch.cuda.set_stream(torch.cuda.Stream(cuda))
+        return voxel_cuda.events_to_voxel_grid_cuda(ev, 24, 320, 96, "HWC")
+
+    with ThreadPoolExecutor(4) as pool:
+        got = list(pool.map(work, streams))
+    for ev, g in zip(streams, got):
+        from refid_tpu_torch.events.voxel import events_to_voxel_grid_reference
+        want = events_to_voxel_grid_reference(torch.from_numpy(ev), 24, 320, 96, "HWC").numpy()
+        assert np.abs(g - want).max() <= TOL

@@ -1,5 +1,7 @@
-"""refid_tpu_torch stands alone: it imports with jax, flax and refid_tpu blocked,
-and no module of it (nor chip_smoke.py) names them in an import statement."""
+"""refid_tpu_torch stands alone: it imports with jax, flax and refid_tpu blocked
+(and with cv2 and yaml blocked: the port reads PNG itself, and yaml is needed
+only when an option file is parsed), and no module of it (nor chip_smoke.py)
+names them in an import statement."""
 
 import ast
 import os
@@ -12,10 +14,11 @@ import pytest
 REPO = Path(__file__).resolve().parent.parent
 PKG = REPO / "refid_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "flax", "refid_tpu")
+OPTIONAL = ("cv2", "yaml")
 
 _IMPORT_ALL = f"""
 import importlib, pkgutil, sys
-for name in {FORBIDDEN!r}:
+for name in {FORBIDDEN + OPTIONAL!r}:
     sys.modules[name] = None     # any import of it now raises ImportError
 import refid_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(refid_tpu_torch.__path__,
@@ -31,7 +34,7 @@ def test_every_module_imports_with_jax_and_refid_tpu_blocked():
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 12
+    assert int(out.stdout.split()[-1]) >= 30
 
 
 def _imported_modules(path):
@@ -48,6 +51,17 @@ def test_no_import_names_the_jax_package(path):
     bad = [m for m in _imported_modules(path)
            if m.split(".")[0] in FORBIDDEN]
     assert not bad, f"{path.name} imports {bad}"
+
+
+def test_yaml_is_needed_only_to_parse_a_file(tmp_path):
+    env = {**os.environ, "PYTHONPATH": str(REPO)}
+    code = ("import sys; sys.modules['yaml'] = None\n"
+            "from refid_tpu_torch.cli import train\n"
+            "try:\n    train.main(['-opt', 'x.yml'])\n"
+            "except ImportError:\n    print('needs yaml')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.stdout.strip() == "needs yaml", out.stderr
 
 
 def test_import_builds_nothing():
