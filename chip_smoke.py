@@ -17,7 +17,10 @@ random weights:
   recipe ``options/train/GoPro/Final_bidirectionEncoder_XXNet_1attenfusion.yml``
   (validation removed) through ``python -m refid_tpu_torch.cli.train``'s
   ``main`` on a synthetic 1280x720 GoPro tree written to a temporary
-  directory, in float32 and bf16, and a fixed batch overfitted for 10 steps.
+  directory, in float32 and bf16, and a fixed batch overfitted for 10 steps;
+* the probes (P1-P4): ``python -m refid_tpu_torch.probes.band_conv``'s and
+  ``python -m refid_tpu_torch.probes.poison``'s ``main`` at the serving
+  geometry, after P1-P4 are held against their plain versions.
 
 Each phase prints one JSON line; the last two lines are the ``kernels``
 line and ``{"ok": true, "device": {...}}``.  Any failed phase exits
@@ -38,6 +41,7 @@ import torch
 
 from refid_tpu_torch import BlurVFIPipeline, RefidConfig
 from refid_tpu_torch.cli import train as train_cli
+from refid_tpu_torch.core.device import time_ms
 from refid_tpu_torch.data.img_util import png_encode
 from refid_tpu_torch.events import voxel_cuda
 from refid_tpu_torch.events.voxel import (
@@ -45,14 +49,19 @@ from refid_tpu_torch.events.voxel import (
 )
 from refid_tpu_torch.models.convert import known_unused_keys
 from refid_tpu_torch.models.refid import FinalBidirectionAttenfusion
-from refid_tpu_torch.ops import build
+from refid_tpu_torch.ops import build, probe_cuda
+from refid_tpu_torch.probes import band_conv as probe_bc
+from refid_tpu_torch.probes import poison as probe_poison
 from refid_tpu_torch.tasks.base import to_nchw
 from refid_tpu_torch.train.losses import charbonnier_loss
 from refid_tpu_torch.train.trainer import Trainer
 
-# H100 SXM peaks (NVIDIA data sheet): HBM rate and float32 non-tensor rate
+# H100 SXM peaks (NVIDIA data sheet): HBM rate, float32 non-tensor rate, and
+# dense tensor-core rates in bf16 and int8
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12
+INT8_OPS_PER_S = 1979e12
 
 BINS, WIDTH, HEIGHT = 24, 1280, 720      # blurry VFI 11+1 at 720p
 FULL_EVENTS = 1 << 20
@@ -62,6 +71,9 @@ TRAIN_ITERS = 8
 OVERFIT_STEPS = 10
 KERNEL_TOL = 1e-4   # f32 atomics add in varying order; a cell sums a few votes of |v| <= 1
 PARITY_DB = 60.0
+CUDA = torch.device("cuda")
+P3_STEPS = 2.0      # bf16 steps per element: float32 sums in another order
+POISON_VARIANTS = ["torch", "cuda", "cuda_b16", "tiny", "convert"]
 
 
 def emit(phase, **fields):
@@ -79,6 +91,15 @@ def smi_line():
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
 
 
+def bound(bytes_moved, ops, ops_per_s):
+    """The least time the card could take: bytes at the HBM rate or
+    operations at ``ops_per_s``, whichever is longer."""
+    bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / ops_per_s * 1e3
+    return {"bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
 def random_events(rng, n, width, height, cap=None, t_span=5e4):
     """``cap`` x 4 float32 buffer: n time-sorted in-frame events, then zeros."""
     ev = np.zeros((cap or n, 4), np.float32)
@@ -87,19 +108,6 @@ def random_events(rng, n, width, height, cap=None, t_span=5e4):
     ev[:n, 2] = rng.randint(0, height, n)
     ev[:n, 3] = rng.randint(0, 2, n)
     return ev
-
-
-def cuda_ms(fn, iters, warmup=3):
-    for _ in range(warmup):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
 
 
 def fill_random(model, seed):
@@ -194,15 +202,12 @@ def phase_grid_kernel_check():
 
 def phase_kernel_timing(events, n_valid):
     ev_d = torch.from_numpy(events).cuda()
-    ms = cuda_ms(lambda: voxel_cuda.voxelize_cuda(ev_d, n_valid, BINS, WIDTH, HEIGHT), 50)
-    plain_ms = cuda_ms(lambda: voxelize_padded_reference(ev_d, n_valid, BINS, WIDTH, HEIGHT), 20)
+    ms = time_ms(lambda: voxel_cuda.voxelize_cuda(ev_d, n_valid, BINS, WIDTH, HEIGHT), 50, CUDA)
+    plain_ms = time_ms(lambda: voxelize_padded_reference(ev_d, n_valid, BINS, WIDTH, HEIGHT), 20, CUDA)
     # each valid event row read once, the grid written once
     bytes_moved = n_valid * 16 + BINS * HEIGHT * WIDTH * 4
     ops = n_valid * 16   # rescale, truncate, two votes: ~16 f32 operations
-    bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
-    ops_ms = ops / F32_OPS_PER_S * 1e3
-    timing = {"ms": ms, "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
-              "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+    timing = {"ms": ms, "plain_ms": plain_ms, **bound(bytes_moved, ops, F32_OPS_PER_S),
               "library_ms": None}
     emit("kernel_timing", kernel="voxelize", n_valid=n_valid, bytes=bytes_moved,
          **timing)
@@ -223,16 +228,12 @@ def phase_grid_kernel_timing(events, calls=20):
     wall_ms = (time.perf_counter() - t0) * 1e3 / calls
     per = {k: v / calls for k, v in voxel_cuda.GRID_TIMES.items()}
     ev_d = torch.from_numpy(events).cuda()
-    plain_ms = cuda_ms(lambda: events_to_voxel_grid_reference(
-        ev_d, BINS, WIDTH, HEIGHT, "HWC"), 10)
+    plain_ms = time_ms(lambda: events_to_voxel_grid_reference(
+        ev_d, BINS, WIDTH, HEIGHT, "HWC"), 10, CUDA)
     n = events.shape[0]
     bytes_moved = n * 16 + BINS * HEIGHT * WIDTH * 4
-    bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
-    ops_ms = n * 16 / F32_OPS_PER_S * 1e3
     timing = {"ms": per["kernel_ms"], "plain_ms": plain_ms,
-              "bound_ms": max(bytes_ms, ops_ms),
-              "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-              "library_ms": None}
+              **bound(bytes_moved, n * 16, F32_OPS_PER_S), "library_ms": None}
     emit("kernel_timing", kernel="voxel_grid", events=n, format="HWC",
          bytes=bytes_moved, upload_ms=per["upload_ms"], copy_ms=per["copy_ms"],
          wall_ms=wall_ms, **timing)
@@ -506,6 +507,142 @@ def phase_train_profile(task, batch, top=12):
     profile_window("train_profile", lambda: task.train_step(batch), step_ms, top)
 
 
+def kernel_device_ms(fn, iters, name_part):
+    """Device time per launch of the kernels whose name holds ``name_part``
+    over ``iters`` calls of ``fn()``, from torch.profiler: for a kernel
+    whose calls the host cannot launch as fast as the card runs them."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = [e.time_range.elapsed_us() for e in prof.events()
+          if e.device_type == DeviceType.CUDA and name_part in e.name]
+    # the profiler may drop some device records of a long session: average
+    # those it kept
+    check(0 < len(us) <= iters, f"profiler saw {len(us)} {name_part} launches for {iters} calls")
+    return sum(us) / len(us) / 1e3
+
+
+def _probe_d(gen, dtype):
+    """The poison probe's scale-1 activation: (1, 64, 360, 640) channels_last."""
+    return (torch.randn(1, 64, 360, 640, generator=gen) * 50).to("cuda", dtype).contiguous(
+        memory_format=torch.channels_last)
+
+
+def phase_probe_kernel_check():
+    """P1-P4 against their plain versions on the card at the probes' shapes:
+    P1 and P2 bit-exact in bf16 and float32 on the poison probe's
+    (1, 64, 360, 640); P3 within P3_STEPS bf16 steps (floored near zero) and
+    >= PARITY_DB at (720, 648, 128); P4 bit-exact in its three variants; one
+    full-geometry poison step of each kernel variant against ``torch``.
+    Times P1 and P2 (CUDA events per call, and the kernel's device time
+    from the profiler; plain version; library call) and the plain versions
+    of P3 and P4; the probe run times the kernels of P3 and P4."""
+    gen = torch.Generator().manual_seed(5)
+    errs = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        d = _probe_d(gen, dtype)
+        want = probe_poison.passthrough_reference(d)
+        for band in (8, 16):
+            got = probe_poison.passthrough(d, band)
+            errs["passthrough"] = max(errs.get("passthrough", 0.0),
+                                      float((got.float() - want.float()).abs().max()))
+            check(torch.equal(got, want), f"P1 {dtype} band {band} differs from 2x + 1")
+        got = probe_poison.tiny_passthrough(d.clone())
+        want = probe_poison.tiny_passthrough_reference(d.clone())
+        errs["passthrough_slice"] = max(errs.get("passthrough_slice", 0.0),
+                                        float((got.float() - want.float()).abs().max()))
+        check(torch.equal(got, want), f"P2 {dtype} differs from 2x + 1 on the slice")
+    d = _probe_d(gen, torch.bfloat16)
+    scratch = d.clone()
+    p1 = {"ms": time_ms(lambda: probe_poison.passthrough(d), 50, CUDA),
+          "plain_ms": time_ms(lambda: probe_poison.passthrough_reference(d), 50, CUDA),
+          "library_ms": time_ms(lambda: d * 2.0 + 1.0, 50, CUDA),
+          **bound(2 * d.numel() * d.element_size(), 2 * d.numel(), F32_OPS_PER_S)}
+    p2 = {"ms": time_ms(lambda: probe_poison.tiny_passthrough(scratch), 50, CUDA),
+          "plain_ms": time_ms(lambda: probe_poison.tiny_passthrough_reference(scratch), 50, CUDA),
+          "library_ms": None, **bound(2 * 8 * 128 * 2, 2 * 8 * 128, F32_OPS_PER_S)}
+    p1_device_ms = kernel_device_ms(lambda: probe_poison.passthrough(d), 20,
+                                    "passthrough_kernel")
+    p2_device_ms = kernel_device_ms(lambda: probe_poison.tiny_passthrough(scratch), 20,
+                                    "passthrough_slice_kernel")
+    del d, scratch
+
+    x = torch.randn(probe_bc.H, probe_bc.WP, probe_bc.C, generator=gen).to("cuda", torch.bfloat16)
+    w = (0.05 * torch.randn(3, 3, probe_bc.C, probe_bc.C, generator=gen)).to("cuda", torch.bfloat16)
+    steps, dbs = {}, {}
+    for rolls in (True, False):
+        name = "tap_roll" if rolls else "tap_noroll"
+        got = probe_bc.band_conv(x, w, 8, rolls)
+        want = probe_bc.band_conv_reference(x, w, 8, rolls)
+        floor = probe_bc.STEP_FLOOR * float(want.float().abs().max())
+        steps[name] = float(probe_bc.bf16_steps(got, want, floor).max())
+        dbs[name] = parity_db(want.float(), got.float())
+        errs[name] = float((got.float() - want.float()).abs().max())
+        check(steps[name] <= P3_STEPS and dbs[name] >= PARITY_DB,
+              f"P3 {name}: {steps[name]} bf16 steps, {dbs[name]:.1f} dB")
+    wq, xq = probe_bc.quantize(w, 0.01), probe_bc.quantize(x, 0.05)
+    for kind in ("roll", "noroll", "pre"):
+        xi = xq if kind == "pre" else x
+        args = dict(rolls=kind != "noroll", in_int8=kind == "pre")
+        got = probe_bc.band_conv_int8(xi, wq, 8, **args)
+        want = probe_bc.band_conv_int8_reference(xi, wq, 8, **args)
+        errs[f"int8_{kind}"] = float((got.float() - want.float()).abs().max())
+        check(torch.equal(got, want), f"P4 int8_{kind} differs from its plain version")
+    p3_plain_ms = time_ms(lambda: probe_bc.band_conv_reference(x, w, 8), 5, CUDA, warmup=1)
+    p4_plain_ms = time_ms(lambda: probe_bc.band_conv_int8_reference(x, wq, 8), 3, CUDA, warmup=1)
+    del x, w, wq, xq, got, want
+
+    e_np, params_np = probe_poison.random_inputs(0)
+    e0 = probe_poison.to_nchw(e_np, "cuda")
+    params = probe_poison.params_from_jax(params_np, "cuda")
+    base = probe_poison.make_step("torch", params)(e0).float()
+    step_db = {}
+    for variant in POISON_VARIANTS[1:]:
+        out = probe_poison.make_step(variant, params)(e0)
+        check(out.shape == e0.shape and bool(torch.isfinite(out).all()),
+              f"poison step {variant}: shape {tuple(out.shape)} or not finite")
+        step_db[variant] = parity_db(base, out.float())
+        if variant != "tiny":       # tiny applies 2x + 1 twice on its slice
+            check(step_db[variant] >= PARITY_DB,
+                  f"poison step {variant} vs torch {step_db[variant]:.1f} dB")
+    emit("probe_kernel_check", p1_p2="bit-exact (bf16, f32; bands 8, 16)", p3_steps=steps,
+         p3_db=dbs, p3_max_steps=P3_STEPS, min_db=PARITY_DB, p4="bit-exact",
+         max_abs_err=errs, poison_step_db_vs_torch=step_db, p1=p1, p2=p2,
+         p1_device_ms=p1_device_ms, p2_device_ms=p2_device_ms,
+         p3_plain_ms=p3_plain_ms, p4_plain_ms=p4_plain_ms)
+    return errs, p1, p2, p3_plain_ms, p4_plain_ms
+
+
+def phase_probe_band_conv():
+    """The band-conv probe's ``main`` at the serving geometry, every variant,
+    with each one's bound and the share of it reached."""
+    results = probe_bc.main(["--variants", *probe_bc.VARIANTS, "--iters", "32"])
+    by_name = {}
+    for r in results:
+        work = probe_bc.work(r["variant"])
+        r.update(bound(work["bytes"], work["ops"],
+                       INT8_OPS_PER_S if work["int8"] else BF16_OPS_PER_S))
+        r["bound_share"] = r["bound_ms"] / r["ms"]
+        by_name[r["variant"]] = r
+    emit("probe_band_conv", variants=results)
+    return by_name
+
+
+def phase_probe_poison():
+    """The poison probe's ``main`` at full serving geometry: ms per step."""
+    results = probe_poison.main(["--variants", *POISON_VARIANTS, "--steps", "3",
+                                 "--iters", "16"])
+    check(all(math.isfinite(r["ms_per_step"]) and r["ms_per_step"] > 0 for r in results),
+          f"poison probe times {results}")
+    emit("probe_poison", variants=results)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -572,6 +709,23 @@ def main():
         phase_train_profile(task, batch)            # ... and ends here
         del task
 
+    t0 = time.perf_counter()
+    probe_errs, p1, p2, p3_plain_ms, p4_plain_ms = phase_probe_kernel_check()
+    probe_cuda.reset_launches()                     # the probe path starts here
+    rates = phase_probe_band_conv()
+    phase_probe_poison()
+    probe_launches = {"passthrough": probe_cuda.PASSTHROUGH_LAUNCHES,
+                      "passthrough_slice": probe_cuda.SLICE_LAUNCHES,
+                      "band_conv": probe_cuda.BAND_CONV_LAUNCHES,
+                      "band_conv_int8": probe_cuda.BAND_CONV_INT8_LAUNCHES}   # ... and ends here
+    emit("probe_path", launches=probe_launches, seconds=time.perf_counter() - t0)
+    check(min(probe_launches.values()) > 0, f"a probe kernel was not launched: {probe_launches}")
+
+    def rate_entry(variant, plain_ms, library):
+        r = rates[variant]
+        return {"ms": r["ms"], "plain_ms": plain_ms, "bound_ms": r["bound_ms"],
+                "bound_by": r["bound_by"], "library_ms": rates[library]["ms"]}
+
     print(smi, flush=True)
     print(json.dumps({"kernels": [{
         "name": "voxelize", "route": "cuda",
@@ -581,8 +735,27 @@ def main():
         "name": "voxel_grid", "route": "cuda",
         "source": "refid_tpu_torch/csrc/voxelize.cu",
         "replaces": "refid_tpu/events/voxel_pallas.py:129",
-        "launches": grid_launches, "max_abs_err": grid_err, **grid_timing}]}),
-        flush=True)
+        "launches": grid_launches, "max_abs_err": grid_err, **grid_timing}, {
+        "name": "passthrough", "route": "cuda",
+        "source": "refid_tpu_torch/csrc/passthrough.cu",
+        "replaces": "scripts/probe_poison.py:56",
+        "launches": probe_launches["passthrough"], "max_abs_err": probe_errs["passthrough"],
+        **p1}, {
+        "name": "passthrough_slice", "route": "cuda",
+        "source": "refid_tpu_torch/csrc/passthrough.cu",
+        "replaces": "scripts/probe_poison.py:70",
+        "launches": probe_launches["passthrough_slice"],
+        "max_abs_err": probe_errs["passthrough_slice"], **p2}, {
+        "name": "band_conv", "route": "cuda",
+        "source": "refid_tpu_torch/csrc/band_conv.cu",
+        "replaces": "scripts/probe_band_conv.py:62",
+        "launches": probe_launches["band_conv"], "max_abs_err": probe_errs["tap_roll"],
+        **rate_entry("tap_roll", p3_plain_ms, "library_conv")}, {
+        "name": "band_conv_int8", "route": "cuda",
+        "source": "refid_tpu_torch/csrc/band_conv.cu",
+        "replaces": "scripts/probe_band_conv.py:113",
+        "launches": probe_launches["band_conv_int8"], "max_abs_err": probe_errs["int8_roll"],
+        **rate_entry("int8_roll", p4_plain_ms, "library_int8")}]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}),
           flush=True)

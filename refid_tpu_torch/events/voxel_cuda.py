@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from refid_tpu_torch.events.voxel import check_event_buffer, check_host_events
+from refid_tpu_torch.ops.build import load, raise_on_error
 
 __all__ = ["LAUNCHES", "GRID_LAUNCHES", "GRID_TIMES", "voxelize_cuda",
            "events_to_voxel_grid_cuda", "reset_grid_stats"]
@@ -43,7 +44,6 @@ _lib = None
 def _library() -> ctypes.CDLL:
     global _lib
     if _lib is None:
-        from refid_tpu_torch.ops.build import load
         lib = load("voxelize")
         lib.refid_voxelize.argtypes = [
             ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
@@ -53,8 +53,6 @@ def _library() -> ctypes.CDLL:
             ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
             ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
         lib.refid_voxel_grid.restype = ctypes.c_int
-        lib.refid_cuda_error_string.argtypes = [ctypes.c_int]
-        lib.refid_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
 
@@ -81,15 +79,9 @@ def voxelize_cuda(events: torch.Tensor, n_valid: int, bins: int, width: int,
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.refid_voxelize(events.data_ptr(), n_valid, bins, width,
                                  height, grid.data_ptr(), stream)
-    _raise_on(lib, err, "voxelize")
+    raise_on_error(lib, err, "voxelize")
     LAUNCHES += 1
     return grid
-
-
-def _raise_on(lib, err: int, kernel: str) -> None:
-    if err != 0:
-        msg = lib.refid_cuda_error_string(err).decode()
-        raise RuntimeError(f"{kernel} kernel launch failed: CUDA error {err} ({msg})")
 
 
 def reset_grid_stats() -> None:
@@ -135,7 +127,7 @@ def events_to_voxel_grid_cuda(events: np.ndarray, num_bins: int, width: int,
         grid = torch.zeros(shape, dtype=torch.float32, device=device)
         err = lib.refid_voxel_grid(ev.data_ptr(), n, num_bins, width, height,
                                    int(hwc), grid.data_ptr(), stream.cuda_stream)
-        _raise_on(lib, err, "voxel_grid")
+        raise_on_error(lib, err, "voxel_grid")
         marks[2].record(stream)
         host = torch.empty(shape, dtype=torch.float32, pin_memory=True)
         host.copy_(grid, non_blocking=True)

@@ -24,7 +24,7 @@ import time
 from pathlib import Path
 from typing import Dict, Iterable, Optional
 
-__all__ = ["CSRC_DIR", "BUILD_DIR", "kernel_names", "build", "load"]
+__all__ = ["CSRC_DIR", "BUILD_DIR", "kernel_names", "build", "load", "raise_on_error"]
 
 _PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PKG_DIR / "csrc"
@@ -97,10 +97,19 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
 
 def load(name: str) -> ctypes.CDLL:
     """Build (if needed) and load ``csrc/<name>.cu``'s library, once per
-    process."""
+    process.  Every library exports ``refid_cuda_error_string``."""
     with _load_lock:
         lib = _loaded.get(name)
         if lib is None:
             lib = ctypes.CDLL(str(build([name])[name]["path"]))
+            lib.refid_cuda_error_string.argtypes = [ctypes.c_int]
+            lib.refid_cuda_error_string.restype = ctypes.c_char_p
             _loaded[name] = lib
         return lib
+
+
+def raise_on_error(lib: ctypes.CDLL, err: int, kernel: str) -> None:
+    """Raise if a launch function of ``lib`` returned a CUDA error."""
+    if err != 0:
+        msg = lib.refid_cuda_error_string(err).decode()
+        raise RuntimeError(f"{kernel} kernel launch failed: CUDA error {err} ({msg})")

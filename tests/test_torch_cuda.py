@@ -5,6 +5,8 @@ skip without a CUDA device.  On the GPU machine:
 ``python -m pytest tests/test_torch_cuda.py -m gpu``.
 """
 
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -114,3 +116,106 @@ def test_voxel_grid_kernel_from_loader_threads(cuda):
         from refid_tpu_torch.events.voxel import events_to_voxel_grid_reference
         want = events_to_voxel_grid_reference(torch.from_numpy(ev), 24, 320, 96, "HWC").numpy()
         assert np.abs(g - want).max() <= TOL
+
+
+# ---- probe kernels P1-P4 (refid_tpu_torch/probes) ----
+
+def _randn(seed, *shape, scale=1.0):
+    return torch.randn(*shape, generator=torch.Generator().manual_seed(seed)) * scale
+
+
+@pytest.mark.parametrize("band", [8, 16])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_passthrough_kernel_matches_plain(cuda, dtype, band):
+    from refid_tpu_torch.ops import probe_cuda
+    from refid_tpu_torch.probes import poison
+    d = _randn(0, 1, 64, 360, 640, scale=50).to(cuda, dtype).contiguous(
+        memory_format=torch.channels_last)                # the probe's d; 360 % 16 != 0
+    before = probe_cuda.PASSTHROUGH_LAUNCHES
+    got = poison.passthrough(d, band)
+    assert probe_cuda.PASSTHROUGH_LAUNCHES == before + 1
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    assert torch.equal(got, poison.passthrough_reference(d))
+
+
+def test_passthrough_kernel_unaligned_rows(cuda):
+    """Rows whose bands do not start on 16 bytes take the scalar path."""
+    from refid_tpu_torch.probes import poison
+    d = _randn(1, 1, 3, 37, 5).to(cuda).contiguous(memory_format=torch.channels_last)
+    assert torch.equal(poison.passthrough(d, 8), poison.passthrough_reference(d))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_tiny_passthrough_kernel_matches_plain(cuda, dtype):
+    from refid_tpu_torch.ops import probe_cuda
+    from refid_tpu_torch.probes import poison
+    d = _randn(2, 1, 64, 360, 640, scale=50).to(cuda, dtype).contiguous(
+        memory_format=torch.channels_last)
+    want = poison.tiny_passthrough_reference(d.clone())
+    before = probe_cuda.SLICE_LAUNCHES
+    got = poison.tiny_passthrough(d)
+    assert probe_cuda.SLICE_LAUNCHES == before + 1 and got is d
+    assert torch.equal(got, want)
+
+
+def _conv_inputs(cuda, h, wp, seed=0):
+    x = _randn(seed, h, wp, 128).to(cuda, torch.bfloat16)
+    w = _randn(seed + 1, 3, 3, 128, 128, scale=0.05).to(cuda, torch.bfloat16)
+    return x, w
+
+
+@pytest.mark.parametrize("rolls", [True, False], ids=["roll", "noroll"])
+@pytest.mark.parametrize("h,wp,band", [(720, 648, 8), (720, 648, 16), (48, 40, 8), (96, 40, 16)])
+def test_band_conv_kernel_matches_plain(cuda, h, wp, band, rolls):
+    """Within 2 bf16 steps (floored near zero, see ``bf16_steps``) and >= 60 dB:
+    the float32 sums run in another order."""
+    from refid_tpu_torch.ops import probe_cuda
+    from refid_tpu_torch.probes import band_conv as bc
+    x, w = _conv_inputs(cuda, h, wp)
+    before = probe_cuda.BAND_CONV_LAUNCHES
+    got = bc.band_conv(x, w, band, rolls)
+    torch.cuda.synchronize()
+    assert probe_cuda.BAND_CONV_LAUNCHES == before + 1
+    want = bc.band_conv_reference(x, w, band, rolls)
+    steps = bc.bf16_steps(got, want, bc.STEP_FLOOR * float(want.float().abs().max()))
+    assert float(steps.max()) <= 2
+    span = float(want.float().max() - want.float().min())
+    rmse = float(torch.sqrt(torch.mean((want.float() - got.float()) ** 2)))
+    assert rmse == 0 or 20 * math.log10(span / rmse) >= 60.0
+
+
+@pytest.mark.parametrize("kind,h,wp,band", [
+    ("roll", 720, 648, 8), ("noroll", 720, 648, 8), ("pre", 720, 648, 8), ("roll", 96, 40, 16),
+])
+def test_band_conv_int8_kernel_matches_plain(cuda, kind, h, wp, band):
+    from refid_tpu_torch.ops import probe_cuda
+    from refid_tpu_torch.probes import band_conv as bc
+    x, w = _conv_inputs(cuda, h, wp, seed=5)
+    wq = bc.quantize(w, 0.01)
+    xi = bc.quantize(x, 0.05) if kind == "pre" else x
+    before = probe_cuda.BAND_CONV_INT8_LAUNCHES
+    got = bc.band_conv_int8(xi, wq, band, rolls=kind != "noroll", in_int8=kind == "pre")
+    torch.cuda.synchronize()
+    assert probe_cuda.BAND_CONV_INT8_LAUNCHES == before + 1
+    want = bc.band_conv_int8_reference(xi, wq, band, rolls=kind != "noroll",
+                                       in_int8=kind == "pre")
+    assert torch.equal(got, want)
+
+
+def test_band_conv_kernel_rejects_ragged_bands(cuda):
+    from refid_tpu_torch.ops import probe_cuda
+    from refid_tpu_torch.probes import band_conv as bc
+    x, w = _conv_inputs(cuda, 36, 40)
+    with pytest.raises(ValueError, match="multiple of band"):
+        bc.band_conv(x, w, 8)
+    with pytest.raises(ValueError, match="multiple of band"):
+        probe_cuda.band_conv_cuda(x, w, 8)
+
+
+def test_library_conv_int8_on_the_card_matches_the_cpu(cuda):
+    """The probe's int8 yardstick (nine ``torch._int_mm`` taps) is exact."""
+    from refid_tpu_torch.probes import band_conv as bc
+    x, w = _conv_inputs(cuda, 48, 40, seed=7)
+    xq, wq = bc.quantize(x, 0.05), bc.quantize(w, 0.01)
+    got = bc.library_conv_int8(xq, wq)
+    assert torch.equal(got.cpu(), bc.library_conv_int8(xq.cpu(), wq.cpu()))

@@ -34,7 +34,7 @@ def test_every_module_imports_with_jax_and_refid_tpu_blocked():
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 30
+    assert int(out.stdout.split()[-1]) >= 34
 
 
 def _imported_modules(path):
@@ -65,11 +65,13 @@ def test_yaml_is_needed_only_to_parse_a_file(tmp_path):
 
 
 def test_import_builds_nothing():
-    """Importing the package (and the kernel wrapper) must not build or load
-    the CUDA library: the CPU has no nvcc."""
+    """Importing the package (and the kernel wrappers and probes) must not
+    build or load a CUDA library: the CPU has no nvcc."""
     env = {**os.environ, "PYTHONPATH": str(REPO)}
     code = ("import refid_tpu_torch.events.voxel_cuda as v, refid_tpu_torch.ops.build as b;"
-            "print(v._lib is None, b._loaded == {})")
+            "import refid_tpu_torch.ops.probe_cuda as p, refid_tpu_torch.probes.band_conv,"
+            " refid_tpu_torch.probes.poison;"
+            "print(v._lib is None and p._libs == {}, b._loaded == {})")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.stdout.split() == ["True", "True"], out.stderr
