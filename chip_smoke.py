@@ -73,6 +73,11 @@ KERNEL_TOL = 1e-4   # f32 atomics add in varying order; a cell sums a few votes 
 PARITY_DB = 60.0
 CUDA = torch.device("cuda")
 P3_STEPS = 2.0      # bf16 steps per element: float32 sums in another order
+# P3/P4 shapes (H, WP, band) at the kernel's edges, beside the probe's: band
+# 3 (m2 = WP, one short tile per band), m2 a whole number of tiles (384 =
+# 3 x 128, 768 = 3 x 256), WP not a multiple of 8, both roll wraps in one tile
+BAND_CONV_EDGES = [(9, 40, 3), (12, 648, 3), (64, 64, 8), (64, 128, 8), (48, 36, 8),
+                   (48, 40, 8), (96, 40, 16)]
 POISON_VARIANTS = ["torch", "cuda", "cuda_b16", "tiny", "convert"]
 
 
@@ -538,11 +543,12 @@ def phase_probe_kernel_check():
     """P1-P4 against their plain versions on the card at the probes' shapes:
     P1 and P2 bit-exact in bf16 and float32 on the poison probe's
     (1, 64, 360, 640); P3 within P3_STEPS bf16 steps (floored near zero) and
-    >= PARITY_DB at (720, 648, 128); P4 bit-exact in its three variants; one
-    full-geometry poison step of each kernel variant against ``torch``.
-    Times P1 and P2 (CUDA events per call, and the kernel's device time
-    from the profiler; plain version; library call) and the plain versions
-    of P3 and P4; the probe run times the kernels of P3 and P4."""
+    >= PARITY_DB, rolls on and off, and P4 bit-exact in its three variants,
+    at (720, 648, 128) and at BAND_CONV_EDGES; one full-geometry poison step
+    of each kernel variant against ``torch``.  Times P1 and P2 (CUDA events
+    per call, and the kernel's device time from the profiler; plain version;
+    library call), the plain versions of P3 and P4 and the device time of
+    the three band-conv kernels; the probe run times P3 and P4 per call."""
     gen = torch.Generator().manual_seed(5)
     errs = {}
     for dtype in (torch.bfloat16, torch.float32):
@@ -573,30 +579,49 @@ def phase_probe_kernel_check():
                                     "passthrough_slice_kernel")
     del d, scratch
 
-    x = torch.randn(probe_bc.H, probe_bc.WP, probe_bc.C, generator=gen).to("cuda", torch.bfloat16)
-    w = (0.05 * torch.randn(3, 3, probe_bc.C, probe_bc.C, generator=gen)).to("cuda", torch.bfloat16)
+    # P3 and P4 at the probe's shape and at the kernel's edges (see
+    # BAND_CONV_EDGES), rolls on and off, P4 in its three modes
     steps, dbs = {}, {}
-    for rolls in (True, False):
-        name = "tap_roll" if rolls else "tap_noroll"
-        got = probe_bc.band_conv(x, w, 8, rolls)
-        want = probe_bc.band_conv_reference(x, w, 8, rolls)
-        floor = probe_bc.STEP_FLOOR * float(want.float().abs().max())
-        steps[name] = float(probe_bc.bf16_steps(got, want, floor).max())
-        dbs[name] = parity_db(want.float(), got.float())
-        errs[name] = float((got.float() - want.float()).abs().max())
-        check(steps[name] <= P3_STEPS and dbs[name] >= PARITY_DB,
-              f"P3 {name}: {steps[name]} bf16 steps, {dbs[name]:.1f} dB")
-    wq, xq = probe_bc.quantize(w, 0.01), probe_bc.quantize(x, 0.05)
-    for kind in ("roll", "noroll", "pre"):
-        xi = xq if kind == "pre" else x
-        args = dict(rolls=kind != "noroll", in_int8=kind == "pre")
-        got = probe_bc.band_conv_int8(xi, wq, 8, **args)
-        want = probe_bc.band_conv_int8_reference(xi, wq, 8, **args)
-        errs[f"int8_{kind}"] = float((got.float() - want.float()).abs().max())
-        check(torch.equal(got, want), f"P4 int8_{kind} differs from its plain version")
-    p3_plain_ms = time_ms(lambda: probe_bc.band_conv_reference(x, w, 8), 5, CUDA, warmup=1)
-    p4_plain_ms = time_ms(lambda: probe_bc.band_conv_int8_reference(x, wq, 8), 3, CUDA, warmup=1)
-    del x, w, wq, xq, got, want
+    for h, wp, band in [(probe_bc.H, probe_bc.WP, 8), *BAND_CONV_EDGES]:
+        probe_shape = (h, wp) == (probe_bc.H, probe_bc.WP)
+        x = torch.randn(h, wp, probe_bc.C, generator=gen).to("cuda", torch.bfloat16)
+        w = (0.05 * torch.randn(3, 3, probe_bc.C, probe_bc.C, generator=gen)).to(
+            "cuda", torch.bfloat16)
+        for rolls in (True, False):
+            name = ("tap_roll" if rolls else "tap_noroll") + (
+                "" if probe_shape else f"_{h}x{wp}_b{band}")
+            got = probe_bc.band_conv(x, w, band, rolls)
+            want = probe_bc.band_conv_reference(x, w, band, rolls)
+            floor = probe_bc.STEP_FLOOR * float(want.float().abs().max())
+            steps[name] = float(probe_bc.bf16_steps(got, want, floor).max())
+            dbs[name] = parity_db(want.float(), got.float())
+            errs[name] = float((got.float() - want.float()).abs().max())
+            check(steps[name] <= P3_STEPS and dbs[name] >= PARITY_DB,
+                  f"P3 {name}: {steps[name]} bf16 steps, {dbs[name]:.1f} dB")
+        xs = x * 4 if not probe_shape else x     # small shapes: the int8 range spread out
+        wq, xq = probe_bc.quantize(w, 0.01), probe_bc.quantize(xs, 0.05)
+        for kind in ("roll", "noroll", "pre"):
+            name = f"int8_{kind}" + ("" if probe_shape else f"_{h}x{wp}_b{band}")
+            xi = xq if kind == "pre" else xs
+            args = dict(rolls=kind != "noroll", in_int8=kind == "pre")
+            got = probe_bc.band_conv_int8(xi, wq, band, **args)
+            want = probe_bc.band_conv_int8_reference(xi, wq, band, **args)
+            errs[name] = float((got.float() - want.float()).abs().max())
+            check(torch.equal(got, want), f"P4 {name} differs from its plain version")
+        if probe_shape:
+            p3_plain_ms = time_ms(lambda: probe_bc.band_conv_reference(x, w, 8), 5, CUDA,
+                                  warmup=1)
+            p4_plain_ms = time_ms(lambda: probe_bc.band_conv_int8_reference(x, wq, 8), 3,
+                                  CUDA, warmup=1)
+            device_ms = {
+                "band_conv": kernel_device_ms(lambda: probe_bc.band_conv(x, w, 8), 20,
+                                              "band_conv_kernel<0>"),
+                "band_conv_int8": kernel_device_ms(
+                    lambda: probe_bc.band_conv_int8(x, wq, 8), 20, "band_conv_kernel<1>"),
+                "band_conv_int8_pre": kernel_device_ms(
+                    lambda: probe_bc.band_conv_int8(xq, wq, 8, in_int8=True), 20,
+                    "band_conv_kernel<2>")}
+    del x, w, xs, wq, xq, got, want
 
     e_np, params_np = probe_poison.random_inputs(0)
     e0 = probe_poison.to_nchw(e_np, "cuda")
@@ -615,8 +640,9 @@ def phase_probe_kernel_check():
          p3_db=dbs, p3_max_steps=P3_STEPS, min_db=PARITY_DB, p4="bit-exact",
          max_abs_err=errs, poison_step_db_vs_torch=step_db, p1=p1, p2=p2,
          p1_device_ms=p1_device_ms, p2_device_ms=p2_device_ms,
-         p3_plain_ms=p3_plain_ms, p4_plain_ms=p4_plain_ms)
-    return errs, p1, p2, p3_plain_ms, p4_plain_ms
+         p3_plain_ms=p3_plain_ms, p4_plain_ms=p4_plain_ms, p3_p4_device_ms=device_ms,
+         edges=[list(e) for e in BAND_CONV_EDGES])
+    return errs, p1, p2, p3_plain_ms, p4_plain_ms, device_ms
 
 
 def phase_probe_band_conv():
@@ -628,6 +654,8 @@ def phase_probe_band_conv():
         work = probe_bc.work(r["variant"])
         r.update(bound(work["bytes"], work["ops"],
                        INT8_OPS_PER_S if work["int8"] else BF16_OPS_PER_S))
+        if "l2_bytes" in work:
+            r["l2_bytes"] = work["l2_bytes"]
         r["bound_share"] = r["bound_ms"] / r["ms"]
         by_name[r["variant"]] = r
     emit("probe_band_conv", variants=results)
@@ -710,7 +738,7 @@ def main():
         del task
 
     t0 = time.perf_counter()
-    probe_errs, p1, p2, p3_plain_ms, p4_plain_ms = phase_probe_kernel_check()
+    probe_errs, p1, p2, p3_plain_ms, p4_plain_ms, device_ms = phase_probe_kernel_check()
     probe_cuda.reset_launches()                     # the probe path starts here
     rates = phase_probe_band_conv()
     phase_probe_poison()
@@ -721,10 +749,11 @@ def main():
     emit("probe_path", launches=probe_launches, seconds=time.perf_counter() - t0)
     check(min(probe_launches.values()) > 0, f"a probe kernel was not launched: {probe_launches}")
 
-    def rate_entry(variant, plain_ms, library):
+    def rate_entry(variant, plain_ms, library, kernel):
         r = rates[variant]
         return {"ms": r["ms"], "plain_ms": plain_ms, "bound_ms": r["bound_ms"],
-                "bound_by": r["bound_by"], "library_ms": rates[library]["ms"]}
+                "bound_by": r["bound_by"], "library_ms": rates[library]["ms"],
+                "device_ms": device_ms[kernel], "bound_share": r["bound_ms"] / r["ms"]}
 
     print(smi, flush=True)
     print(json.dumps({"kernels": [{
@@ -750,12 +779,12 @@ def main():
         "source": "refid_tpu_torch/csrc/band_conv.cu",
         "replaces": "scripts/probe_band_conv.py:62",
         "launches": probe_launches["band_conv"], "max_abs_err": probe_errs["tap_roll"],
-        **rate_entry("tap_roll", p3_plain_ms, "library_conv")}, {
+        **rate_entry("tap_roll", p3_plain_ms, "library_conv", "band_conv")}, {
         "name": "band_conv_int8", "route": "cuda",
         "source": "refid_tpu_torch/csrc/band_conv.cu",
         "replaces": "scripts/probe_band_conv.py:113",
         "launches": probe_launches["band_conv_int8"], "max_abs_err": probe_errs["int8_roll"],
-        **rate_entry("int8_roll", p4_plain_ms, "library_int8")}]}), flush=True)
+        **rate_entry("int8_roll", p4_plain_ms, "library_int8", "band_conv_int8")}]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}),
           flush=True)

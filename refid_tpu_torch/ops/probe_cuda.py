@@ -7,7 +7,10 @@
   ``2x + 1`` in place on a strided 2-D view.
 * :func:`band_conv_cuda` (P3 and P4), of ``scripts/probe_band_conv.py::
   band_conv`` and ``band_conv_int8``: the width-folded 3x3 conv of one band
-  at a time as 9 tap products.
+  at a time as 9 tap products.  Its host-side steps are plain functions the
+  CPU tests reach: :func:`pack_taps` (the weights as ``(tap, out, in)``),
+  :func:`tile_schedule` and :func:`tile_source_rows` (which rows each tile's
+  TMA box reads, the roll's wrap rows patched), mirroring the kernel.
 
 Each checks device, type, shape, contiguity and alignment, launches on the
 current stream, raises if the launch failed, and counts its launches in
@@ -26,14 +29,18 @@ import torch
 from refid_tpu_torch.ops.build import load, raise_on_error
 
 __all__ = ["PASSTHROUGH_LAUNCHES", "SLICE_LAUNCHES", "BAND_CONV_LAUNCHES",
-           "BAND_CONV_INT8_LAUNCHES", "reset_launches", "passthrough_cuda",
-           "passthrough_slice_cuda", "band_conv_cuda"]
+           "BAND_CONV_INT8_LAUNCHES", "TILE_ROWS", "reset_launches", "passthrough_cuda",
+           "passthrough_slice_cuda", "pack_taps", "tile_schedule", "tile_source_rows",
+           "band_conv_cuda"]
 
 PASSTHROUGH_LAUNCHES = 0
 SLICE_LAUNCHES = 0
 BAND_CONV_LAUNCHES = 0
 BAND_CONV_INT8_LAUNCHES = 0
 _libs = {}
+# interior rows per tile (kWindow - 8 of Cfg<mode> in csrc/band_conv.cu), by
+# mode: 0 bf16, 1 bf16 x quantized in the kernel, 2 int8 x
+TILE_ROWS = {0: 248, 1: 120, 2: 248}
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {      # library -> {function: argtypes}; each returns a CUDA error code
@@ -115,12 +122,49 @@ def passthrough_slice_cuda(view: torch.Tensor) -> torch.Tensor:
     return view
 
 
+def pack_taps(w: torch.Tensor) -> torch.Tensor:
+    """HWIO taps ``(3, 3, C, C)`` as ``(9 C, C)``: row ``tap C + out`` holds
+    the input channels of output ``out`` for tap ``3 dy + dx``, so that the
+    kernel's B operand is K-major, as wgmma needs for int8."""
+    c = w.shape[-1]
+    return w.permute(0, 1, 3, 2).reshape(9 * c, c).contiguous()
+
+
+def tile_schedule(h: int, wp: int, band: int, tile_rows: int) -> list:
+    """The kernel's tiles in order, ``(band index, m0)``: each band's
+    ``m2 = (band - 2) wp`` interior rows cut into ``tile_rows`` (the
+    mode's :data:`TILE_ROWS`) from ``m0``;
+    CTA ``b`` of the persistent grid takes tiles ``b, b + grid, ...``."""
+    m2 = (band - 2) * wp
+    return [(b, m0) for b in range(h // band) for m0 in range(0, m2, tile_rows)]
+
+
+def tile_source_rows(m0: int, tap: int, wp: int, band: int, tile_rows: int,
+                     rolls: bool) -> torch.Tensor:
+    """Rows of the band (flattened to ``(band wp, C)``; may lie outside it)
+    that tile ``m0``'s A operand reads for ``tap``.  The kernel loads one TMA
+    window per dy from row ``m0 - 1 + dy wp`` and reads it from ``dx`` rows in
+    (rolls) or 1, so output row ``i`` reads ``m0 + i + dy wp (+ dx - 1)``;
+    the roll's two wrap rows are put right: row 0 at ``dx = 0`` reads
+    interior row ``m2 - 1``, row ``m2 - 1`` at ``dx = 2`` reads row 0 (each
+    ``+ dy wp``)."""
+    dy, dx = divmod(tap, 3)
+    m2 = (band - 2) * wp
+    rows = torch.arange(tile_rows) + m0 + dy * wp + (dx - 1 if rolls else 0)
+    if rolls and dx == 0 and m0 == 0:
+        rows[0] = m2 - 1 + dy * wp
+    if rolls and dx == 2 and m2 - 1 - m0 < tile_rows:
+        rows[m2 - 1 - m0] = dy * wp
+    return rows
+
+
 def band_conv_cuda(x: torch.Tensor, w: torch.Tensor, band: int = 8, rolls: bool = True,
                    int8: bool = False) -> torch.Tensor:
     """P3 (``int8`` False: x and w bf16) or P4 (``int8`` True: w int8, x bf16
     quantized in the kernel or int8 already).  x ``(H, WP, 128)`` HWC, w
     ``(3, 3, 128, 128)`` HWIO, both contiguous on the card; returns the
-    ``(H, WP, 128)`` bf16 output."""
+    ``(H, WP, 128)`` bf16 output.  Packs w with :func:`pack_taps` (one copy
+    of 144 or 288 KB) and launches the TMA / wgmma kernel."""
     global BAND_CONV_LAUNCHES, BAND_CONV_INT8_LAUNCHES
     _require_cuda(x, "band_conv_cuda")
     if w.device != x.device:
@@ -139,17 +183,18 @@ def band_conv_cuda(x: torch.Tensor, w: torch.Tensor, band: int = 8, rolls: bool 
         if x.dtype != torch.bfloat16 or w.dtype != torch.bfloat16:
             raise TypeError(f"bf16 taps take bf16 x and w, got {x.dtype}, {w.dtype}")
         mode = 0
-    if not (x.is_contiguous() and w.is_contiguous()):
-        raise ValueError("x and w must be contiguous")
-    if x.data_ptr() % 16 or w.data_ptr() % 16:
-        raise ValueError("x and w must be 16-byte aligned (rows read as 16-byte vectors)")
+    if not x.is_contiguous():
+        raise ValueError("x must be contiguous")
+    if x.data_ptr() % 16:
+        raise ValueError("x must be 16-byte aligned (TMA reads it)")
     if h * wp * 128 >= 2 ** 31:
         raise ValueError("x must fit the kernel's 32-bit row index")
+    wk = pack_taps(w)
     out = torch.empty((h, wp, 128), dtype=torch.bfloat16, device=x.device)
     lib = _library("band_conv")
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.refid_band_conv(x.data_ptr(), w.data_ptr(), h, wp, band, int(rolls),
+        err = lib.refid_band_conv(x.data_ptr(), wk.data_ptr(), h, wp, band, int(rolls),
                                   mode, out.data_ptr(), stream)
     raise_on_error(lib, err, "band_conv")
     if int8:

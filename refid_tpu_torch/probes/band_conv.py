@@ -50,8 +50,8 @@ from refid_tpu_torch.core.device import resolve_device, time_ms
 from refid_tpu_torch.ops import probe_cuda
 
 __all__ = ["H", "WP", "C", "VARIANTS", "band_conv", "band_conv_int8", "band_conv_reference",
-           "band_conv_int8_reference", "library_conv", "library_conv_int8", "quantize",
-           "bf16_steps", "STEP_FLOOR", "work", "main"]
+           "band_conv_int8_reference", "tiled_tap_sums", "library_conv", "library_conv_int8",
+           "quantize", "bf16_steps", "STEP_FLOOR", "work", "main"]
 
 H, WP, C = 720, 648, 128      # folded serving geometry, width padded 640 -> 648
 SX, SW = np.float32(0.05), np.float32(0.01)   # static activation and weight scales
@@ -110,6 +110,30 @@ def _tap_sums(x: torch.Tensor, w: torch.Tensor, band: int, rolls: bool) -> torch
         if rolls and dx != 1:
             accd = torch.roll(accd, (1 - dx) % m2, dims=1)
         acc = accd if acc is None else acc + accd
+    return acc
+
+
+def tiled_tap_sums(x: torch.Tensor, wk: torch.Tensor, band: int, rolls: bool,
+                   tile_rows: int) -> torch.Tensor:
+    """:func:`_tap_sums` as the CUDA kernel computes it: tile by tile of
+    :func:`~refid_tpu_torch.ops.probe_cuda.tile_schedule`, each tap's A rows
+    gathered through :func:`~refid_tpu_torch.ops.probe_cuda.tile_source_rows`
+    (rows outside x read as zero, as TMA fills them) times the packed taps
+    ``wk`` (:func:`~refid_tpu_torch.ops.probe_cuda.pack_taps`), rows past
+    ``m2`` dropped.  ``(H // band, m2, C)`` in ``x``'s type."""
+    h, wp, c = x.shape
+    m2 = (band - 2) * wp
+    flat = x.reshape(h * wp, c)
+    acc = x.new_zeros((h // band, m2, c))
+    for b, m0 in probe_cuda.tile_schedule(h, wp, band, tile_rows):
+        part = x.new_zeros((tile_rows, c))
+        for tap in range(9):
+            rows = probe_cuda.tile_source_rows(m0, tap, wp, band, tile_rows, rolls) + b * band * wp
+            inside = (rows >= 0) & (rows < h * wp)
+            a = torch.where(inside[:, None], flat[rows.clamp(0, h * wp - 1)], 0)
+            part += a @ wk[tap * c:(tap + 1) * c].T
+        n = min(tile_rows, m2 - m0)
+        acc[b, m0:m0 + n] = part[:n]
     return acc
 
 
@@ -192,13 +216,23 @@ def bf16_steps(got: torch.Tensor, want: torch.Tensor, floor: float = 0.0) -> tor
 def work(variant: str, h: int = H, wp: int = WP, band: int = 8, c: int = C) -> dict:
     """Operations (2 x multiply-adds, counted as the JAX script counts its
     rows) and bytes (x and w read once, the bf16 output written once) of one
-    call of ``variant``."""
+    call of ``variant``; for the tap variants also ``l2_bytes``, what the
+    CUDA kernel's TMA loads move from L2: per tile of
+    :data:`~refid_tpu_torch.ops.probe_cuda.TILE_ROWS` rows and per dy and
+    128-byte K-chunk of channels, one 32 KB window of A rows that the three
+    dx taps share and three 16 KB taps of B."""
     library = variant.startswith("library")
     rows = h * wp if library else (h // band) * (band - 2) * wp
     int8 = "int8" in variant
     x_bytes = h * wp * c * (1 if variant in ("int8_pre", "library_int8") else 2)
-    return {"ops": 9 * rows * c * c * 2, "int8": int8,
-            "bytes": x_bytes + 9 * c * c * (1 if int8 else 2) + h * wp * c * 2}
+    counted = {"ops": 9 * rows * c * c * 2, "int8": int8,
+               "bytes": x_bytes + 9 * c * c * (1 if int8 else 2) + h * wp * c * 2}
+    if not library:
+        mode = 2 if variant == "int8_pre" else 1 if int8 else 0
+        tiles = len(probe_cuda.tile_schedule(h, wp, band, probe_cuda.TILE_ROWS[mode]))
+        chunks = 2 if mode == 0 else 1             # K-chunks of 128 bytes a row
+        counted["l2_bytes"] = tiles * 3 * chunks * (32768 + 3 * 16384)
+    return counted
 
 
 def _variant_fn(name, x, w, xq, wq, band):

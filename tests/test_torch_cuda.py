@@ -164,8 +164,17 @@ def _conv_inputs(cuda, h, wp, seed=0):
     return x, w
 
 
+# The kernel's edges (interior rows m2 = (band - 2) WP; tiles of 256 rows in
+# bf16 / int8 x, 128 with x quantized in the kernel): the probe's shape; band
+# 3 (m2 = WP, one short tile per band); m2 a whole number of tiles (384 =
+# 3 x 128, 768 = 3 x 256); WP not a multiple of 8; both roll wraps in one
+# tile (48, 40, 8) and in a band's first and last of several (96, 40, 16).
+BAND_CONV_SHAPES = [(720, 648, 8), (720, 648, 16), (48, 40, 8), (96, 40, 16), (9, 40, 3),
+                    (12, 648, 3), (64, 64, 8), (64, 128, 8), (48, 36, 8)]
+
+
 @pytest.mark.parametrize("rolls", [True, False], ids=["roll", "noroll"])
-@pytest.mark.parametrize("h,wp,band", [(720, 648, 8), (720, 648, 16), (48, 40, 8), (96, 40, 16)])
+@pytest.mark.parametrize("h,wp,band", BAND_CONV_SHAPES)
 def test_band_conv_kernel_matches_plain(cuda, h, wp, band, rolls):
     """Within 2 bf16 steps (floored near zero, see ``bf16_steps``) and >= 60 dB:
     the float32 sums run in another order."""
@@ -184,13 +193,13 @@ def test_band_conv_kernel_matches_plain(cuda, h, wp, band, rolls):
     assert rmse == 0 or 20 * math.log10(span / rmse) >= 60.0
 
 
-@pytest.mark.parametrize("kind,h,wp,band", [
-    ("roll", 720, 648, 8), ("noroll", 720, 648, 8), ("pre", 720, 648, 8), ("roll", 96, 40, 16),
-])
+@pytest.mark.parametrize("h,wp,band", BAND_CONV_SHAPES)
+@pytest.mark.parametrize("kind", ["roll", "noroll", "pre"])
 def test_band_conv_int8_kernel_matches_plain(cuda, kind, h, wp, band):
     from refid_tpu_torch.ops import probe_cuda
     from refid_tpu_torch.probes import band_conv as bc
     x, w = _conv_inputs(cuda, h, wp, seed=5)
+    x = x * 4            # spread the activations over the int8 range
     wq = bc.quantize(w, 0.01)
     xi = bc.quantize(x, 0.05) if kind == "pre" else x
     before = probe_cuda.BAND_CONV_INT8_LAUNCHES

@@ -24,6 +24,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from refid_tpu_torch.ops import probe_cuda
 from refid_tpu_torch.probes import band_conv as bc
 from refid_tpu_torch.probes import poison
 from tests.test_torch_helpers import parity_db
@@ -153,6 +154,86 @@ def test_band_conv_int8_plain_matches_pallas(jax_bc, monkeypatch, kind, band):
     got = bc.band_conv_int8(xi, wq, band=band, rolls=kind != "noroll", in_int8=kind == "pre")
     assert got.dtype == torch.bfloat16 and float(got.float().abs().max()) > 0
     np.testing.assert_array_equal(got.float().numpy(), _f32(want))
+
+
+# ---- the CUDA kernel's host-side preparation (ops/probe_cuda.py), plain ----
+
+def test_pack_taps_is_tap_out_in():
+    w = torch.arange(3 * 3 * 128 * 128).reshape(3, 3, 128, 128)
+    wk = probe_cuda.pack_taps(w)
+    assert wk.shape == (9 * 128, 128) and wk.is_contiguous()
+    for dy, dx, i, o in [(0, 0, 0, 1), (1, 2, 5, 77), (2, 1, 127, 0)]:
+        assert wk[(3 * dy + dx) * 128 + o, i] == w[dy, dx, i, o]
+
+
+def test_tile_schedule_and_wrap_rows():
+    """Band 8, WP 40: m2 = 240 rows in tiles of 128 at m0 = 0 and 128; the
+    roll's wraps are row 0 at dx = 0 (reads m2 - 1) and row 111 of the second
+    tile at dx = 2 (reads row 0), each plus dy WP."""
+    assert probe_cuda.tile_schedule(16, 40, 8, 128) == [(0, 0), (0, 128), (1, 0), (1, 128)]
+    rows = probe_cuda.tile_source_rows(0, 3, 40, 8, 128, rolls=True)          # dy 1, dx 0
+    assert rows[0] == 239 + 40 and torch.equal(rows[1:], torch.arange(1, 128) - 1 + 40)
+    rows = probe_cuda.tile_source_rows(128, 8, 40, 8, 128, rolls=True)        # dy 2, dx 2
+    assert rows[111] == 80 and rows[110] == 128 + 111 + 80 and rows[112] == 128 + 113 + 80
+    rows = probe_cuda.tile_source_rows(128, 8, 40, 8, 128, rolls=False)
+    assert torch.equal(rows, torch.arange(128, 256) + 80)
+
+
+@pytest.mark.parametrize("rolls", [True, False], ids=["roll", "noroll"])
+@pytest.mark.parametrize("band,wp", [(3, 40), (3, 36), (8, 40), (8, 36), (8, 64), (16, 40)])
+@pytest.mark.parametrize("tile_rows", [128, 256])
+def test_tile_rows_reproduce_tap_sums(band, wp, rolls, tile_rows):
+    """Rows gathered through the tile schedule and its wrap rows, times the
+    packed taps, are the plain version's tap sums exactly (int64)."""
+    rng = np.random.RandomState(band + wp)
+    x = torch.from_numpy(rng.randint(-127, 128, (3 * band, wp, 128)))
+    w = torch.from_numpy(rng.randint(-127, 128, (3, 3, 128, 128)))
+    want = bc._tap_sums(x, w, band, rolls)
+    got = bc.tiled_tap_sums(x, probe_cuda.pack_taps(w), band, rolls, tile_rows)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("kind,band", [("roll", 8), ("noroll", 8), ("pre", 8), ("roll", 16),
+                                       ("pre", 3)])
+def test_packed_int8_plain_matches_reference_and_pallas(jax_bc, monkeypatch, kind, band):
+    """P4 computed as the kernel does (tiles of its mode, packed int8 taps)
+    equals band_conv_int8_reference and the JAX kernel in interpret mode."""
+    monkeypatch.setattr(jax_bc, "jnp", _Shim(jnp, float32=np.float32))
+    x, w = _conv_inputs(2 * band if band > 8 else 4 * band, 40, seed=6)
+    x = x * 4
+    wq = bc.quantize(w, 0.01)
+    xi = bc.quantize(x, 0.05) if kind == "pre" else x
+    rolls, pre = kind != "noroll", kind == "pre"
+    xq = xi if pre else torch.clamp(torch.round(x.float() * bc._INV_SX), -127, 127)
+    acc = bc.tiled_tap_sums(xq.long(), probe_cuda.pack_taps(wq).long(), band, rolls,
+                            probe_cuda.TILE_ROWS[2 if pre else 1])
+    got = bc._finish(acc.float() * bc._EPILOGUE, x.shape[0], x.shape[1], band)
+    want = bc.band_conv_int8_reference(xi, wq, band, rolls, in_int8=pre)
+    assert torch.equal(got, want)
+    jax_out = jax_bc.band_conv_int8(_jax(xi), _jax(wq), band=band, rolls=rolls, in_int8=pre,
+                                    interpret=True)
+    np.testing.assert_array_equal(got.float().numpy(), _f32(jax_out))
+
+
+@pytest.mark.parametrize("rolls", [True, False], ids=["roll", "noroll"])
+def test_packed_bf16_plain_matches_pallas(jax_bc, rolls):
+    """P3 computed as the kernel does (tiles of 256 rows, packed taps), in
+    float32, against the JAX kernel in interpret mode."""
+    x, w = _conv_inputs(48, 40, seed=7)
+    want = jax_bc.band_conv(_jax(x), _jax(w), band=16, rolls=rolls, interpret=True)
+    acc = bc.tiled_tap_sums(x.float(), probe_cuda.pack_taps(w).float(), 16, rolls,
+                            probe_cuda.TILE_ROWS[0])
+    _assert_p3_close(want, bc._finish(acc, 48, 40, 16))
+
+
+def test_l2_bytes_of_the_kernel_design():
+    """TMA traffic per probe call: per tile, 3 dy x (K-chunks) windows of
+    A (32 KB) and, for each, 3 taps of B (16 KB)."""
+    window = 32 * 1024 + 3 * 16 * 1024
+    assert bc.work("tap_roll")["l2_bytes"] == 90 * 16 * 6 * window      # 0.71 GB
+    assert bc.work("int8_roll")["l2_bytes"] == 90 * 33 * 3 * window     # 0.73 GB
+    assert bc.work("int8_pre")["l2_bytes"] == 90 * 16 * 3 * window      # 0.35 GB
+    assert "l2_bytes" not in bc.work("library_conv")
 
 
 def test_band_conv_interior_is_the_library_conv():
