@@ -69,7 +69,10 @@ RECIPE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "options",
                       "train", "GoPro", "Final_bidirectionEncoder_XXNet_1attenfusion.yml")
 TRAIN_ITERS = 8
 OVERFIT_STEPS = 10
-KERNEL_TOL = 1e-4   # f32 atomics add in varying order; a cell sums a few votes of |v| <= 1
+# the voxelizers' shared-memory f32 atomics add a tile's votes in varying
+# order; a cell sums a few votes of |v| <= 1
+KERNEL_TOL = 1e-4
+SLAB_TRIAL = (30720, 61440, 122880)   # tile budgets timed beside the default (K1)
 PARITY_DB = 60.0
 CUDA = torch.device("cuda")
 P3_STEPS = 2.0      # bf16 steps per element: float32 sums in another order
@@ -115,6 +118,35 @@ def random_events(rng, n, width, height, cap=None, t_span=5e4):
     return ev
 
 
+def skewed_events(rng, n, width, height, cap=None, rows=8):
+    """``random_events`` with every event in ``rows`` rows mid-frame: events
+    crowd on moving edges."""
+    ev = random_events(rng, n, width, height, cap=cap)
+    ev[:n, 2] = rng.randint(height // 2 - rows // 2, height // 2 + rows // 2, n)
+    return ev
+
+
+def one_pixel_events(rng, n, width, height, bins=BINS):
+    """Every event on one pixel, with whole-bin stamps 0 .. bins - 1: each
+    vote is exactly +-1 or +-0, so the cells' sums are exact in any order and
+    a lost or doubled update under the contention shows."""
+    ev = random_events(rng, n, width, height)
+    ev[:, 0] = np.sort(rng.randint(0, bins, n))
+    ev[0, 0], ev[-1, 0] = 0, bins - 1
+    ev[:, 1], ev[:, 2] = width // 2, height // 2
+    return ev
+
+
+def edge_streams(rng):
+    """The voxelizers' edge cases beside the main shape: ``{name: (events,
+    width, height)}``, unpadded, 24 bins."""
+    davis = random_events(rng, 60000, 346, 260)           # DAVIS346: width % 4 != 0
+    davis[:, 1] = rng.randint(-2, 348, 60000)
+    return {"one_pixel": (one_pixel_events(rng, 1 << 16, WIDTH, HEIGHT), WIDTH, HEIGHT),
+            "davis346": (davis, 346, 260),
+            "split_row": (random_events(rng, 200000, 2560, 64), 2560, 64)}
+
+
 def fill_random(model, seed):
     """Every parameter from a seeded generator: conv kernels at 1/sqrt(fan_in),
     LayerNorm weights near 1, everything else (biases, EGACA beta / gamma)
@@ -141,57 +173,64 @@ def phase_kernel_check():
     rng = np.random.RandomState(0)
     cap = FULL_EVENTS
     main = random_events(rng, cap - 1000, WIDTH, HEIGHT, cap=cap)
+    skewed = skewed_events(rng, cap - 1000, WIDTH, HEIGHT, cap=cap)
     same_t = random_events(rng, 5000, WIDTH, HEIGHT, cap=1 << 14)
     same_t[:5000, 0] = 123.5
     outside = random_events(rng, 20000, WIDTH, HEIGHT, cap=1 << 15)
     outside[:20000, 1] = rng.randint(-8, WIDTH + 8, 20000)
     outside[:20000, 2] = rng.randint(-8, HEIGHT + 8, 20000)
     cases = {
-        "main": (main, cap - 1000),
-        "empty": (np.zeros((1 << 14, 4), np.float32), 0),
-        "equal_stamps": (same_t, 5000),
-        "out_of_frame": (outside, 20000),
+        "main": (main, cap - 1000, WIDTH, HEIGHT),
+        "empty": (np.zeros((1 << 14, 4), np.float32), 0, WIDTH, HEIGHT),
+        "equal_stamps": (same_t, 5000, WIDTH, HEIGHT),
+        "out_of_frame": (outside, 20000, WIDTH, HEIGHT),
+        "skewed": (skewed, cap - 1000, WIDTH, HEIGHT),
+        **{name: (ev, len(ev), w, h) for name, (ev, w, h) in edge_streams(rng).items()},
     }
     errs, votes = {}, {}
-    for name, (ev, n_valid) in cases.items():
+    for name, (ev, n_valid, w, h) in cases.items():
         ev_d = torch.from_numpy(ev).cuda()
-        got = voxel_cuda.voxelize_cuda(ev_d, n_valid, BINS, WIDTH, HEIGHT)
+        got = voxel_cuda.voxelize_cuda(ev_d, n_valid, BINS, w, h)
         torch.cuda.synchronize()
-        want = voxelize_padded_reference(ev_d, n_valid, BINS, WIDTH, HEIGHT)
-        check(got.shape == (BINS, HEIGHT, WIDTH), f"{name}: shape {tuple(got.shape)}")
+        want = voxelize_padded_reference(ev_d, n_valid, BINS, w, h)
+        check(got.shape == (BINS, h, w), f"{name}: shape {tuple(got.shape)}")
         errs[name] = float((got - want).abs().max())
         votes[name] = int((got != 0).sum())
         check(errs[name] <= KERNEL_TOL, f"voxelize {name}: max|diff| {errs[name]} > {KERNEL_TOL}")
-    check(votes["empty"] == 0 and votes["out_of_frame"] > 0 and votes["main"] > 0,
+    check(votes["empty"] == 0 and min(v for k, v in votes.items() if k != "empty") > 0,
           f"unexpected nonzero cell counts {votes}")
     emit("kernel_check", kernel="voxelize", max_abs_err=errs, tol=KERNEL_TOL,
          nonzero_cells=votes)
-    return max(errs.values()), main, cap - 1000
+    return max(errs.values()), main, skewed, cap - 1000
 
 
 def phase_grid_kernel_check():
     """K2 (numpy in, numpy out) against its plain version on the card."""
     rng = np.random.RandomState(3)
     main = random_events(rng, FULL_EVENTS, WIDTH, HEIGHT)
+    skewed = skewed_events(rng, FULL_EVENTS, WIDTH, HEIGHT)
     same_t = random_events(rng, 5000, WIDTH, HEIGHT)
     same_t[:, 0] = 123.5
     outside = random_events(rng, 20000, WIDTH, HEIGHT)
     outside[:, 1] = rng.randint(-8, WIDTH + 8, 20000)
     outside[:, 2] = rng.randint(-8, HEIGHT + 8, 20000)
     cases = {
-        "main_chw": (main, BINS, "CHW"),
-        "main_hwc": (main, BINS, "HWC"),
-        "empty": (np.zeros((0, 4), np.float32), BINS, "HWC"),
-        "equal_stamps": (same_t, BINS, "HWC"),
-        "out_of_frame": (outside, BINS, "HWC"),
-        "two_bins": (random_events(rng, 200000, WIDTH, HEIGHT), 2, "HWC"),
+        "main_chw": (main, BINS, "CHW", WIDTH, HEIGHT),
+        "main_hwc": (main, BINS, "HWC", WIDTH, HEIGHT),
+        "empty": (np.zeros((0, 4), np.float32), BINS, "HWC", WIDTH, HEIGHT),
+        "equal_stamps": (same_t, BINS, "HWC", WIDTH, HEIGHT),
+        "out_of_frame": (outside, BINS, "HWC", WIDTH, HEIGHT),
+        "two_bins": (random_events(rng, 200000, WIDTH, HEIGHT), 2, "HWC", WIDTH, HEIGHT),
     }
+    for name, (ev, w, h) in [("skewed", (skewed, WIDTH, HEIGHT)), *edge_streams(rng).items()]:
+        for fmt in ("CHW", "HWC"):
+            cases[f"{name}_{fmt.lower()}"] = (ev, BINS, fmt, w, h)
     errs, votes = {}, {}
-    for name, (ev, bins, fmt) in cases.items():
-        got = voxel_cuda.events_to_voxel_grid_cuda(ev, bins, WIDTH, HEIGHT, fmt)
+    for name, (ev, bins, fmt, w, h) in cases.items():
+        got = voxel_cuda.events_to_voxel_grid_cuda(ev, bins, w, h, fmt)
         want = events_to_voxel_grid_reference(
-            torch.from_numpy(ev).cuda(), bins, WIDTH, HEIGHT, fmt).cpu().numpy()
-        shape = (HEIGHT, WIDTH, bins) if fmt == "HWC" else (bins, HEIGHT, WIDTH)
+            torch.from_numpy(ev).cuda(), bins, w, h, fmt).cpu().numpy()
+        shape = (h, w, bins) if fmt == "HWC" else (bins, h, w)
         check(isinstance(got, np.ndarray) and got.shape == shape,
               f"voxel_grid {name}: shape {getattr(got, 'shape', None)}")
         errs[name] = float(np.abs(got - want).max())
@@ -202,46 +241,104 @@ def phase_grid_kernel_check():
           f"unexpected nonzero cell counts {votes}")
     emit("kernel_check", kernel="voxel_grid", max_abs_err=errs, tol=KERNEL_TOL,
          nonzero_cells=votes)
-    return max(errs.values()), main
+    return max(errs.values()), main, skewed
 
 
-def phase_kernel_timing(events, n_valid):
-    ev_d = torch.from_numpy(events).cuda()
-    ms = time_ms(lambda: voxel_cuda.voxelize_cuda(ev_d, n_valid, BINS, WIDTH, HEIGHT), 50, CUDA)
-    plain_ms = time_ms(lambda: voxelize_padded_reference(ev_d, n_valid, BINS, WIDTH, HEIGHT), 20, CUDA)
+def voxelization_device_ms(fn, iters):
+    """Device time of one voxelization, from torch.profiler over ``iters``
+    calls of ``fn()``: each device activity but the copies (the sort and
+    tile kernels), averaged over the records the profiler kept, then
+    summed; and those averages by name."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and not e.name.startswith("Memcpy"):
+            name = e.name.replace("(anonymous namespace)::", "").replace("void ", "")
+            name = name.split("(")[0].strip()
+            us.setdefault(name, []).append(e.time_range.elapsed_us())
+    by_name = {name: sum(v) / len(v) / 1e3 for name, v in us.items()}
+    check(all(any(k in name for name in by_name) for k in ("voxel_sort_kernel", "voxel_tile_kernel"))
+          and max(map(len, us.values())) <= iters,
+          f"profiler saw {({k: len(v) for k, v in us.items()})} for {iters} voxelizations")
+    return sum(by_name.values()), by_name
+
+
+def phase_kernel_timing(events, skewed, n_valid):
+    """K1 at the serving shape: CUDA events per call and the profiler's
+    device time per voxelization, for the uniform stream and for the skewed
+    one (every event in 8 rows); the device time at each slab budget of
+    SLAB_TRIAL; the plain version."""
+    ev_d, sk_d = torch.from_numpy(events).cuda(), torch.from_numpy(skewed).cuda()
+
+    def run(ev):
+        return lambda: voxel_cuda.voxelize_cuda(ev, n_valid, BINS, WIDTH, HEIGHT)
+
+    def run_slab(slab):     # the wrapper's uncounted core, at another budget
+        return lambda: voxel_cuda._voxelize(ev_d, n_valid, BINS, WIDTH, HEIGHT, slab_bytes=slab)
+
+    ms, skewed_ms = time_ms(run(ev_d), 50, CUDA), time_ms(run(sk_d), 50, CUDA)
+    device_ms, by_kernel = voxelization_device_ms(run(ev_d), 20)
+    skewed_device_ms, skewed_by_kernel = voxelization_device_ms(run(sk_d), 20)
+    slab_trial = {slab: voxelization_device_ms(run_slab(slab), 20)[0] for slab in SLAB_TRIAL}
+    plain_ms = time_ms(lambda: voxelize_padded_reference(ev_d, n_valid, BINS, WIDTH, HEIGHT),
+                       20, CUDA)
     # each valid event row read once, the grid written once
     bytes_moved = n_valid * 16 + BINS * HEIGHT * WIDTH * 4
     ops = n_valid * 16   # rescale, truncate, two votes: ~16 f32 operations
     timing = {"ms": ms, "plain_ms": plain_ms, **bound(bytes_moved, ops, F32_OPS_PER_S),
-              "library_ms": None}
+              "library_ms": None, "device_ms": device_ms}
+    timing["bound_share"] = timing["bound_ms"] / ms
     emit("kernel_timing", kernel="voxelize", n_valid=n_valid, bytes=bytes_moved,
-         **timing)
+         device_ms_by_kernel=by_kernel, skewed_ms=skewed_ms,
+         skewed_device_ms=skewed_device_ms, skewed_device_ms_by_kernel=skewed_by_kernel,
+         slab_bytes_device_ms=slab_trial, **timing)
     return timing
 
 
-def phase_grid_kernel_timing(events, calls=20):
+def phase_grid_kernel_timing(events, skewed, calls=20):
     """K2 at the datasets' shape (2**20 events, 24 bins, 720x1280, HWC):
-    the wrapper's own CUDA-event split of upload, zeroing + kernel, and the
-    copy back to pinned host memory, the host-clock wall time of a call, and
-    the plain version on the card."""
-    for _ in range(3):
-        voxel_cuda.events_to_voxel_grid_cuda(events, BINS, WIDTH, HEIGHT, "HWC")
-    voxel_cuda.reset_grid_stats()
-    t0 = time.perf_counter()
-    for _ in range(calls):
-        voxel_cuda.events_to_voxel_grid_cuda(events, BINS, WIDTH, HEIGHT, "HWC")
-    wall_ms = (time.perf_counter() - t0) * 1e3 / calls
-    per = {k: v / calls for k, v in voxel_cuda.GRID_TIMES.items()}
+    the wrapper's own CUDA-event split of upload, voxelization (binning and
+    tile pass) and the copy back to pinned host memory, the host-clock wall
+    time of a call, the profiler's device time per voxelization, the same
+    for the skewed stream (every event in 8 rows), and the plain version on
+    the card."""
+    def run(ev):
+        return lambda: voxel_cuda.events_to_voxel_grid_cuda(ev, BINS, WIDTH, HEIGHT, "HWC")
+
+    def per_call(ev):
+        for _ in range(3):
+            run(ev)()
+        voxel_cuda.reset_grid_stats()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            run(ev)()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / calls
+        return {k: v / calls for k, v in voxel_cuda.GRID_TIMES.items()}, wall_ms
+
+    (per, wall_ms), (skewed_per, _) = per_call(events), per_call(skewed)
+    device_ms, by_kernel = voxelization_device_ms(run(events), 10)
+    skewed_device_ms, _ = voxelization_device_ms(run(skewed), 10)
     ev_d = torch.from_numpy(events).cuda()
     plain_ms = time_ms(lambda: events_to_voxel_grid_reference(
         ev_d, BINS, WIDTH, HEIGHT, "HWC"), 10, CUDA)
     n = events.shape[0]
     bytes_moved = n * 16 + BINS * HEIGHT * WIDTH * 4
     timing = {"ms": per["kernel_ms"], "plain_ms": plain_ms,
-              **bound(bytes_moved, n * 16, F32_OPS_PER_S), "library_ms": None}
+              **bound(bytes_moved, n * 16, F32_OPS_PER_S), "library_ms": None,
+              "device_ms": device_ms}
+    timing["bound_share"] = timing["bound_ms"] / timing["ms"]
     emit("kernel_timing", kernel="voxel_grid", events=n, format="HWC",
          bytes=bytes_moved, upload_ms=per["upload_ms"], copy_ms=per["copy_ms"],
-         wall_ms=wall_ms, **timing)
+         wall_ms=wall_ms, device_ms_by_kernel=by_kernel,
+         skewed_ms=skewed_per["kernel_ms"], skewed_device_ms=skewed_device_ms, **timing)
     return timing
 
 
@@ -688,10 +785,10 @@ def main():
              line for line in v["log"].splitlines() if "Used" in line or "spill" in line]}
                   for k, v in built.items()})
 
-    max_err, events, n_valid = phase_kernel_check()
-    timing = phase_kernel_timing(events, n_valid)
-    grid_err, grid_events = phase_grid_kernel_check()
-    grid_timing = phase_grid_kernel_timing(grid_events)
+    max_err, events, skewed, n_valid = phase_kernel_check()
+    timing = phase_kernel_timing(events, skewed, n_valid)
+    grid_err, grid_events, grid_skewed = phase_grid_kernel_check()
+    grid_timing = phase_grid_kernel_timing(grid_events, grid_skewed)
 
     model = FinalBidirectionAttenfusion(RefidConfig())
     fill_random(model, seed=0)

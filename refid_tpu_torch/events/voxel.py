@@ -31,16 +31,32 @@ and its Pallas twin ``voxel_pallas.py::events_to_voxel_grid_pallas``) is
 The JAX package's host path rescales timestamps in double in its C++
 voxelizer (``native/voxelize.cc``) and in float32 in numpy; the port does it
 in float32, like the numpy path and the TPU kernels.
+
+Both kernels build the grid tile by tile in shared memory (``csrc/voxelize.cu``).
+:func:`voxel_tile_plan` is their tile plan and :func:`tiled_voxelize_reference`
+a plain mirror of the design (the same plan, a stable counting sort of the
+kept events by tile, each slab accumulated and then placed); the CPU tests
+hold it bit for bit against :func:`voxelize_padded_reference`.  The main
+path never runs it.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 __all__ = ["voxelize_padded", "voxelize_padded_reference", "voxel_norm",
            "events_to_voxel_grid", "events_to_voxel_grid_reference",
-           "voxel_norm_np", "event_reverse", "filter_event"]
+           "voxel_norm_np", "event_reverse", "filter_event", "SLAB_BYTES",
+           "TilePlan", "voxel_tile_plan", "tiled_voxelize_reference"]
+
+# A tile's shared-memory slab: 60 KB is half a 1280-px row of 24 bins, so
+# three blocks share an SM (csrc/voxelize.cu)
+SLAB_BYTES = 61440
+MAX_SHARED_BYTES = 232448 - 1024   # dynamic shared memory a block may use on sm_90
+SORT_CHUNK = 4096                  # events a sort block orders (kSortChunk)
 
 
 def check_event_buffer(events: torch.Tensor, n_valid: int, bins: int,
@@ -93,6 +109,105 @@ def voxelize_padded_reference(events: torch.Tensor, n_valid: int, bins: int,
     grid.index_add_(0, torch.where(right_ok, flat + plane, size),
                     torch.where(right_ok, pols * dts, zero))
     return grid[:size].view(bins, height, width)
+
+
+class TilePlan(NamedTuple):
+    """``tile_rows`` x ``tile_cols`` pixels a tile; ``tiles_x`` x
+    ``tiles_y`` tiles, numbered row-major."""
+    tile_rows: int
+    tile_cols: int
+    tiles_x: int
+    tiles_y: int
+
+    @property
+    def num_tiles(self) -> int:
+        return self.tiles_x * self.tiles_y
+
+
+def voxel_tile_plan(bins: int, width: int, height: int,
+                    slab_bytes: int = SLAB_BYTES) -> TilePlan:
+    """The kernels' tile plan (``csrc/voxelize.cu::make_plan``), the same
+    for CHW and HWC: the most whole rows whose ``bins`` float32 slab fits
+    ``slab_bytes``, else one row split into the fewest equal column tiles
+    that fit."""
+    if bins < 1 or width < 1 or height < 1:
+        raise ValueError(f"bad grid geometry bins={bins} {width}x{height}")
+    if slab_bytes > MAX_SHARED_BYTES:
+        raise ValueError(f"slab of {slab_bytes} bytes > {MAX_SHARED_BYTES} of shared memory")
+    max_px = slab_bytes // (4 * bins)
+    if max_px < 1:
+        raise ValueError(f"a {slab_bytes}-byte slab holds no pixel of {bins} bins")
+    if width <= max_px:
+        rows, cols = min(height, max_px // width), width
+    else:
+        parts = -(-width // max_px)
+        rows, cols = 1, -(-width // parts)
+    plan = TilePlan(rows, cols, -(-width // cols), -(-height // rows))
+    # a sort block holds its chunk and a counter per tile, and one more
+    if SORT_CHUNK * 16 + (plan.num_tiles + 1) * 4 > MAX_SHARED_BYTES:
+        raise ValueError(f"{plan.num_tiles} tiles: too many for the sort pass")
+    return plan
+
+
+def tiled_voxelize_reference(events: torch.Tensor, n_valid: int, bins: int,
+                             width: int, height: int, return_format: str = "CHW",
+                             slab_bytes: int = SLAB_BYTES) -> torch.Tensor:
+    """Plain mirror of the kernels' design: the grid of
+    :func:`voxelize_padded_reference` (``CHW``, or ``HWC`` as
+    ``(height, width, bins)``), computed tile by tile.  The kept events are
+    sorted stably by tile (the kernels sort each chunk of events by tile and
+    the tile pass reads the tile's run of every chunk in chunk order: the
+    same order when each chunk's sort is stable); each tile's slab, laid
+    out like the grid, takes its events' left votes, then their right
+    votes, in event order, and is then placed.  A cell's votes are
+    therefore summed in the plain version's order."""
+    check_event_buffer(events, n_valid, bins, width, height)
+    if return_format not in ("CHW", "HWC"):
+        raise ValueError(f"unknown return_format {return_format!r}")
+    plan = voxel_tile_plan(bins, width, height, slab_bytes)
+    t = events[:, 0]
+    first = t[0]
+    delta = t[max(n_valid - 1, 0)] - first
+    delta = torch.where(delta == 0, torch.ones_like(delta), delta)
+    ev = events[:n_valid]
+    ts = (bins - 1) * (ev[:, 0] - first) / delta
+    xs = ev[:, 1].to(torch.int64)
+    ys = ev[:, 2].to(torch.int64)
+    pols = torch.where(ev[:, 3] == 0, torch.full_like(ev[:, 3], -1.0), ev[:, 3])
+    tis = ts.to(torch.int64)
+    dts = ts - tis.to(ts.dtype)
+    left, right = pols * (1.0 - dts), pols * dts
+
+    # the binning passes: a stable counting sort of the kept events by tile
+    keep = (xs >= 0) & (xs < width) & (ys >= 0) & (ys < height) & (tis >= 0)
+    kept = keep.nonzero().squeeze(1)
+    tile = (ys[kept] // plan.tile_rows) * plan.tiles_x + xs[kept] // plan.tile_cols
+    order = kept[torch.sort(tile, stable=True).indices]
+    offsets = [0] + torch.bincount(tile, minlength=plan.num_tiles).cumsum(0).tolist()
+
+    # the tile pass; a cell no tile writes would stay NaN
+    hwc = return_format == "HWC"
+    shape = (height, width, bins) if hwc else (bins, height, width)
+    grid = torch.full(shape, float("nan"), dtype=torch.float32, device=events.device)
+    for k in range(plan.num_tiles):
+        y0 = k // plan.tiles_x * plan.tile_rows
+        x0 = k % plan.tiles_x * plan.tile_cols
+        rows, cols = min(plan.tile_rows, height - y0), min(plan.tile_cols, width - x0)
+        seg = order[offsets[k]:offsets[k + 1]]
+        px = (ys[seg] - y0) * cols + (xs[seg] - x0)
+        ti = tis[seg]
+        cell = px * bins + ti if hwc else ti * (rows * cols) + px
+        step = 1 if hwc else rows * cols          # from bin ti to ti + 1
+        slab = torch.zeros(rows * cols * bins, dtype=torch.float32, device=events.device)
+        ok = ti < bins
+        slab.index_add_(0, cell[ok], left[seg][ok])
+        ok = ti + 1 < bins
+        slab.index_add_(0, cell[ok] + step, right[seg][ok])
+        if hwc:
+            grid[y0:y0 + rows, x0:x0 + cols] = slab.view(rows, cols, bins)
+        else:
+            grid[:, y0:y0 + rows, x0:x0 + cols] = slab.view(bins, rows, cols)
+    return grid
 
 
 def voxelize_padded(events: torch.Tensor, n_valid: int, bins: int,

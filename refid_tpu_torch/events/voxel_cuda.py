@@ -1,19 +1,32 @@
 """Wrappers of the CUDA voxelizers in ``csrc/voxelize.cu``.
 
+Both kernels share one design: a sort of the kept events by tile of the
+grid, on the card (each block of ``SORT_CHUNK`` events counting-sorted in
+shared memory and written back contiguous, with its per-tile offsets),
+then one block per tile that gathers the tile's run from every chunk,
+accumulates its votes in a shared-memory slab and writes the slab once,
+zeros included.  The grid is allocated uninitialised: the tile pass writes
+every float.  The tile plan is ``events/voxel.py::voxel_tile_plan`` with
+``SLAB_BYTES``.  Each call allocates its scratch (the sorted rows and the
+chunks' offsets) on the current stream, so concurrent callers on their own
+streams share nothing.
+
 * :func:`voxelize_cuda` (K1) is the Hopper counterpart of
   ``refid_tpu/events/voxel_pallas.py::voxelize_device``: a padded CUDA
   event buffer in, a CHW grid on the card out.  Plain version:
   ``events/voxel.py::voxelize_padded_reference``.  ``LAUNCHES`` counts its
-  launches, so a run can show that the serving path went through it.
+  voxelizations (one a call, each two kernel launches), so a
+  run can show that the serving path went through it.
 * :func:`events_to_voxel_grid_cuda` (K2) is the counterpart of
   ``voxel_pallas.py::events_to_voxel_grid_pallas``: numpy events in, a
   numpy CHW or HWC grid out.  It copies the events up through pinned
-  memory, launches on the current stream, and copies the grid back into
+  memory, voxelizes on the current stream, and copies the grid back into
   pinned memory that the returned array keeps alive.  Plain version:
   ``events/voxel.py::events_to_voxel_grid_reference``.  ``GRID_LAUNCHES``
-  counts its launches (the training datasets call it once per item), and
-  ``GRID_TIMES`` sums, over those calls, the upload, the zeroing plus
-  kernel, and the copy back, in milliseconds of CUDA events.
+  counts its voxelizations (the training datasets call it once per item),
+  and ``GRID_TIMES`` sums, over those calls, the upload, the voxelization
+  (sort plus tile pass), and the copy back, in milliseconds of CUDA
+  events.
 
 Each plain version is held against its kernel on the card by
 ``chip_smoke.py`` and ``tests/test_torch_cuda.py``.  The counters are
@@ -28,11 +41,14 @@ import threading
 import numpy as np
 import torch
 
-from refid_tpu_torch.events.voxel import check_event_buffer, check_host_events
+from refid_tpu_torch.events.voxel import (
+    MAX_SHARED_BYTES, SLAB_BYTES, SORT_CHUNK, TilePlan, check_event_buffer,
+    check_host_events, voxel_tile_plan,
+)
 from refid_tpu_torch.ops.build import load, raise_on_error
 
 __all__ = ["LAUNCHES", "GRID_LAUNCHES", "GRID_TIMES", "voxelize_cuda",
-           "events_to_voxel_grid_cuda", "reset_grid_stats"]
+           "events_to_voxel_grid_cuda", "reset_grid_stats", "kernel_tile_plan"]
 
 LAUNCHES = 0
 GRID_LAUNCHES = 0
@@ -45,16 +61,51 @@ def _library() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         lib = load("voxelize")
-        lib.refid_voxelize.argtypes = [
-            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
-        lib.refid_voxelize.restype = ctypes.c_int
-        lib.refid_voxel_grid.argtypes = [
-            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
-        lib.refid_voxel_grid.restype = ctypes.c_int
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.refid_voxel_plan.argtypes = [i, i, i, i, p]
+        lib.refid_voxel_sort_chunk.argtypes = []
+        lib.refid_voxelize.argtypes = [p, i, i, i, i, i, i, p, p, p, p]
+        for fn in (lib.refid_voxel_plan, lib.refid_voxel_sort_chunk, lib.refid_voxelize):
+            fn.restype = i
         _lib = lib
     return _lib
+
+
+def kernel_tile_plan(bins: int, width: int, height: int,
+                     slab_bytes: int = SLAB_BYTES) -> TilePlan:
+    """The kernels' own tile plan (``make_plan`` in the library), which
+    ``voxel_tile_plan`` mirrors."""
+    lib = _library()
+    plan = (ctypes.c_int * 4)()
+    raise_on_error(lib, lib.refid_voxel_plan(bins, width, height, slab_bytes, plan),
+                   "voxel_plan")
+    return TilePlan(*plan)
+
+
+def _voxelize(events: torch.Tensor, n: int, bins: int, width: int, height: int,
+              hwc: bool = False, slab_bytes: int = SLAB_BYTES) -> torch.Tensor:
+    """One voxelization of the first ``n`` rows of a 16-byte-aligned CUDA
+    buffer on the current stream, not counted in ``LAUNCHES``; returns the
+    ``(bins, h, w)`` grid, or ``(h, w, bins)`` for ``hwc``."""
+    plan = voxel_tile_plan(bins, width, height, slab_bytes)
+    chunks = -(-n // SORT_CHUNK)
+    slab_floats = -(-plan.tile_rows * plan.tile_cols * bins // 32) * 32
+    if 4 * slab_floats + 4 * (2 * chunks + 1) > MAX_SHARED_BYTES:
+        raise ValueError(f"{n} events: too many chunks for the tile pass's shared memory")
+    lib = _library()
+    shape = (height, width, bins) if hwc else (bins, height, width)
+    grid = torch.empty(shape, dtype=torch.float32, device=events.device)
+    offsets = torch.empty(max(chunks, 1) * (plan.num_tiles + 1), dtype=torch.int32,
+                          device=events.device)
+    rows = torch.empty((max(chunks, 1) * SORT_CHUNK, 4), dtype=torch.float32,
+                       device=events.device)
+    with torch.cuda.device(events.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.refid_voxelize(events.data_ptr(), n, bins, width, height, int(hwc),
+                                 slab_bytes, offsets.data_ptr(), rows.data_ptr(),
+                                 grid.data_ptr(), stream)
+    raise_on_error(lib, err, "voxelize")
+    return grid
 
 
 def voxelize_cuda(events: torch.Tensor, n_valid: int, bins: int, width: int,
@@ -72,14 +123,7 @@ def voxelize_cuda(events: torch.Tensor, n_valid: int, bins: int, width: int,
         raise ValueError("events must be 16-byte aligned (rows read as float4)")
     if n_valid >= 2 ** 31:
         raise ValueError("n_valid must fit the kernel's 32-bit int")
-    lib = _library()
-    grid = torch.zeros((bins, height, width), dtype=torch.float32,
-                       device=events.device)
-    with torch.cuda.device(events.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.refid_voxelize(events.data_ptr(), n_valid, bins, width,
-                                 height, grid.data_ptr(), stream)
-    raise_on_error(lib, err, "voxelize")
+    grid = _voxelize(events, n_valid, bins, width, height)
     LAUNCHES += 1
     return grid
 
@@ -114,7 +158,6 @@ def events_to_voxel_grid_cuda(events: np.ndarray, num_bins: int, width: int,
     shape = (height, width, num_bins) if hwc else (num_bins, height, width)
     if n == 0:   # as the TPU entry: no launch, an empty grid
         return np.zeros(shape, np.float32)
-    lib = _library()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream()
         marks = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
@@ -124,10 +167,7 @@ def events_to_voxel_grid_cuda(events: np.ndarray, num_bins: int, width: int,
         staged = torch.from_numpy(np.ascontiguousarray(events)).pin_memory()
         ev = staged.to(device, non_blocking=True)
         marks[1].record(stream)
-        grid = torch.zeros(shape, dtype=torch.float32, device=device)
-        err = lib.refid_voxel_grid(ev.data_ptr(), n, num_bins, width, height,
-                                   int(hwc), grid.data_ptr(), stream.cuda_stream)
-        raise_on_error(lib, err, "voxel_grid")
+        grid = _voxelize(ev, n, num_bins, width, height, hwc)
         marks[2].record(stream)
         host = torch.empty(shape, dtype=torch.float32, pin_memory=True)
         host.copy_(grid, non_blocking=True)

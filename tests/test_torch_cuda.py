@@ -16,7 +16,8 @@ from refid_tpu_torch.events.voxel import voxelize_padded, voxelize_padded_refere
 
 pytestmark = pytest.mark.gpu
 
-# f32 atomics add in an order that varies; a cell sums a few votes of |v| <= 1
+# shared-memory f32 atomics add a tile's votes in an order that varies; a
+# cell sums a few votes of |v| <= 1
 TOL = 1e-4
 
 
@@ -27,24 +28,37 @@ def cuda():
     return torch.device("cuda")
 
 
-def _events(seed, cap, n_valid, w, h, margin=0):
+def _events(seed, cap, n_valid, w, h, margin=0, kind="uniform"):
+    """``kind``: ``uniform``, ``skew`` (every event in 8 rows) or ``pixel``
+    (every event on one pixel, at whole-bin stamps 0 .. 23 of 24 bins: each
+    vote is +-1 or +-0, so every cell's sum is exact in any order)."""
     rng = np.random.RandomState(seed)
     ev = np.zeros((cap, 4), np.float32)
     ev[:n_valid, 0] = np.sort(rng.uniform(0, 5e4, n_valid))
     ev[:n_valid, 1] = rng.randint(-margin, w + margin, n_valid)
     ev[:n_valid, 2] = rng.randint(-margin, h + margin, n_valid)
     ev[:n_valid, 3] = rng.randint(0, 2, n_valid)
+    if kind == "skew":
+        ev[:n_valid, 2] = rng.randint(h // 2 - 4, h // 2 + 4, n_valid)
+    elif kind == "pixel":
+        ev[:n_valid, 0] = np.sort(rng.randint(0, 24, n_valid))
+        ev[0, 0], ev[n_valid - 1, 0] = 0, 23
+        ev[:n_valid, 1], ev[:n_valid, 2] = w // 2, h // 2
     return ev
 
 
-@pytest.mark.parametrize("cap,n_valid,bins,w,h,margin", [
-    (1 << 20, (1 << 20) - 1000, 24, 1280, 720, 0),   # the main path's shape
-    (1 << 14, 0, 24, 1280, 720, 0),                   # empty stream
-    (1 << 15, 20000, 24, 1280, 720, 8),               # out-of-frame events
-    (2048, 1900, 5, 160, 48, 4),
+@pytest.mark.parametrize("cap,n_valid,bins,w,h,margin,kind", [
+    (1 << 20, (1 << 20) - 1000, 24, 1280, 720, 0, "uniform"),   # the main path's shape
+    (1 << 14, 0, 24, 1280, 720, 0, "uniform"),                   # empty stream
+    (1 << 15, 20000, 24, 1280, 720, 8, "uniform"),               # out-of-frame events
+    (2048, 1900, 5, 160, 48, 4, "uniform"),
+    (1 << 20, (1 << 20) - 1000, 24, 1280, 720, 0, "skew"),
+    (1 << 16, 1 << 16, 24, 1280, 720, 0, "pixel"),
+    (1 << 16, 60000, 24, 346, 260, 2, "uniform"),               # DAVIS346: width % 4 != 0
+    (1 << 18, 200000, 24, 2560, 64, 0, "uniform"),               # a row split in four tiles
 ])
-def test_voxelize_kernel_matches_plain(cuda, cap, n_valid, bins, w, h, margin):
-    ev = torch.from_numpy(_events(0, cap, n_valid, w, h, margin)).to(cuda)
+def test_voxelize_kernel_matches_plain(cuda, cap, n_valid, bins, w, h, margin, kind):
+    ev = torch.from_numpy(_events(0, cap, n_valid, w, h, margin, kind)).to(cuda)
     before = voxel_cuda.LAUNCHES
     got = voxelize_padded(ev, n_valid, bins, w, h)
     torch.cuda.synchronize()
@@ -68,23 +82,60 @@ def test_voxelize_kernel_rejects_misaligned_buffer(cuda):
         voxel_cuda.voxelize_cuda(ev, 4, 3, 8, 8)
 
 
-def _stream(seed, n, w, h, margin=0):
-    return _events(seed, n, n, w, h, margin)
+@pytest.mark.parametrize("bins,w,h", [(24, 1280, 720), (2, 1280, 720), (24, 2560, 64),
+                                      (24, 346, 260), (24, 2001, 10)])
+def test_kernel_tile_plan_matches_python(cuda, bins, w, h):
+    from refid_tpu_torch.events.voxel import SORT_CHUNK, voxel_tile_plan
+    assert voxel_cuda.kernel_tile_plan(bins, w, h) == voxel_tile_plan(bins, w, h)
+    assert voxel_cuda._library().refid_voxel_sort_chunk() == SORT_CHUNK
 
 
-@pytest.mark.parametrize("n,bins,w,h,margin,fmt", [
-    (1 << 20, 24, 1280, 720, 0, "HWC"),    # the training datasets' shape
-    (1 << 20, 24, 1280, 720, 0, "CHW"),
-    (0, 24, 1280, 720, 0, "HWC"),          # empty stream: no launch
-    (20000, 24, 1280, 720, 8, "HWC"),      # out-of-frame events
-    (200000, 2, 1280, 720, 0, "HWC"),      # one_voxel_flag: false
-    (1900, 5, 160, 48, 4, "CHW"),
+@pytest.mark.parametrize("fmt", [None, "CHW", "HWC"], ids=["k1", "k2_chw", "k2_hwc"])
+def test_kernels_fill_a_grid_over_garbage(cuda, fmt):
+    """The tile pass writes every grid float: a grid allocated in freed memory
+    that held NaN comes out equal to the plain version."""
+    from refid_tpu_torch.events.voxel import events_to_voxel_grid_reference
+    bins, w, h, n = 24, 346, 260, 60000      # events and scratch < 1 MB: the small pool
+    ev = _events(4, n, n, w, h)
+    ev_d = torch.from_numpy(ev).to(cuda)
+    garbage = torch.full((bins * h * w,), float("nan"), device=cuda)
+    ptr = garbage.data_ptr()
+    del garbage
+    if fmt is None:
+        got = voxel_cuda.voxelize_cuda(ev_d, n, bins, w, h)
+        assert got.data_ptr() == ptr
+        want = voxelize_padded_reference(ev_d, n, bins, w, h)
+        assert (got - want).abs().max().item() <= TOL
+    else:
+        got = voxel_cuda.events_to_voxel_grid_cuda(ev, bins, w, h, fmt)
+        want = events_to_voxel_grid_reference(ev_d, bins, w, h, fmt).cpu().numpy()
+        assert np.abs(got - want).max() <= TOL
+
+
+def _stream(seed, n, w, h, margin=0, kind="uniform"):
+    return _events(seed, n, n, w, h, margin, kind)
+
+
+@pytest.mark.parametrize("n,bins,w,h,margin,fmt,kind", [
+    (1 << 20, 24, 1280, 720, 0, "HWC", "uniform"),    # the training datasets' shape
+    (1 << 20, 24, 1280, 720, 0, "CHW", "uniform"),
+    (0, 24, 1280, 720, 0, "HWC", "uniform"),          # empty stream: no launch
+    (20000, 24, 1280, 720, 8, "HWC", "uniform"),      # out-of-frame events
+    (200000, 2, 1280, 720, 0, "HWC", "uniform"),      # one_voxel_flag: false
+    (1900, 5, 160, 48, 4, "CHW", "uniform"),
+    *[(*case[:5], fmt, case[5]) for fmt in ("CHW", "HWC") for case in [
+        (1 << 20, 24, 1280, 720, 0, "skew"),
+        (1 << 16, 24, 1280, 720, 0, "pixel"),
+        (60000, 24, 346, 260, 2, "uniform"),          # DAVIS346: width % 4 != 0
+        (200000, 24, 2560, 64, 0, "uniform"),         # a row split in four tiles
+        (200000, 2, 1280, 720, 0, "skew"),            # many rows a tile
+    ]],
 ])
-def test_voxel_grid_kernel_matches_plain(cuda, n, bins, w, h, margin, fmt):
+def test_voxel_grid_kernel_matches_plain(cuda, n, bins, w, h, margin, fmt, kind):
     from refid_tpu_torch.events.voxel import (
         events_to_voxel_grid, events_to_voxel_grid_reference,
     )
-    ev = _stream(2, n, w, h, margin)
+    ev = _stream(2, n, w, h, margin, kind)
     before = voxel_cuda.GRID_LAUNCHES
     got = events_to_voxel_grid(ev, bins, w, h, fmt)
     assert voxel_cuda.GRID_LAUNCHES == before + (1 if n else 0)
