@@ -15,9 +15,15 @@ random weights:
   float32 and bf16;
 * training (K2): one optimiser step on the card against the CPU, then the
   recipe ``options/train/GoPro/Final_bidirectionEncoder_XXNet_1attenfusion.yml``
-  (validation removed) through ``python -m refid_tpu_torch.cli.train``'s
-  ``main`` on a synthetic 1280x720 GoPro tree written to a temporary
-  directory, in float32 and bf16, and a fixed batch overfitted for 10 steps;
+  (validating every ``VAL_FREQ`` iterations) through
+  ``python -m refid_tpu_torch.cli.train``'s ``main`` on a synthetic 1280x720
+  GoPro tree written to a temporary directory, in float32 and bf16, and a
+  fixed batch overfitted for 10 steps;
+* evaluation (K2): ``python -m refid_tpu_torch.cli.test``'s entry on
+  ``options/test/GoPro/Test_Final_1skip.yml`` pointed at the same tree and
+  at a checkpoint of the seeded weights, after PSNR / SSIM on the card are
+  held against the CPU;
+* the padded-capacity voxelizer entry (K1) at the serving shape;
 * the probes (P1-P4): ``python -m refid_tpu_torch.probes.band_conv``'s and
   ``python -m refid_tpu_torch.probes.poison``'s ``main`` at the serving
   geometry, after P1-P4 are held against their plain versions.
@@ -40,12 +46,17 @@ import numpy as np
 import torch
 
 from refid_tpu_torch import BlurVFIPipeline, RefidConfig
+from refid_tpu_torch.cli import test as test_cli
 from refid_tpu_torch.cli import train as train_cli
+from refid_tpu_torch.core.checkpoint import CheckpointManager
 from refid_tpu_torch.core.device import time_ms
-from refid_tpu_torch.data.img_util import png_encode
+from refid_tpu_torch.data.datasets.base import GOPRO_TEST_VIDEOS
+from refid_tpu_torch.data.img_util import imread, png_encode
+from refid_tpu_torch.eval.metrics import calculate_psnr, calculate_ssim
 from refid_tpu_torch.events import voxel_cuda
 from refid_tpu_torch.events.voxel import (
-    events_to_voxel_grid_reference, voxelize_padded_reference,
+    events_to_voxel_grid_padded, events_to_voxel_grid_reference, pad_events,
+    voxelize_padded_reference,
 )
 from refid_tpu_torch.models.convert import known_unused_keys
 from refid_tpu_torch.models.refid import FinalBidirectionAttenfusion
@@ -65,9 +76,13 @@ INT8_OPS_PER_S = 1979e12
 
 BINS, WIDTH, HEIGHT = 24, 1280, 720      # blurry VFI 11+1 at 720p
 FULL_EVENTS = 1 << 20
-RECIPE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "options",
-                      "train", "GoPro", "Final_bidirectionEncoder_XXNet_1attenfusion.yml")
+OPTIONS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "options")
+RECIPE = os.path.join(OPTIONS, "train", "GoPro", "Final_bidirectionEncoder_XXNet_1attenfusion.yml")
+EVAL_OPTIONS = os.path.join(OPTIONS, "test", "GoPro", "Test_Final_1skip.yml")
 TRAIN_ITERS = 8
+VAL_FREQ = 4                  # validations after iterations 4 and 8
+PADDED_EVENTS = (1 << 20) - 48576     # 10**6 events: the entry pads them to 2**20
+METRIC_TOL = 1e-5             # PSNR (dB) and SSIM, card against CPU
 OVERFIT_STEPS = 10
 # the voxelizers' shared-memory f32 atomics add a tile's votes in varying
 # order; a cell sums a few votes of |v| <= 1
@@ -126,6 +141,19 @@ def skewed_events(rng, n, width, height, cap=None, rows=8):
     return ev
 
 
+def early_stamp_events(rng, n, width, height, cap=None, early=0.02):
+    """``random_events`` with stamps 10 .. 20 (the first 10, the last 20) and
+    a share ``early`` of them moved into [9, 10), before the first: at 24
+    bins their truncated bins are 0, -1 (only the right vote lands, in bin
+    0) and -2 (no vote).  An unsorted stream."""
+    ev = random_events(rng, n, width, height, cap=cap)
+    ev[:n, 0] = np.sort(rng.uniform(10.0, 20.0, n))
+    ev[0, 0], ev[n - 1, 0] = 10.0, 20.0
+    k = int(n * early)
+    ev[rng.choice(np.arange(1, n - 1), k, replace=False), 0] = rng.uniform(9.0, 10.0, k)
+    return ev
+
+
 def one_pixel_events(rng, n, width, height, bins=BINS):
     """Every event on one pixel, with whole-bin stamps 0 .. bins - 1: each
     vote is exactly +-1 or +-0, so the cells' sums are exact in any order and
@@ -144,7 +172,8 @@ def edge_streams(rng):
     davis[:, 1] = rng.randint(-2, 348, 60000)
     return {"one_pixel": (one_pixel_events(rng, 1 << 16, WIDTH, HEIGHT), WIDTH, HEIGHT),
             "davis346": (davis, 346, 260),
-            "split_row": (random_events(rng, 200000, 2560, 64), 2560, 64)}
+            "split_row": (random_events(rng, 200000, 2560, 64), 2560, 64),
+            "early_stamps": (early_stamp_events(rng, 1 << 18, WIDTH, HEIGHT), WIDTH, HEIGHT)}
 
 
 def fill_random(model, seed):
@@ -456,7 +485,10 @@ def write_gopro_tree(root, seed=0, num_blur=4, num_gt=48, num_windows=47,
                      events_per_window=FULL_EVENTS // BINS):
     """A GoPro-layout tree at 1280x720, one video: ``num_blur`` blur frames,
     ``num_gt`` gt frames (PNG, the port's writer) and ``num_windows`` event
-    windows, so that one blur-VFI 11+1 item votes about 2**20 events."""
+    windows, so that one blur-VFI 11+1 item votes about 2**20 events.  The
+    test split links the same video under the first name of the GoPro test
+    list, which the val and test datasets read when no ``video_list`` is
+    given."""
     rng = np.random.RandomState(seed)
     video = os.path.join(root, "train", "SYNTH")
     ev_dir = os.path.join(root, "train_event", "SYNTH")
@@ -477,19 +509,24 @@ def write_gopro_tree(root, seed=0, num_blur=4, num_gt=48, num_windows=47,
                  x=rng.randint(0, WIDTH, n).astype(np.int16),
                  y=rng.randint(0, HEIGHT, n).astype(np.int16),
                  polarity=rng.randint(0, 2, n).astype(np.int8))
+    for split in ("", "_event"):
+        os.makedirs(os.path.join(root, "test" + split), exist_ok=True)
+        os.symlink(os.path.join(root, "train" + split, "SYNTH"),
+                   os.path.join(root, "test" + split, GOPRO_TEST_VIDEOS[0]))
 
 
 def recipe_overrides(opt, data_root, name, dtype):
-    """The production recipe as ``chip_smoke`` trains it: validation removed
-    (it comes with the eval slice), the synthetic tree, a log line per
-    iteration, no periodic checkpoints, no TensorBoard, and the compute
-    dtype.  Everything else (network, crop, flips, sampler, loader,
-    optimiser, schedule, loss, remat) is the recipe's."""
+    """The production recipe as ``chip_smoke`` trains it: the synthetic tree
+    for training and validation, a validation every ``VAL_FREQ``
+    iterations, a log line per iteration, no periodic checkpoints, no
+    TensorBoard, and the compute dtype.  Everything else (network, crop,
+    flips, sampler, loader, optimiser, schedule, loss, remat, metrics) is
+    the recipe's."""
     opt = json.loads(json.dumps(opt))
-    opt.pop("val", None)
-    opt["datasets"].pop("val", None)
     opt["name"] = name
     opt["datasets"]["train"].update(dataroot=data_root, video_list=["SYNTH"])
+    opt["datasets"]["val"]["dataroot"] = data_root
+    opt["val"]["val_freq"] = VAL_FREQ
     opt["logger"].update(print_freq=1, save_checkpoint_freq=0, use_tb_logger=False)
     if dtype == "bf16":
         opt["network_g"]["compute_dtype"] = "bfloat16"
@@ -550,19 +587,28 @@ def phase_train(data_root, work, dtype):
     seconds = time.perf_counter() - t0
     timing = dict(task.train_loader.dataset.timing)
     items, launches = timing.pop("items"), voxel_cuda.GRID_LAUNCHES
-    losses = [h["loss"] for h in task.history]
-    step_ms = [h["time"] * 1e3 for h in task.history]
+    val_items = sum(loader.dataset.timing["items"] for _, loader in task.val_loaders)
+    steps = [h for h in task.history if "loss" in h]
+    vals = [h for h in task.history if "val" in h]
+    losses = [h["loss"] for h in steps]
+    step_ms = [h["time"] * 1e3 for h in steps]
     check(len(losses) == TRAIN_ITERS and all(math.isfinite(v) for v in losses),
           f"{dtype} training losses {losses}")
-    check(items > 0 and launches == items,
-          f"{dtype} training: K2 launched {launches} times for {items} items")
+    check([h["iter"] for h in vals] == list(range(VAL_FREQ, TRAIN_ITERS + 1, VAL_FREQ))
+          and all(math.isfinite(h[k]) for h in vals for k in ("total_psnr", "total_ssim")),
+          f"{dtype} training validations {vals}")
+    check(items > 0 and val_items > 0 and launches == items + val_items,
+          f"{dtype} training: K2 launched {launches} times for {items} + {val_items} items")
     per_item = {k: v / items for k, v in timing.items()}
     per_item.update({k.replace("_ms", "_cuda_ms"): v / launches
                      for k, v in voxel_cuda.GRID_TIMES.items()})
     emit("train", dtype=dtype, iters=TRAIN_ITERS, crop=opt["datasets"]["train"]["gt_size"],
          t=23, losses=losses, step_ms=step_ms,
          mean_step_ms_after_first=sum(step_ms[1:]) / len(step_ms[1:]),
-         items_loaded=items, voxel_grid_launches=launches, data_ms_per_item=per_item,
+         items_loaded=items, val_items_loaded=val_items, voxel_grid_launches=launches,
+         data_ms_per_item=per_item, validations=vals,
+         val_ms_per_item={k: v / task.val_timing["items"] for k, v in task.val_timing.items()
+                          if k != "items"},
          max_memory_allocated=torch.cuda.max_memory_allocated(), seconds=seconds)
     return task, launches
 
@@ -609,6 +655,92 @@ def phase_train_profile(task, batch, top=12):
     profile_window("train_profile", lambda: task.train_step(batch), step_ms, top)
 
 
+def phase_metric_parity(data_root):
+    """PSNR and SSIM of two 1280x720 uint8 frames of the tree, on the card
+    against the CPU, and the card's ms for one frame's pair."""
+    video = os.path.join(data_root, "train", "SYNTH", "gt")
+    a, b = (imread(os.path.join(video, "%06d.png" % k), float32=False, rgb=False)
+            for k in (0, 1))
+    cpu = {"psnr": calculate_psnr(a, b), "ssim": calculate_ssim(a, b)}
+    a_d, b_d = torch.from_numpy(a).cuda(), torch.from_numpy(b).cuda()
+    card = {"psnr": calculate_psnr(a_d, b_d), "ssim": calculate_ssim(a_d, b_d)}
+    ms = time_ms(lambda: (calculate_psnr(a_d, b_d), calculate_ssim(a_d, b_d)), 10, CUDA)
+    diff = {k: abs(card[k] - cpu[k]) for k in cpu}
+    emit("metric_parity", frame=[HEIGHT, WIDTH], cpu=cpu, card=card, abs_diff=diff,
+         tol=METRIC_TOL, card_ms_per_frame=ms)
+    check(all(math.isfinite(v) for v in card.values()) and max(diff.values()) <= METRIC_TOL,
+          f"metrics card {card} vs CPU {cpu}")
+
+
+def phase_eval(data_root, work, state):
+    """The test CLI's entry (``cli.test.run``, which ``main`` calls) on
+    ``Test_Final_1skip.yml`` with its dataroot set to the synthetic tree and
+    its weights to a checkpoint of ``state``; returns the K2 launches."""
+    import yaml
+
+    models = os.path.join(work, "eval_models")
+    CheckpointManager(models).save(0, state)
+    with open(EVAL_OPTIONS) as f:
+        opt = yaml.safe_load(f)
+    opt["datasets"]["test"]["dataroot"] = data_root
+    opt["path"]["pretrain_network_g"] = models
+    path = os.path.join(work, "eval.yml")
+    with open(path, "w") as f:
+        yaml.safe_dump(opt, f)
+    voxel_cuda.reset_grid_stats()
+    k1_before = voxel_cuda.LAUNCHES
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    task = test_cli.run(["-opt", path, "--root", work])
+    seconds = time.perf_counter() - t0
+    results, timing = task.results["test"], task.test_timing["test"]
+    launches, items = voxel_cuda.GRID_LAUNCHES, timing["items"]
+    saved = sum(len(files) for _, _, files in os.walk(os.path.join(
+        work, "results", opt["name"], "visualization")))
+    emit("eval", options=os.path.relpath(EVAL_OPTIONS, os.path.dirname(OPTIONS)),
+         frame=[HEIGHT, WIDTH], items=items, results=results,
+         predict_ms_per_item=timing["predict_ms"] / max(items, 1),
+         metric_ms_per_item=timing["metric_ms"] / max(items, 1),
+         max_memory_allocated=torch.cuda.max_memory_allocated(), images_saved=saved,
+         voxel_grid_launches=launches, voxelize_launches=voxel_cuda.LAUNCHES - k1_before,
+         seconds=seconds)
+    check(items > 0 and all(math.isfinite(results.get(k, math.nan))
+                            for k in ("total_psnr", "total_ssim")),
+          f"eval results {results} over {items} items")
+    check(launches == items, f"eval: K2 launched {launches} times for {items} items")
+    check(saved == items * 23, f"eval saved {saved} images for {items} items")
+    return launches
+
+
+def phase_voxel_grid_padded(calls=4):
+    """K1 through ``events_to_voxel_grid_padded`` at the serving shape (10**6
+    events padded to 2**20, 24 x 720 x 1280): ``calls`` timed calls with the
+    launch count reset (the entry's path), then each layout against the
+    plain version on the card.  Returns the path's K1 launches."""
+    rng = np.random.RandomState(6)
+    ev = random_events(rng, PADDED_EVENTS, WIDTH, HEIGHT)
+
+    def run(fmt="CHW"):
+        return events_to_voxel_grid_padded(ev, BINS, WIDTH, HEIGHT, fmt)
+
+    voxel_cuda.LAUNCHES = 0                        # the entry's path starts here
+    ms = time_ms(run, calls, CUDA, warmup=0)
+    launches = voxel_cuda.LAUNCHES                 # ... and ends here
+    padded, n = pad_events(ev, 1 << 20, CUDA)
+    plain = voxelize_padded_reference(padded, n, BINS, WIDTH, HEIGHT)
+    errs = {}
+    for fmt in ("CHW", "HWC"):
+        got = run(fmt)
+        want = plain if fmt == "CHW" else plain.permute(1, 2, 0)
+        check(tuple(got.shape) == tuple(want.shape), f"padded {fmt}: shape {tuple(got.shape)}")
+        errs[fmt] = float((got - want).abs().max())
+    emit("voxel_grid_padded", events=PADDED_EVENTS, capacity=1 << 20, calls=calls,
+         ms_per_call=ms, launches=launches, max_abs_err=errs, tol=KERNEL_TOL)
+    check(launches == calls, f"the padded entry launched K1 {launches} times in {calls} calls")
+    check(max(errs.values()) <= KERNEL_TOL, f"padded entry vs plain: {errs}")
+    return launches
+
+
 def kernel_device_ms(fn, iters, name_part):
     """Device time per launch of the kernels whose name holds ``name_part``
     over ``iters`` calls of ``fn()``, from torch.profiler: for a kernel
@@ -618,14 +750,18 @@ def kernel_device_ms(fn, iters, name_part):
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    us = [e.time_range.elapsed_us() for e in prof.events()
-          if e.device_type == DeviceType.CUDA and name_part in e.name]
-    # the profiler may drop some device records of a long session: average
-    # those it kept
+    # the profiler may drop some device records of a long session, or all of
+    # a session's after earlier sessions: average those it kept, and profile
+    # again (up to three sessions) when it kept none
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        us = [e.time_range.elapsed_us() for e in prof.events()
+              if e.device_type == DeviceType.CUDA and name_part in e.name]
+        if us:
+            break
     check(0 < len(us) <= iters, f"profiler saw {len(us)} {name_part} launches for {iters} calls")
     return sum(us) / len(us) / 1e3
 
@@ -674,7 +810,12 @@ def phase_probe_kernel_check():
                                     "passthrough_kernel")
     p2_device_ms = kernel_device_ms(lambda: probe_poison.tiny_passthrough(scratch), 20,
                                     "passthrough_slice_kernel")
-    del d, scratch
+    # the launch floor beside P2: one PyTorch op on the same (8, 128) view
+    view = scratch[0, 0, :8, :128]
+    p2_floor = {"op": "view.mul_(2)", "ms": time_ms(lambda: view.mul_(2), 50, CUDA),
+                "device_ms": kernel_device_ms(lambda: view.mul_(2), 20, "elementwise")}
+    p2.update(device_ms=p2_device_ms, launch_floor_device_ms=p2_floor["device_ms"])
+    del d, scratch, view
 
     # P3 and P4 at the probe's shape and at the kernel's edges (see
     # BAND_CONV_EDGES), rolls on and off, P4 in its three modes
@@ -736,7 +877,7 @@ def phase_probe_kernel_check():
     emit("probe_kernel_check", p1_p2="bit-exact (bf16, f32; bands 8, 16)", p3_steps=steps,
          p3_db=dbs, p3_max_steps=P3_STEPS, min_db=PARITY_DB, p4="bit-exact",
          max_abs_err=errs, poison_step_db_vs_torch=step_db, p1=p1, p2=p2,
-         p1_device_ms=p1_device_ms, p2_device_ms=p2_device_ms,
+         p1_device_ms=p1_device_ms, p2_device_ms=p2_device_ms, p2_launch_floor=p2_floor,
          p3_plain_ms=p3_plain_ms, p4_plain_ms=p4_plain_ms, p3_p4_device_ms=device_ms,
          edges=[list(e) for e in BAND_CONV_EDGES])
     return errs, p1, p2, p3_plain_ms, p4_plain_ms, device_ms
@@ -812,6 +953,7 @@ def main():
     emit("serve_bf16_vs_f32", db=parity_db(out32.float(), out16.float()))
     phase_profile(pipe, requests[-1], bf16_ms)
     del pipe, requests, out32, out16
+    launches += phase_voxel_grid_padded()        # K1's other entry, its own path
 
     phase_train_parity(state)
     logging.getLogger("refid_tpu_torch").setLevel(logging.WARNING)   # the CLI's log
@@ -832,7 +974,9 @@ def main():
         check(voxel_cuda.LAUNCHES == 0, "training launched the serving voxelizer K1")
         batch = next(iter(task.train_loader))
         phase_train_profile(task, batch)            # ... and ends here
-        del task
+        del task, batch
+        phase_metric_parity(data_root)
+        grid_launches += phase_eval(data_root, work, state)   # the eval path
 
     t0 = time.perf_counter()
     probe_errs, p1, p2, p3_plain_ms, p4_plain_ms, device_ms = phase_probe_kernel_check()

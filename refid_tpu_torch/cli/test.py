@@ -1,0 +1,82 @@
+"""Evaluation CLI: ``python -m refid_tpu_torch.cli.test -opt <yml>
+[--root DIR] [--max-items N] [--save-img] [--device cuda|cpu]`` (mirrors
+``refid_tpu/cli/test.py``).
+
+Builds every dataset of ``opt["datasets"]`` in sorted order (each item
+voxelized on ``--device``: the CUDA kernel K2 on the card), loads
+``path.pretrain_network_g`` (an upstream ``.pth``, a port checkpoint file
+or a port checkpoint directory), validates each loader with the task's
+``val`` metrics and logs to ``<results>/test_<name>.log``.  ``--device``
+defaults to ``cuda`` and raises without a card; ``cpu`` runs the plain
+versions.
+
+:func:`main` returns ``{dataset name: results}``; :func:`run`, which it
+calls, returns the task with those results in ``task.results`` and each
+loader's timing (``validate``'s ``val_timing``) in ``task.test_timing``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+
+from refid_tpu_torch.core.config import dict2str, parse_options
+from refid_tpu_torch.core.device import resolve_device
+from refid_tpu_torch.core.logging_util import get_root_logger
+from refid_tpu_torch.data.loader import build_dataset, build_loader
+from refid_tpu_torch.tasks import build_task
+
+__all__ = ["main", "parse_args", "run"]
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(prog="python -m refid_tpu_torch.cli.test")
+    p.add_argument("-opt", required=True, help="Path to YAML option file.")
+    p.add_argument("--root", default=None,
+                   help="Experiment root (default: cwd).")
+    p.add_argument("--max-items", type=int, default=None,
+                   help="Evaluate only the first N items of each dataset.")
+    p.add_argument("--save-img", action="store_true")
+    p.add_argument("--device", default="cuda",
+                   help="Device to evaluate on (default: cuda; cpu runs the "
+                        "plain versions of the kernels).")
+    return p.parse_args(argv)
+
+
+def run(argv=None):
+    args = parse_args(argv)
+    device = resolve_device(args.device)
+    opt = parse_options(args.opt, is_train=False, root=args.root)
+    os.makedirs(opt["path"]["results_root"], exist_ok=True)
+    logger = get_root_logger(log_file=f"{opt['path']['log']}/test_{opt['name']}.log")
+    logger.info(dict2str(opt))
+
+    loaders = []
+    for phase, dataset_opt in sorted(opt["datasets"].items()):
+        ds = build_dataset(dataset_opt, device)
+        loaders.append((dataset_opt, build_loader(ds, dataset_opt, False)))
+        logger.info(f"test set {dataset_opt.get('name', phase)}: {len(ds)} items")
+
+    task = build_task(opt, device)
+    pretrain = opt["path"].get("pretrain_network_g")
+    if not pretrain:
+        raise ValueError("path.pretrain_network_g is required for testing")
+    task.load_pretrained(pretrain)
+    logger.info(f"loaded weights from {pretrain}")
+
+    save_img = args.save_img or (opt.get("val") or {}).get("save_img", False)
+    task.results, task.test_timing = {}, {}
+    for dataset_opt, loader in loaders:
+        name = dataset_opt.get("name", "test")
+        task.results[name] = task.validate(loader, dataset_opt, save_img=save_img,
+                                           logger=logger, max_items=args.max_items)
+        task.test_timing[name] = dict(task.val_timing)
+    return task
+
+
+def main(argv=None):
+    return run(argv).results
+
+
+if __name__ == "__main__":
+    main()

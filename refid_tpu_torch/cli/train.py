@@ -4,13 +4,18 @@
 One process on one card (``--device``, default ``cuda``; ``cpu`` runs the
 plain versions).  Reads the reference's option files through the port's
 own ``parse_options``; ``--max-iters`` overrides ``train.total_iter``.
-Validation is not ported yet: options that ask for it (``val.val_freq >
-0`` or a ``val*`` dataset) raise instead of training without it.
+Each ``val*`` dataset is validated every ``val.val_freq`` iterations and
+once when training ends (not twice when the last iteration was a
+validation's), its items voxelized on the training device by the val
+loader's own threads.
 
 :func:`train` is what :func:`main` calls after parsing, for callers that
 build the option dict themselves.  It returns the task, with
-``task.train_loader`` and ``task.history`` (the logged iterations: loss,
-grad norm, lr and seconds since the previous iteration ended).
+``task.train_loader``, ``task.val_loaders`` (``(dataset options, loader)``
+pairs) and ``task.history``: the logged iterations (loss,
+grad norm, lr and seconds since the previous iteration, with its
+checkpoint and validation, ended) and the
+validations (``val``: the dataset's name, its results, ``seconds``).
 """
 
 from __future__ import annotations
@@ -28,7 +33,6 @@ from refid_tpu_torch.core.device import resolve_device
 from refid_tpu_torch.core.logging_util import MessageLogger, get_root_logger
 from refid_tpu_torch.data.loader import build_dataset, build_loader
 from refid_tpu_torch.tasks import build_task
-from refid_tpu_torch.tasks.recurrent import VALIDATION_NOT_PORTED
 
 __all__ = ["main", "parse_args", "train"]
 
@@ -54,19 +58,24 @@ def main(argv=None):
     return train(opt, args.device)
 
 
-def _refuse_validation(opt: dict) -> None:
-    val_freq = int((opt.get("val") or {}).get("val_freq", 0) or 0)
-    val_sets = [p for p in opt.get("datasets", {}) if p.startswith("val")]
-    if val_freq > 0 or val_sets:
-        raise NotImplementedError(
-            f"{VALIDATION_NOT_PORTED}; the options ask for it (val.val_freq="
-            f"{val_freq}, datasets {val_sets}): remove the val section and "
-            "the val datasets to train")
+def _validate(task, current_iter, epoch, msg_logger, logger):
+    """Each val loader once: results to the log, the message logger and
+    ``task.history``."""
+    save_img = (task.opt.get("val") or {}).get("save_img", False)
+    for dataset_opt, loader in task.val_loaders:
+        name = dataset_opt.get("name", "val")
+        t0 = time.perf_counter()
+        results = task.validate(loader, dataset_opt, current_iter, save_img=save_img,
+                                logger=logger)
+        seconds = time.perf_counter() - t0
+        task.history.append({"iter": current_iter, "val": name, "seconds": seconds,
+                             **results})
+        msg_logger({"iter": current_iter, "epoch": epoch,
+                    **{f"{name}_{k}": v for k, v in results.items()}})
 
 
 def train(opt: dict, device="cuda"):
     device = resolve_device(device)
-    _refuse_validation(opt)
 
     seed = opt.get("manual_seed", 0) or 0
     random.seed(seed)
@@ -88,13 +97,19 @@ def train(opt: dict, device="cuda"):
     train_loader = build_loader(train_set, dataset_opt, True, seed)
     logger.info(f"train dataset: {len(train_set)} items, "
                 f"{len(train_loader)} batches/epoch")
+    val_loaders = []
+    for phase, val_opt in opt["datasets"].items():
+        if phase.startswith("val"):
+            val_set = build_dataset(val_opt, device)
+            val_loaders.append((val_opt, build_loader(val_set, val_opt, False)))
+            logger.info(f"val dataset {val_opt.get('name', phase)}: {len(val_set)} items")
     if len(train_loader) == 0:
         raise ValueError(
             "train loader is empty: batch_size_per_gpu exceeds the enlarged "
             "dataset; raise dataset_enlarge_ratio or lower batch_size_per_gpu")
 
     task = build_task(opt, device)
-    task.train_loader = train_loader
+    task.train_loader, task.val_loaders = train_loader, val_loaders
     pretrain = opt["path"].get("pretrain_network_g")
     if pretrain:
         task.load_pretrained(pretrain)
@@ -108,6 +123,8 @@ def train(opt: dict, device="cuda"):
     total_iter = opt["train"]["total_iter"]
     print_freq = opt.get("logger", {}).get("print_freq", 100)
     save_freq = int(opt.get("logger", {}).get("save_checkpoint_freq", 0) or 0)
+    val_freq = int((opt.get("val") or {}).get("val_freq", 0) or 0)
+    validated_at = None
     msg_logger = MessageLogger(opt, task.start_iter + 1)
 
     current_iter = task.start_iter
@@ -128,14 +145,19 @@ def train(opt: dict, device="cuda"):
                 log_vars["time"] = time.time() - t_iter   # after the sync above
                 task.history.append(dict(log_vars))
                 msg_logger(log_vars)
-            t_iter = time.time()
             if save_freq and current_iter % save_freq == 0:
                 logger.info(f"saving checkpoint at iter {current_iter}")
                 task.save(current_iter, epoch)
+            if val_freq and current_iter % val_freq == 0 and val_loaders:
+                _validate(task, current_iter, epoch, msg_logger, logger)
+                validated_at = current_iter
+            t_iter = time.time()      # a checkpoint or validation is not the next step's
         epoch += 1
 
     logger.info("training complete; saving final checkpoint")
     task.save(current_iter, epoch)
+    if validated_at != current_iter:
+        _validate(task, current_iter, epoch, msg_logger, logger)
     return task
 
 

@@ -17,8 +17,9 @@
 // Both: timestamps are rescaled to [0, bins-1] from the first and last
 // events (a zero span counts as 1), p == 0 votes as -1, and each event adds
 // p*(1-dt) to bin floor(t) and p*dt to bin floor(t)+1 at (y, x).  Votes
-// into a bin >= bins, and events whose truncated x or y lies outside the
-// frame or whose bin is negative, are dropped.
+// into a bin outside [0, bins), and events whose truncated x or y lies
+// outside the frame, are dropped (a stamp a bin or more before the first,
+// on an unsorted stream, keeps only its right vote, in bin 0).
 //
 // Bound on an H100 SXM (3.35 TB/s) at the main paths' shape: read 2^20 x 16 B
 // of events (16.8 MB) once and write the 24 x 720 x 1280 f32 grid (88.5 MB)
@@ -128,10 +129,11 @@ __device__ __forceinline__ Split split(const float4 e, const Stamps& s) {
   return {ti, __float2int_rz(e.y), __float2int_rz(e.z), __fsub_rn(ts, static_cast<float>(ti))};
 }
 
-// the tile of a kept event, -1 for a dropped one
+// the tile of a kept event, -1 for a dropped one: out of frame, or no vote
+// in [0, bins) (ti < -1; at ti = -1 only the right vote lands, in bin 0)
 __device__ __forceinline__ int tile_of(const float4 e, const Stamps& s, const Geom& g) {
   const Split v = split(e, s);
-  if (v.x < 0 || v.x >= g.width || v.y < 0 || v.y >= g.height || v.ti < 0) return -1;
+  if (v.x < 0 || v.x >= g.width || v.y < 0 || v.y >= g.height || v.ti < -1) return -1;
   return (v.y / g.tile_rows) * g.tiles_x + v.x / g.tile_cols;
 }
 
@@ -277,10 +279,10 @@ voxel_tile_kernel(const float4* __restrict__ events, const float4* __restrict__ 
 #pragma unroll
     for (int u = 0; u < kTileUnroll; ++u) {
       if (k0 + u * kTileThreads >= total) break;
-      const Split v = split(e[u], s);   // in frame, in this tile, ti >= 0: sorted so
+      const Split v = split(e[u], s);   // in frame, in this tile, ti >= -1: sorted so
       const float p = e[u].w == 0.0f ? -1.0f : e[u].w;
       const int cell = ((v.y - y0) * cols + (v.x - x0)) * px_stride + v.ti * bin_stride;
-      if (v.ti < g.bins) atomicAdd(slab + swz(cell), __fmul_rn(p, __fsub_rn(1.0f, v.dt)));
+      if (v.ti >= 0 && v.ti < g.bins) atomicAdd(slab + swz(cell), __fmul_rn(p, __fsub_rn(1.0f, v.dt)));
       if (v.ti + 1 < g.bins) atomicAdd(slab + swz(cell + bin_stride), __fmul_rn(p, v.dt));
     }
   }

@@ -16,6 +16,7 @@ import struct
 import zlib
 
 import numpy as np
+import torch
 
 __all__ = ["imread", "imwrite", "tensor2img", "png_decode", "png_encode"]
 
@@ -160,9 +161,17 @@ def imwrite(img: np.ndarray, file_path: str, auto_mkdir: bool = True) -> bool:
     return True
 
 
-def tensor2img(arr, rgb2bgr: bool = True, min_max=(0, 1)) -> np.ndarray:
+def tensor2img(arr, rgb2bgr: bool = True, min_max=(0, 1)):
     """(..., H, W, C) float RGB in [0, 1] -> HWC uint8 [0, 255] BGR, matching
-    the reference ``tensor2img``."""
+    the reference ``tensor2img``: clip, scale, x255 in float32, round half
+    to even.  A torch tensor stays on its device and gives a uint8 tensor,
+    equal bit for bit to the numpy result."""
+    if isinstance(arr, torch.Tensor):
+        img = arr.float().clamp(min_max[0], min_max[1])
+        img = (img - min_max[0]) / (min_max[1] - min_max[0])
+        if rgb2bgr and img.dim() == 3 and img.shape[2] == 3:
+            img = img.flip(-1)
+        return (img * 255.0).round().to(torch.uint8)
     img = np.asarray(arr, np.float32)
     img = np.clip(img, min_max[0], min_max[1])
     img = (img - min_max[0]) / (min_max[1] - min_max[0])

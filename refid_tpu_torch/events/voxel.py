@@ -6,8 +6,11 @@ Contract (``refid_tpu/events/voxel.py::_voxelize_padded`` and
 ``>= n_valid`` are padding.  Timestamps are rescaled to ``[0, bins-1]`` from
 the first and last valid stamps (a zero span counts as 1), polarity 0 becomes
 -1, and each event votes ``p*(1-dt)`` into bin ``floor(t)`` and ``p*dt`` into
-bin ``floor(t)+1`` at pixel ``(y, x)``; a vote whose bin is ``>= bins`` is
-dropped.  Returns a ``(bins, height, width)`` float32 grid.
+bin ``floor(t)+1`` at pixel ``(y, x)``; a vote whose bin lies outside
+``[0, bins)`` is dropped (``floor`` truncates toward zero, so a stamp at
+least a bin before the first one, on an unsorted stream, keeps only its
+right vote in bin 0, as ``native/voxelize.cc`` and the Pallas kernel do).
+Returns a ``(bins, height, width)`` float32 grid.
 
 Out-of-frame events (truncated x outside ``[0, width)`` or y outside
 ``[0, height)``) are DROPPED, as the Pallas kernel and the C++ host
@@ -20,6 +23,8 @@ Two implementations behind one dispatcher, :func:`voxelize_padded`:
     flat grid); runs for CPU tensors and is the yardstick of the kernel.
   * ``voxel_cuda.voxelize_cuda`` — the hand-written CUDA kernel K1
     (``csrc/voxelize.cu``); runs for CUDA tensors.
+:func:`events_to_voxel_grid_padded` is its host-array entry: numpy events
+padded on the device to a power-of-two capacity, the grid left there.
 
 The host-array contract (``refid_tpu/events/voxel.py::events_to_voxel_grid``
 and its Pallas twin ``voxel_pallas.py::events_to_voxel_grid_pallas``) is
@@ -42,12 +47,15 @@ path never runs it.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
+from refid_tpu_torch.core.device import resolve_device
+
 __all__ = ["voxelize_padded", "voxelize_padded_reference", "voxel_norm",
+           "pad_events", "next_capacity", "events_to_voxel_grid_padded",
            "events_to_voxel_grid", "events_to_voxel_grid_reference",
            "voxel_norm_np", "event_reverse", "filter_event", "SLAB_BYTES",
            "TilePlan", "voxel_tile_plan", "tiled_voxelize_reference"]
@@ -92,11 +100,12 @@ def voxelize_padded_reference(events: torch.Tensor, n_valid: int, bins: int,
     tis = ts.to(torch.int64)
     dts = ts - tis.to(ts.dtype)
 
+    # each vote is kept iff its own bin lies in [0, bins): at ti = -1 (a
+    # stamp before the first one, on an unsorted stream) only the right vote
     ok = ((torch.arange(cap, device=events.device) < n_valid)
-          & (xs >= 0) & (xs < width) & (ys >= 0) & (ys < height)
-          & (tis >= 0))
-    left_ok = ok & (tis < bins)
-    right_ok = ok & (tis + 1 < bins)
+          & (xs >= 0) & (xs < width) & (ys >= 0) & (ys < height))
+    left_ok = ok & (tis >= 0) & (tis < bins)
+    right_ok = ok & (tis >= -1) & (tis + 1 < bins)
 
     plane = width * height
     size = bins * plane
@@ -179,7 +188,7 @@ def tiled_voxelize_reference(events: torch.Tensor, n_valid: int, bins: int,
     left, right = pols * (1.0 - dts), pols * dts
 
     # the binning passes: a stable counting sort of the kept events by tile
-    keep = (xs >= 0) & (xs < width) & (ys >= 0) & (ys < height) & (tis >= 0)
+    keep = (xs >= 0) & (xs < width) & (ys >= 0) & (ys < height) & (tis >= -1)
     kept = keep.nonzero().squeeze(1)
     tile = (ys[kept] // plan.tile_rows) * plan.tiles_x + xs[kept] // plan.tile_cols
     order = kept[torch.sort(tile, stable=True).indices]
@@ -199,7 +208,7 @@ def tiled_voxelize_reference(events: torch.Tensor, n_valid: int, bins: int,
         cell = px * bins + ti if hwc else ti * (rows * cols) + px
         step = 1 if hwc else rows * cols          # from bin ti to ti + 1
         slab = torch.zeros(rows * cols * bins, dtype=torch.float32, device=events.device)
-        ok = ti < bins
+        ok = (ti >= 0) & (ti < bins)         # ti = -1: no left vote
         slab.index_add_(0, cell[ok], left[seg][ok])
         ok = ti + 1 < bins
         slab.index_add_(0, cell[ok] + step, right[seg][ok])
@@ -220,6 +229,48 @@ def voxelize_padded(events: torch.Tensor, n_valid: int, bins: int,
     if events.device.type == "cpu":
         return voxelize_padded_reference(events, n_valid, bins, width, height)
     raise ValueError(f"no voxelizer for device {events.device}")
+
+
+def pad_events(events, capacity: int, device) -> Tuple[torch.Tensor, int]:
+    """``(N, 4)`` host events in a zeroed ``(capacity, 4)`` float32 buffer
+    on ``device``, and N; only the events cross the bus."""
+    events = np.ascontiguousarray(events, dtype=np.float32)
+    if events.ndim != 2 or events.shape[1] != 4:
+        raise ValueError(f"events must be (N, 4), got {events.shape}")
+    n = events.shape[0]
+    if capacity < n:
+        raise ValueError(f"capacity {capacity} < {n} events")
+    padded = torch.zeros((capacity, 4), dtype=torch.float32, device=device)
+    if n:
+        padded[:n] = torch.from_numpy(events).to(device)
+    return padded, n
+
+
+def next_capacity(n: int, least: int) -> int:
+    """The next power of two >= ``n``, and at least ``least``."""
+    return max(least, 1 << int(np.ceil(np.log2(max(n, 1)))))
+
+
+def events_to_voxel_grid_padded(events, num_bins: int, width: int, height: int,
+                                return_format: str = "CHW",
+                                capacity: Optional[int] = None,
+                                device="cuda") -> torch.Tensor:
+    """The padded-capacity device entry (``refid_tpu/events/voxel.py::
+    events_to_voxel_grid_jax``): ``(N, 4)`` time-sorted host events, padded
+    on ``device`` to ``capacity`` rows (default: the next power of two, at
+    least 1024), voxelized there by :func:`voxelize_padded` (the CUDA
+    kernel K1 on a CUDA device, the plain version on the CPU).  Returns the
+    grid on ``device``: ``(bins, h, w)`` for ``CHW``, a ``(h, w, bins)``
+    view of it for ``HWC``.  ``device`` defaults to ``'cuda'`` and raises
+    when no CUDA device is present."""
+    if return_format not in ("CHW", "HWC"):
+        raise ValueError(f"unknown return_format {return_format!r}")
+    device = resolve_device(device)
+    if capacity is None:
+        capacity = next_capacity(len(events), 1024)
+    padded, n = pad_events(events, capacity, device)
+    grid = voxelize_padded(padded, n, num_bins, width, height)
+    return grid if return_format == "CHW" else grid.permute(1, 2, 0)
 
 
 def voxel_norm(voxel: torch.Tensor) -> torch.Tensor:

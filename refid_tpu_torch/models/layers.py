@@ -67,12 +67,20 @@ class ResidualBlock(nn.Module):
 
 
 class ResidualBlockNoBN(nn.Module):
-    """x + conv2(relu(conv1(x)))."""
+    """x + conv2(relu(conv1(x))).  Both convs start from kaiming-normal
+    weights scaled by 0.1 (variance 0.02 / fan_in) and zero biases, as
+    upstream's ``default_init_weights(..., 0.1)`` and the JAX package's
+    ``residual_scaled_init`` do."""
 
     def __init__(self, features: int):
         super().__init__()
         self.conv1 = nn.Conv2d(features, features, 3, 1, 1)
         self.conv2 = nn.Conv2d(features, features, 3, 1, 1)
+        with torch.no_grad():
+            for conv in (self.conv1, self.conv2):
+                nn.init.kaiming_normal_(conv.weight, a=0, mode="fan_in")
+                conv.weight.mul_(0.1)
+                conv.bias.zero_()
 
     def forward(self, x):
         return x + self.conv2(F.relu(self.conv1(x)))

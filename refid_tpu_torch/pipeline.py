@@ -20,7 +20,9 @@ import torch
 import torch.nn as nn
 
 from refid_tpu_torch.core.device import resolve_device
-from refid_tpu_torch.events.voxel import voxel_norm, voxelize_padded
+from refid_tpu_torch.events.voxel import (
+    next_capacity, pad_events, voxel_norm, voxelize_padded,
+)
 from refid_tpu_torch.models.convert import load_state
 from refid_tpu_torch.models.refid import FinalBidirectionAttenfusion, RefidConfig
 
@@ -78,19 +80,9 @@ class BlurVFIPipeline:
     def _pad_events(self, events, capacity: Optional[int]) -> Tuple[torch.Tensor, int]:
         """Pad to ``capacity`` rows (default: the next power of two, at least
         2**14) in a zeroed buffer on the device; only the events are copied."""
-        events = np.ascontiguousarray(events, dtype=np.float32)
-        if events.ndim != 2 or events.shape[1] != 4:
-            raise ValueError(f"events must be (N, 4), got {events.shape}")
-        n_ev = events.shape[0]
         if capacity is None:
-            capacity = max(1 << 14, 1 << int(np.ceil(np.log2(max(n_ev, 1)))))
-        if capacity < n_ev:
-            raise ValueError(f"capacity {capacity} < {n_ev} events")
-        padded = torch.zeros((capacity, 4), dtype=torch.float32,
-                             device=self.device)
-        if n_ev:
-            padded[:n_ev] = torch.from_numpy(events).to(self.device)
-        return padded, n_ev
+            capacity = next_capacity(len(events), 1 << 14)
+        return pad_events(events, capacity, self.device)
 
     def _frame(self, frame) -> torch.Tensor:
         """(h, w, 3) -> (3, h, w) float32 on the device."""

@@ -1,8 +1,10 @@
-"""Task layer, training half (mirrors ``refid_tpu/tasks/base.py``).
+"""Task layer (mirrors ``refid_tpu/tasks/base.py``).
 
 A task owns the network (from the ARCHS registry) on its device, the
 :class:`~refid_tpu_torch.train.trainer.Trainer` (optimiser, step, EMA),
-the checkpoint manager, and the move of host batches to the card.
+the checkpoint manager, the move of host batches to the card, and the
+inference forward (:meth:`RestorationTaskBase.predict`) that validation
+and the test CLI run.
 
 Batches arrive from the datasets as NHWC numpy arrays and go to the
 network as NCHW tensors: lq ``(b, h, w, 26)`` -> ``(b, 26, h, w)``, voxel
@@ -13,7 +15,9 @@ The JAX task trains the production config through a width-folded scan
 forward (``refid_tpu/serve/fast_scan.py``), a TPU re-expression that is
 exactly the plain network's math; the port trains the plain
 :class:`FinalBidirectionAttenfusion`, whatever ``train.folded_apply`` says.
-Validation and prediction come with the eval slice.
+For the same reason it predicts with the plain network whatever
+``val.folded_predict`` says.  ``val.int8`` (the JAX package's quantized
+predict) raises: int8 serving is not ported yet.
 """
 
 from __future__ import annotations
@@ -53,14 +57,19 @@ class RestorationTaskBase:
 
     def __init__(self, opt: dict, device="cuda"):
         self.opt = opt
+        if (opt.get("val") or {}).get("int8"):
+            raise NotImplementedError(
+                "val.int8 (int8 predict) is not ported yet: it comes with int8 "
+                "serving (ROADMAP queue 1, item 15)")
         self.device = resolve_device(device)
         self.is_train = opt.get("is_train", True)
         self.net = self._build_net().to(self.device)
         self.trainer: Optional[Trainer] = None
         self.start_iter = 0
         self.start_epoch = 0
-        self.train_loader = None     # set by the train CLI
-        self.history = []            # the CLI's logged iterations
+        self.train_loader = None     # set by the train CLI, with val_loaders
+        self.val_loaders = []
+        self.history = []            # the CLI's logged iterations and validations
         self._copy_stream = None
         if self.is_train and "train" in opt:
             t = opt["train"]
@@ -76,7 +85,8 @@ class RestorationTaskBase:
     # --- parameter lifecycle -------------------------------------------------
 
     def init_params(self, seed: int = 0):
-        """Fresh parameters from ``seed`` (PyTorch's default inits, drawn
+        """Fresh parameters from ``seed`` (the modules' own inits: PyTorch's
+        defaults, 0.1-scaled kaiming-normal in ``ResidualBlockNoBN``; drawn
         from a generator seeded here, whatever the global state)."""
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(seed)
@@ -174,6 +184,35 @@ class RestorationTaskBase:
             following = self._to_device(nxt) if nxt is not None else None
             yield self._ready(pending)
             pending = following
+
+    # --- inference --------------------------------------------------------------
+
+    def predict_tensor(self, lq: np.ndarray, voxel: np.ndarray,
+                       use_ema: bool = False) -> torch.Tensor:
+        """The network's frames on the task's device, ``(b, t_out, h, w, 3)``,
+        from NHWC numpy ``lq (b, h, w, C)`` and ``voxel (b, t, h, w, 2)``:
+        in eval mode under ``torch.inference_mode`` (the options' compute
+        dtype), the training mode restored afterwards.  ``use_ema`` runs the
+        trainer's EMA weights when it keeps them."""
+        lq_t, vox_t = (to_nchw(torch.from_numpy(np.ascontiguousarray(a, np.float32))
+                               .to(self.device)) for a in (lq, voxel))
+        tr = self.trainer
+        training = self.net.training
+        self.net.eval()
+        try:
+            with torch.inference_mode():
+                if use_ema and tr is not None and tr.ema is not None:
+                    out = torch.func.functional_call(self.net, tr.ema, (lq_t, vox_t))
+                else:
+                    out = self.net(lq_t, vox_t)
+        finally:
+            self.net.train(training)
+        return out.movedim(-3, -1)
+
+    def predict(self, lq: np.ndarray, voxel: np.ndarray,
+                use_ema: bool = False) -> np.ndarray:
+        """:meth:`predict_tensor` as NHWC numpy ``(b, t_out, h, w, 3)``."""
+        return self.predict_tensor(lq, voxel, use_ema).cpu().numpy()
 
     def current_lr(self) -> float:
         return self.trainer.current_lr() if self.trainer else 0.0

@@ -169,6 +169,48 @@ def test_voxel_grid_kernel_from_loader_threads(cuda):
         assert np.abs(g - want).max() <= TOL
 
 
+def early_stamp_stream(seed, n, bins, w, h, early):
+    """Stamps 10 .. 20 in order (the first 10, the last 20) with ``early``
+    of them replaced by stamps in [0, 10): at least a bin before the first
+    with 5 bins, so only the right vote of some lands (in bin 0) and none of
+    others."""
+    ev = _stream(seed, n, w, h)
+    rng = np.random.RandomState(seed + 1)
+    ev[:, 0] = np.sort(rng.uniform(10.0, 20.0, n))
+    ev[0, 0], ev[-1, 0] = 10.0, 20.0
+    ev[rng.choice(np.arange(1, n - 1), early, replace=False), 0] = rng.uniform(0, 10, early)
+    return ev
+
+
+@pytest.mark.parametrize("n,bins,w,h,early", [(400, 5, 16, 12, 2), (1 << 20, 5, 1280, 720, 5000),
+                                              (1 << 20, 24, 1280, 720, 5000)])
+def test_kernels_keep_early_stamp_votes(cuda, n, bins, w, h, early):
+    from refid_tpu_torch.events.voxel import events_to_voxel_grid_reference
+    ev = early_stamp_stream(4, n, bins, w, h, early)
+    ev_d = torch.from_numpy(ev).to(cuda)
+    want = voxelize_padded_reference(ev_d, n, bins, w, h)
+    assert (voxel_cuda.voxelize_cuda(ev_d, n, bins, w, h) - want).abs().max().item() <= TOL
+    for fmt in ("CHW", "HWC"):
+        got = voxel_cuda.events_to_voxel_grid_cuda(ev, bins, w, h, fmt)
+        plain = events_to_voxel_grid_reference(ev_d, bins, w, h, fmt).cpu().numpy()
+        assert np.abs(got - plain).max() <= TOL
+
+
+@pytest.mark.parametrize("fmt", ["CHW", "HWC"])
+def test_padded_entry_runs_k1(cuda, fmt):
+    """``events_to_voxel_grid_padded`` at the serving shape (10**6 events,
+    padded to 2**20) against the plain version, through K1 once."""
+    from refid_tpu_torch.events.voxel import events_to_voxel_grid_padded
+    n = (1 << 20) - 48576
+    ev = _stream(5, n, 1280, 720)
+    before = voxel_cuda.LAUNCHES
+    got = events_to_voxel_grid_padded(ev, 24, 1280, 720, fmt)
+    assert voxel_cuda.LAUNCHES == before + 1 and got.device.type == "cuda"
+    want = events_to_voxel_grid_padded(ev, 24, 1280, 720, fmt, device="cpu")
+    assert got.shape == want.shape
+    assert (got.cpu() - want).abs().max().item() <= TOL
+
+
 # ---- probe kernels P1-P4 (refid_tpu_torch/probes) ----
 
 def _randn(seed, *shape, scale=1.0):

@@ -34,7 +34,7 @@ def test_every_module_imports_with_jax_and_refid_tpu_blocked():
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 34
+    assert int(out.stdout.split()[-1]) >= 50     # the eval package and test CLI included
 
 
 def _imported_modules(path):
@@ -70,7 +70,7 @@ def test_import_builds_nothing():
     env = {**os.environ, "PYTHONPATH": str(REPO)}
     code = ("import refid_tpu_torch.events.voxel_cuda as v, refid_tpu_torch.ops.build as b;"
             "import refid_tpu_torch.ops.probe_cuda as p, refid_tpu_torch.probes.band_conv,"
-            " refid_tpu_torch.probes.poison;"
+            " refid_tpu_torch.probes.poison, refid_tpu_torch.cli.test, refid_tpu_torch.eval.niqe;"
             "print(v._lib is None and p._libs == {}, b._loaded == {})")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)

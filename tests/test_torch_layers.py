@@ -174,3 +174,46 @@ def test_transpose_decoder_matches_flax():
 def test_unported_ablation_axes_raise(build):
     with pytest.raises(NotImplementedError):
         build()
+
+
+# --- default initialisation ---------------------------------------------------
+
+def test_residual_block_nobn_init_matches_jax_statistics():
+    """0.1-scaled kaiming-normal weights (variance 0.02 / fan_in) and zero
+    biases, as the JAX block's ``residual_scaled_init``."""
+    import jax
+    import jax.numpy as jnp
+    params = jlayers.ResidualBlockNoBN(64).init(jax.random.PRNGKey(0),
+                                                jnp.zeros((1, 8, 8, 64)))["params"]
+    torch.manual_seed(0)
+    block = layers.ResidualBlockNoBN(64)
+    for c in ("conv1", "conv2"):
+        want = float(np.asarray(params[c]["kernel"]).std())
+        got = float(getattr(block, c).weight.detach().std())
+        assert abs(got - want) <= 0.1 * want, (c, got, want)
+        assert not np.asarray(params[c]["bias"]).any()
+        assert not getattr(block, c).bias.any()
+
+
+def test_network_init_matches_jax_per_tensor():
+    """Every parameter of the default-initialised port network against the
+    JAX init (converted by ``state_dict_from_jax``), base 8: the std of each
+    tensor, pooled over 32 draws a side, within 10 %."""
+    import jax
+    import jax.numpy as jnp
+    from refid_tpu.models import FinalBidirectionAttenfusion as JaxNet
+    from refid_tpu.models import RefidConfig as JaxConfig
+    cfg = dict(img_chn=26, ev_chn=2, num_encoders=2, base_num_channels=8,
+               num_residual_blocks=1)
+    init = jax.jit(JaxNet(JaxConfig(**cfg)).init)
+    lq, vox = jnp.zeros((1, 16, 16, 26)), jnp.zeros((1, 2, 16, 16, 2))
+    jax_draws = [convert.state_dict_from_jax(init(jax.random.PRNGKey(k), lq, vox),
+                                             RefidConfig(**cfg)) for k in range(32)]
+    port_draws = []
+    for k in range(32):
+        torch.manual_seed(k)
+        port_draws.append(FinalBidirectionAttenfusion(RefidConfig(**cfg)).state_dict())
+    for key in jax_draws[0]:
+        want = float(torch.stack([d[key] for d in jax_draws]).std())
+        got = float(torch.stack([d[key] for d in port_draws]).std())
+        assert abs(got - want) <= 0.1 * want, (key, got, want)

@@ -285,10 +285,13 @@ def test_cli_trains_two_iterations_on_cpu(tmp_path, data_root):
 
 
 def test_cli_refuses_validation_and_defaults_to_the_card(tmp_path, data_root):
+    """Validation runs (tests/test_torch_validate.py); the CLI refuses, before
+    any step, what it cannot validate: an int8 predict (not ported) and a
+    val dataset of no registered type."""
     opt = _task_opt(tmp_path, data_root)
-    with pytest.raises(NotImplementedError, match="eval slice"):
-        cli.train(dict(opt, val={"val_freq": 5}), device="cpu")
-    with pytest.raises(NotImplementedError, match="eval slice"):
+    with pytest.raises(NotImplementedError, match="item 15"):
+        cli.train(dict(opt, val={"val_freq": 5, "int8": True}), device="cpu")
+    with pytest.raises(KeyError):
         cli.train(dict(opt, datasets=dict(opt["datasets"], val={"type": "x"})),
                   device="cpu")
     assert cli.parse_args(["-opt", "x.yml"]).device == "cuda"
@@ -313,16 +316,16 @@ def test_chip_smoke_trains_the_recipe_with_listed_overrides_only(tmp_path, dtype
     got = parse_options(str(path), root=str(tmp_path))
     want = parse_options(chip_smoke.RECIPE, root=str(tmp_path))
     # the listed overrides
-    assert "val" not in got and set(got["datasets"]) == {"train"}
-    want.pop("val")
-    want["datasets"].pop("val")
+    assert got["val"]["val_freq"] == chip_smoke.VAL_FREQ
+    want["val"]["val_freq"] = chip_smoke.VAL_FREQ
     assert got["name"] == f"run_{dtype}"
     want["name"] = got["name"]
     for key in ("experiments_root", "models", "training_states", "log", "visualization"):
         want["path"][key] = got["path"][key]
-    assert got["datasets"]["train"]["dataroot"] == "/data"
+    assert got["datasets"]["train"]["dataroot"] == got["datasets"]["val"]["dataroot"] == "/data"
     assert got["datasets"]["train"]["video_list"] == ["SYNTH"]
     want["datasets"]["train"].update(dataroot="/data", video_list=["SYNTH"])
+    want["datasets"]["val"]["dataroot"] = "/data"
     assert got["logger"] == dict(want["logger"], print_freq=1, save_checkpoint_freq=0,
                                  use_tb_logger=False)
     want["logger"] = got["logger"]

@@ -14,7 +14,8 @@ import jax.numpy as jnp
 from refid_tpu.events.voxel import _voxelize_padded, voxel_norm as jax_voxel_norm
 from refid_tpu.events.voxel_pallas import voxelize_device
 from refid_tpu_torch.events.voxel import (
-    voxel_norm, voxelize_padded, voxelize_padded_reference,
+    events_to_voxel_grid, events_to_voxel_grid_padded, next_capacity, voxel_norm,
+    voxelize_padded, voxelize_padded_reference,
 )
 from refid_tpu_torch.events.voxel_cuda import voxelize_cuda
 
@@ -125,3 +126,78 @@ def test_voxel_norm_matches_jax(zero):
     got = voxel_norm(torch.from_numpy(vox)).numpy()
     np.testing.assert_allclose(got, np.asarray(jax_voxel_norm(vox)),
                                rtol=1e-5, atol=1e-6)
+
+
+# --- stamps before the first stamp (unsorted streams) ---------------------------
+
+def early_stamp_stream(n=400, w=16, h=12, seed=9):
+    """5 bins over stamps 10 .. 20, with two stamps out of order: 7 (ts =
+    -1.2, truncated bin -1: only its right vote, in bin 0) and 0 (ts = -4:
+    no vote)."""
+    rng = np.random.RandomState(seed)
+    ev = _events(rng, n, n, w, h, pols=(0.0, 1.0, -1.0))
+    ev[:, 0] = np.sort(rng.uniform(10.0, 20.0, n))
+    ev[0, 0], ev[-1, 0] = 10.0, 20.0
+    ev[n // 4, 0], ev[n // 2, 0] = 7.0, 0.0
+    ev[n // 4, 3] = 1.0
+    return ev, 5, w, h
+
+
+def test_early_stamps_keep_the_votes_in_range():
+    from refid_tpu_torch.events.voxel import tiled_voxelize_reference
+    ev, bins, w, h = early_stamp_stream()
+    n = len(ev)
+    got = _port(ev, n, bins, w, h)
+    want_pallas = np.asarray(voxelize_device(
+        jnp.asarray(np.concatenate([ev, np.zeros((512 - n, 4), np.float32)])),
+        jnp.int32(n), num_bins=bins, width=w, height=h, chunk=512, interpret=True))
+    np.testing.assert_allclose(got, want_pallas, rtol=0, atol=2e-6)
+    for fmt in ("CHW", "HWC"):
+        mirror = tiled_voxelize_reference(torch.from_numpy(ev), n, bins, w, h, fmt, 4 * bins * 32)
+        want = got if fmt == "CHW" else got.transpose(1, 2, 0)
+        np.testing.assert_array_equal(mirror.numpy(), want)
+    # alone: t = 7 at ts = -1.2 votes 1 * (ts - trunc(ts)) = -0.2 into bin 0
+    three = np.array([[10.0, 1, 1, 1.0], [7.0, 5, 3, 1.0], [20.0, 2, 2, 1.0]], np.float32)
+    alone = _port(three, 3, bins, w, h)
+    assert alone[:, 3, 5].tolist() == pytest.approx([-0.2, 0, 0, 0, 0], abs=1e-6)
+
+
+def test_early_stamps_match_the_cpp_host_path():
+    from refid_tpu.events import voxel as jax_voxel
+    from refid_tpu.ops.native import get_lib
+    assert get_lib() is not None, "the JAX package's C++ voxelizer did not build"
+    ev, bins, w, h = early_stamp_stream()
+    for fmt in ("CHW", "HWC"):
+        want = jax_voxel.events_to_voxel_grid(ev, bins, w, h, fmt)
+        got = events_to_voxel_grid(ev, bins, w, h, fmt, device="cpu")
+        np.testing.assert_allclose(got, want, rtol=0, atol=2e-6)
+
+
+# --- the padded-capacity entry ------------------------------------------------
+
+@pytest.mark.parametrize("n,capacity,fmt,bins,w,h", [
+    (1500, None, "CHW", 7, 20, 14),      # tests/test_voxel.py's shapes
+    (100, 4096, "CHW", 3, 8, 8),
+    (1500, None, "HWC", 7, 20, 14),
+    (3000, 4096, "HWC", 24, 40, 30),
+    (0, None, "CHW", 4, 10, 6),
+])
+def test_padded_entry_matches_jax(n, capacity, fmt, bins, w, h):
+    from refid_tpu.events.voxel import events_to_voxel_grid_jax
+    ev = _events(np.random.RandomState(n + bins), n, n, w, h, t_span=1e3)
+    got = events_to_voxel_grid_padded(ev, bins, w, h, fmt, capacity=capacity, device="cpu")
+    want = np.asarray(events_to_voxel_grid_jax(ev, bins, w, h, fmt, capacity=capacity))
+    assert isinstance(got, torch.Tensor) and got.shape == want.shape
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=2e-6)
+
+
+def test_padded_entry_checks_and_defaults_to_the_card():
+    ev = _events(np.random.RandomState(0), 50, 50, 8, 8)
+    with pytest.raises(ValueError, match="capacity"):
+        events_to_voxel_grid_padded(ev, 3, 8, 8, capacity=32, device="cpu")
+    with pytest.raises(ValueError, match="return_format"):
+        events_to_voxel_grid_padded(ev, 3, 8, 8, "WHC", device="cpu")
+    assert next_capacity(50, 1024) == 1024 and next_capacity(1025, 1024) == 2048
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="cuda"):
+            events_to_voxel_grid_padded(ev, 3, 8, 8)
