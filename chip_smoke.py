@@ -701,6 +701,7 @@ def phase_eval(data_root, work, state):
          frame=[HEIGHT, WIDTH], items=items, results=results,
          predict_ms_per_item=timing["predict_ms"] / max(items, 1),
          metric_ms_per_item=timing["metric_ms"] / max(items, 1),
+         save_ms_per_item=timing["save_ms"] / max(items, 1),
          max_memory_allocated=torch.cuda.max_memory_allocated(), images_saved=saved,
          voxel_grid_launches=launches, voxelize_launches=voxel_cuda.LAUNCHES - k1_before,
          seconds=seconds)

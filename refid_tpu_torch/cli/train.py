@@ -13,8 +13,8 @@ loader's own threads.
 build the option dict themselves.  It returns the task, with
 ``task.train_loader``, ``task.val_loaders`` (``(dataset options, loader)``
 pairs) and ``task.history``: the logged iterations (loss,
-grad norm, lr and seconds since the previous iteration, with its
-checkpoint and validation, ended) and the
+grad norm, lr and seconds since the previous iteration ended, its
+checkpoint counted and its validation not) and the
 validations (``val``: the dataset's name, its results, ``seconds``).
 """
 
@@ -145,13 +145,15 @@ def train(opt: dict, device="cuda"):
                 log_vars["time"] = time.time() - t_iter   # after the sync above
                 task.history.append(dict(log_vars))
                 msg_logger(log_vars)
+            t_iter = time.time()
             if save_freq and current_iter % save_freq == 0:
                 logger.info(f"saving checkpoint at iter {current_iter}")
                 task.save(current_iter, epoch)
             if val_freq and current_iter % val_freq == 0 and val_loaders:
+                t_val = time.time()
                 _validate(task, current_iter, epoch, msg_logger, logger)
                 validated_at = current_iter
-            t_iter = time.time()      # a checkpoint or validation is not the next step's
+                t_iter += time.time() - t_val     # a validation is not the next step's
         epoch += 1
 
     logger.info("training complete; saving final checkpoint")

@@ -164,17 +164,12 @@ def imwrite(img: np.ndarray, file_path: str, auto_mkdir: bool = True) -> bool:
 def tensor2img(arr, rgb2bgr: bool = True, min_max=(0, 1)):
     """(..., H, W, C) float RGB in [0, 1] -> HWC uint8 [0, 255] BGR, matching
     the reference ``tensor2img``: clip, scale, x255 in float32, round half
-    to even.  A torch tensor stays on its device and gives a uint8 tensor,
-    equal bit for bit to the numpy result."""
-    if isinstance(arr, torch.Tensor):
-        img = arr.float().clamp(min_max[0], min_max[1])
-        img = (img - min_max[0]) / (min_max[1] - min_max[0])
-        if rgb2bgr and img.dim() == 3 and img.shape[2] == 3:
-            img = img.flip(-1)
-        return (img * 255.0).round().to(torch.uint8)
-    img = np.asarray(arr, np.float32)
-    img = np.clip(img, min_max[0], min_max[1])
+    to even (torch's ``round``).  A torch tensor stays on its device and
+    gives a uint8 tensor; a numpy array gives a numpy array."""
+    img = arr if isinstance(arr, torch.Tensor) else torch.from_numpy(np.asarray(arr, np.float32))
+    img = img.float().clamp(min_max[0], min_max[1])
     img = (img - min_max[0]) / (min_max[1] - min_max[0])
-    if rgb2bgr and img.ndim == 3 and img.shape[2] == 3:
-        img = img[..., ::-1]
-    return (img * 255.0).round().astype(np.uint8)
+    if rgb2bgr and img.dim() == 3 and img.shape[2] == 3:
+        img = img.flip(-1)
+    out = (img * 255.0).round().to(torch.uint8)
+    return out if isinstance(arr, torch.Tensor) else out.numpy()

@@ -2,9 +2,9 @@
 ``refid_tpu/eval/metrics.py``; upstream ``basicsr/metrics/psnr_ssim.py``).
 
 PSNR infers the peak from the image's range ([0, 1] or [0, 255]) and works
-in float64.  Numpy images take the JAX package's numpy arithmetic; torch
-tensors (validation hands it the frames on the card) are measured in
-float64 torch ops on their device.
+in float64 torch ops on the tensor's device (validation hands it the
+frames on the card; numpy images are measured on the CPU).  The Y-channel
+variants convert colour on the host with the reference's numpy.
 
 SSIM is upstream's NONSTANDARD 3-D formulation: one 11 x 11 x 11 Gaussian
 window (sigma 1.5 a side, the outer product of three 1-D kernels) over the
@@ -45,57 +45,51 @@ _TAPS = [float(w) for w in gaussian_kernel_1d().astype(np.float32)]
 _PAD = len(_TAPS) // 2
 
 
-def _reorder(img, input_order):
-    if input_order == "CHW":
-        return img.permute(1, 2, 0) if isinstance(img, torch.Tensor) else \
-            np.transpose(img, (1, 2, 0))
-    if input_order == "HWC":
-        return img
-    raise ValueError(f"Wrong input_order {input_order!r}")
-
-
-def _device_of(img1, img2, device=None) -> Optional[torch.device]:
-    """``device``, else the first tensor's device, else None (numpy)."""
+def _device_of(img1, img2, device=None) -> torch.device:
+    """``device``, else the first tensor's device, else the CPU."""
     if device is not None:
         return torch.device(device)
-    return next((i.device for i in (img1, img2) if isinstance(i, torch.Tensor)), None)
+    return next((i.device for i in (img1, img2) if isinstance(i, torch.Tensor)),
+                torch.device("cpu"))
 
 
-def _prepare(img1, img2, crop_border, input_order, device=None):
-    """Both images HWC, cropped, float64: numpy arrays for ``device=None``,
-    else torch tensors on ``device``."""
+def _prepare(img1, img2, crop_border, input_order, device):
+    """Both images as HWC float64 tensors on ``device``, cropped."""
     assert tuple(img1.shape) == tuple(img2.shape), (
         f"Image shapes are different: {tuple(img1.shape)}, {tuple(img2.shape)}.")
-    if device is None:
-        img1, img2 = (_reorder(np.asarray(i), input_order).astype(np.float64)
-                      for i in (img1, img2))
-    else:
-        img1, img2 = (_reorder(torch.as_tensor(np.ascontiguousarray(i))
-                               if not isinstance(i, torch.Tensor) else i, input_order)
-                      .to(device, torch.float64) for i in (img1, img2))
-    if crop_border != 0:
-        img1 = img1[crop_border:-crop_border, crop_border:-crop_border, ...]
-        img2 = img2[crop_border:-crop_border, crop_border:-crop_border, ...]
-    return img1, img2
+    if input_order not in ("HWC", "CHW"):
+        raise ValueError(f"Wrong input_order {input_order!r}")
+    out = []
+    for img in (img1, img2):
+        if not isinstance(img, torch.Tensor):
+            img = torch.from_numpy(np.ascontiguousarray(img))
+        if input_order == "CHW":
+            img = img.permute(1, 2, 0)
+        img = img.to(device, torch.float64)
+        if crop_border != 0:
+            img = img[crop_border:-crop_border, crop_border:-crop_border, ...]
+        out.append(img)
+    return out
 
 
-def _host(img):
-    return img.cpu().numpy() if isinstance(img, torch.Tensor) else np.asarray(img)
+def _y_channel(img: torch.Tensor) -> np.ndarray:
+    """The Y channel of a prepared image, float32 on the host (the colour
+    conversion is the reference's numpy)."""
+    return to_y_channel(img.cpu().numpy())
 
 
 def calculate_psnr(img1, img2, crop_border=0, input_order="HWC",
                    test_y_channel=False) -> float:
     """PSNR with max value inferred from the range ([0,1] vs [0,255])."""
-    if test_y_channel:      # the JAX package's numpy arithmetic, float32 after Y
-        img1, img2 = _prepare(_host(img1), _host(img2), crop_border, input_order)
-        img1, img2 = to_y_channel(img1), to_y_channel(img2)
+    img1, img2 = _prepare(img1, img2, crop_border, input_order, _device_of(img1, img2))
+    if test_y_channel:
+        # the reference's float32 arithmetic on the Y planes, the mean and
+        # the log's argument included: numpy's pairwise float32 sum, which
+        # torch's differs from in the last bits
+        y1, y2 = _y_channel(img1), _y_channel(img2)
+        mse, peak = np.mean((y1 - y2) ** 2), float(y1.max())
     else:
-        img1, img2 = _prepare(img1, img2, crop_border, input_order,
-                              _device_of(img1, img2))
-    if isinstance(img1, torch.Tensor):
         mse, peak = float(torch.mean((img1 - img2) ** 2)), float(img1.max())
-    else:
-        mse, peak = np.mean((img1 - img2) ** 2), img1.max()
     if mse == 0:
         return float("inf")
     max_value = 1.0 if peak <= 1 else 255.0
@@ -133,12 +127,11 @@ def calculate_ssim(img1, img2, crop_border=0, input_order="HWC",
                    test_y_channel=False,
                    device: Optional[torch.device] = None) -> float:
     """SSIM through upstream's 3-D Gaussian window, on ``device``."""
-    device = _device_of(img1, img2, device) or torch.device("cpu")
+    device = _device_of(img1, img2, device)
+    img1, img2 = _prepare(img1, img2, crop_border, input_order, device)
     if test_y_channel:
-        img1, img2 = _prepare(_host(img1), _host(img2), crop_border, input_order)
-        img1, img2 = (torch.from_numpy(to_y_channel(i)[..., 0]).to(device, torch.float32)
+        img1, img2 = (torch.from_numpy(_y_channel(i)[..., 0]).to(device, torch.float32)
                       for i in (img1, img2))
         return _ssim(img1, img2, 255.0)
-    img1, img2 = _prepare(img1, img2, crop_border, input_order, device)
     max_value = 1 if float(img1.max()) <= 1 else 255
     return _ssim(img1.to(torch.float32), img2.to(torch.float32), max_value)

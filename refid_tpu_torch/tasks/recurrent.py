@@ -57,7 +57,8 @@ class _RecurrentTaskBase(RestorationTaskBase):
                  max_items: Optional[int] = None) -> Dict[str, float]:
         """Metrics over the items of ``loader`` (batch 1).  ``val_timing``
         then holds the items measured and the host milliseconds spent
-        predicting them and measuring their frames."""
+        predicting them, measuring their frames (``tensor2img`` and the
+        metrics) and writing their images (``save_img``)."""
         val_opt = self.opt.get("val", {}) or {}
         crop_size = val_opt.get("crop_size")
         max_minibatch = val_opt.get("max_minibatch", 2) or 2
@@ -73,7 +74,7 @@ class _RecurrentTaskBase(RestorationTaskBase):
         # each metric sum is divided by the frames that fed it, counted
         # across all items, so loaders of mixed t_out average correctly
         n_deblur_frames = n_interpo_frames = 0
-        self.val_timing = {"items": 0, "predict_ms": 0.0, "metric_ms": 0.0}
+        self.val_timing = {"items": 0, "predict_ms": 0.0, "metric_ms": 0.0, "save_ms": 0.0}
 
         for item_idx, batch in enumerate(loader):
             if max_items is not None and item_idx >= max_items:
@@ -89,6 +90,7 @@ class _RecurrentTaskBase(RestorationTaskBase):
             self._sync()
             t1 = time.perf_counter()
             gt = torch.from_numpy(np.ascontiguousarray(gt)).to(self.device)
+            save_s = 0.0
 
             t_out = pred.shape[0]
             for frame_idx in range(t_out):
@@ -102,7 +104,9 @@ class _RecurrentTaskBase(RestorationTaskBase):
                     path = os.path.join(
                         self.opt["path"].get("visualization", "vis"),
                         dataset_opt.get("name", "val"), name)
+                    ts = time.perf_counter()
                     imwrite(sr_img.cpu().numpy(), path)
+                    save_s += time.perf_counter() - ts
                 bucket = acc_interpo if is_interpo else acc_deblur
                 opts = metrics_interpo if is_interpo else metrics_deblur
                 if is_interpo:
@@ -116,7 +120,8 @@ class _RecurrentTaskBase(RestorationTaskBase):
             t2 = time.perf_counter()
             self.val_timing["items"] += 1
             self.val_timing["predict_ms"] += (t1 - t0) * 1e3
-            self.val_timing["metric_ms"] += (t2 - t1) * 1e3
+            self.val_timing["metric_ms"] += (t2 - t1 - save_s) * 1e3
+            self.val_timing["save_ms"] += save_s * 1e3
 
         results: Dict[str, float] = {}
         if cnt:

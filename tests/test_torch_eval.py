@@ -6,6 +6,7 @@ import numpy as np
 import pytest
 import torch
 
+from refid_tpu.data.img_util import tensor2img as jax_tensor2img
 from refid_tpu.eval import color as jax_color
 from refid_tpu.eval import fid as jax_fid
 from refid_tpu.eval import matlab as jax_matlab
@@ -85,10 +86,13 @@ def test_tensor2img_on_tensors_equals_numpy(shape):
     rng = np.random.RandomState(5)
     x = (rng.rand(*shape) * 1.4 - 0.2).astype(np.float32)
     x.flat[:8] = np.arange(8) / 255.0 + 0.5 / 255.0     # ties: round half to even
-    want = tensor2img(x)
+    want = jax_tensor2img(x)                             # the JAX package's numpy
     got = tensor2img(torch.from_numpy(x))
     assert isinstance(got, torch.Tensor) and got.dtype == torch.uint8
     np.testing.assert_array_equal(got.numpy(), want)
+    host = tensor2img(x)
+    assert isinstance(host, np.ndarray)
+    np.testing.assert_array_equal(host, want)
 
 
 # --- tiling ------------------------------------------------------------------

@@ -119,6 +119,7 @@ def test_validate_matches_jax(tmp_path, roots):
                         for k in ("psnr", "ssim")}
     _assert_close_results(got, want)
     assert task.val_timing["items"] == 2 and task.val_timing["predict_ms"] > 0
+    assert task.val_timing["metric_ms"] > 0 and task.val_timing["save_ms"] == 0
 
 
 def test_validate_given_the_same_predictions(tmp_path, roots):
@@ -192,6 +193,7 @@ def test_validate_saves_images(tmp_path, roots):
                   save_img=True, max_items=1)
     saved = sorted(os.listdir(tmp_path / "vis" / "synth" / "VID_A"))
     assert len(saved) == 2 * M + N and saved[0].endswith("_0.png")
+    assert task.val_timing["save_ms"] > 0       # the writes, apart from the metrics
 
 
 @pytest.mark.parametrize("dtype,root,m,n,kw", [
