@@ -23,6 +23,13 @@ random weights:
   ``options/test/GoPro/Test_Final_1skip.yml`` pointed at the same tree and
   at a checkpoint of the seeded weights, after PSNR / SSIM on the card are
   held against the CPU;
+* int8 serving (``quantize_int8``, ``conv_int8``): both kernels against
+  their plain versions at every production int8 conv shape, their times at
+  the scale-1 and scale-2 trunk ``conv_in`` shapes beside cuDNN's bf16
+  channels_last conv and nine ``torch._int_mm`` taps, then 1280x720 windows
+  with 2**20 events in ``int8=True``, ``"scale0"`` and ``"static"``
+  (calibrated on another window) under bf16 autocast, each against the
+  float32 window;
 * the padded-capacity voxelizer entry (K1) at the serving shape;
 * the probes (P1-P4): ``python -m refid_tpu_torch.probes.band_conv``'s and
   ``python -m refid_tpu_torch.probes.poison``'s ``main`` at the serving
@@ -60,9 +67,10 @@ from refid_tpu_torch.events.voxel import (
 )
 from refid_tpu_torch.models.convert import known_unused_keys
 from refid_tpu_torch.models.refid import FinalBidirectionAttenfusion
-from refid_tpu_torch.ops import build, probe_cuda
+from refid_tpu_torch.ops import build, int8_cuda, probe_cuda
 from refid_tpu_torch.probes import band_conv as probe_bc
 from refid_tpu_torch.probes import poison as probe_poison
+from refid_tpu_torch.serve import quant
 from refid_tpu_torch.tasks.base import to_nchw
 from refid_tpu_torch.train.losses import charbonnier_loss
 from refid_tpu_torch.train.trainer import Trainer
@@ -97,6 +105,19 @@ P3_STEPS = 2.0      # bf16 steps per element: float32 sums in another order
 BAND_CONV_EDGES = [(9, 40, 3), (12, 648, 3), (64, 64, 8), (64, 128, 8), (48, 36, 8),
                    (48, 40, 8), (96, 40, 16)]
 POISON_VARIANTS = ["torch", "cuda", "cuda_b16", "tiny", "convert"]
+# the int8 sites' convs at 1280x720: name -> (Cin, Cout, output H, W, kernel,
+# stride); each 3x3 has padding 1, each 4x4/2 padding 1
+INT8_CONV_SHAPES = {
+    "scale1_trunk_in": (256, 128, 360, 640, 3, 1), "scale1_trunk": (128, 128, 360, 640, 3, 1),
+    "scale1_down": (128, 128, 180, 320, 4, 2), "scale2_stage": (128, 256, 180, 320, 3, 1),
+    "scale2_trunk_in": (512, 256, 180, 320, 3, 1), "scale2_trunk": (256, 256, 180, 320, 3, 1),
+    "scale2_down": (256, 256, 90, 160, 4, 2), "resblock": (256, 256, 90, 160, 3, 1),
+    "dec0_trunk_in": (256, 128, 180, 320, 3, 1), "dec0_trunk": (128, 128, 180, 320, 3, 1),
+    "scale0_trunk_in": (128, 64, 720, 1280, 3, 1), "scale0_trunk": (64, 64, 720, 1280, 3, 1),
+    "dec1_trunk_in": (128, 64, 360, 640, 3, 1), "dec1_trunk": (64, 64, 360, 640, 3, 1),
+    "dec2_trunk_in": (64, 32, 720, 1280, 3, 1), "dec2_trunk": (32, 32, 720, 1280, 3, 1)}
+INT8_TIMED = ("scale1_trunk_in", "scale2_trunk_in")
+INT8_SITES = {True: 575, "scale0": 713, "static": 851}     # a t = 23 window
 
 
 def emit(phase, **fields):
@@ -479,6 +500,223 @@ def profile_window(phase, run, window_ms, top=12):
          kernel_launches=sum(n for _, n in by_name.values()),
          top=[{"kernel": name[:90], "ms": ms, "launches": n,
                "share": ms / busy_ms} for name, (ms, n) in ranked[:top]])
+
+
+def int8_operands(name, seed, x_dtype=torch.bfloat16):
+    """An int8 site's input (bf16 activations, leaky-ReLU-like), weights at
+    1/sqrt(fan_in) and a 0.1 N(0, 1) bias, on the card."""
+    cin, cout, h, w, k, stride = INT8_CONV_SHAPES[name]
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn(1, cin, h * stride, w * stride, generator=gen)
+    x = torch.maximum(x, 0.1 * x).to(CUDA, x_dtype)
+    weight = (torch.randn(cout, cin, k, k, generator=gen) / math.sqrt(cin * k * k)).to(CUDA)
+    bias = (0.1 * torch.randn(cout, generator=gen)).to(CUDA)
+    return x, weight, bias, k, stride
+
+
+def phase_int8_kernel_check():
+    """``quantize_int8`` (dynamic and static, bit for bit) and ``conv_int8``
+    (bias, leaky 0.1, bf16 out; bit for bit) against their plain versions at
+    every shape of INT8_CONV_SHAPES; at the first, also float32 input and
+    output, relu and no activation.  Returns the largest max |diff| of each."""
+    errs = {"quantize_int8": {}, "conv_int8": {}}
+
+    def held(kernel, name, got, want):
+        errs[kernel][name] = float((got.float() - want.float()).abs().max())
+        check(got.dtype == want.dtype and got.shape == want.shape and torch.equal(got, want),
+              f"{kernel} {name}: max|diff| {errs[kernel][name]} against its plain version")
+
+    for i, name in enumerate(INT8_CONV_SHAPES):
+        variants = [("", torch.bfloat16, torch.bfloat16, 0.1, False)]
+        if i == 0:
+            variants += [("_f32", torch.float32, torch.float32, 0.1, False),
+                         ("_relu", torch.bfloat16, torch.bfloat16, None, True),
+                         ("_plain", torch.bfloat16, torch.float32, None, False)]
+        for tag, x_dtype, out_dtype, slope, relu in variants:
+            x, weight, bias, k, stride = int8_operands(name, 10 + i, x_dtype)
+            for scale in (None, 0.02):
+                key = name + tag + ("" if scale is None else "_static")
+                got = quant.quantize_int8(x, scale)
+                want = quant.quantize_int8_reference(x, scale)
+                held("quantize_int8", key, got[1], want[1])
+                held("quantize_int8", key, got[0], want[0])
+            wp, wscale, b = quant.WeightCache().packed(weight, bias)
+            xq, xs = want
+            args = (xq, wp, wscale, xs, b, stride, 1, slope, relu, out_dtype)
+            got = quant.conv_int8_packed(*args)
+            torch.cuda.synchronize()
+            held("conv_int8", name + tag, got, quant.conv_int8_reference(*args))
+            del x, weight, bias, wp, xq, got, want
+    emit("int8_kernel_check", shapes={k: list(v) for k, v in INT8_CONV_SHAPES.items()},
+         max_abs_err=errs, tol="bit-exact")
+    return {k: max(v.values()) for k, v in errs.items()}
+
+
+def int_mm_taps(xq, wp):
+    """Nine ``torch._int_mm`` taps of the 3x3 conv of ``xq`` (1, h, w, cp) with
+    the packed weights: the probe's int8 yardstick."""
+    return probe_bc.library_conv_int8(xq[0], wp.permute(1, 2, 3, 0).contiguous())
+
+
+def phase_int8_kernel_timing():
+    """Both kernels at the scale-1 and scale-2 trunk ``conv_in`` shapes (bf16
+    input, dynamic scale, bias, leaky 0.1, bf16 out): CUDA events per call,
+    device time from the profiler, the plain versions, the bound, cuDNN's
+    bf16 channels_last conv with the same epilogue and nine ``torch._int_mm``
+    taps.  Returns ``{"quantize_int8": ..., "conv_int8": ...}`` at
+    INT8_TIMED[0], with both shapes' figures in the phase's line."""
+    shapes = {}
+    for name in INT8_TIMED:
+        cin, cout, h, w, k, stride = INT8_CONV_SHAPES[name]
+        x, weight, bias, k, stride = int8_operands(name, 30)
+        wp, wscale, b = quant.WeightCache().packed(weight, bias)
+        xq, xs = quant.quantize_int8(x)
+
+        def conv():
+            return quant.conv_int8_packed(xq, wp, wscale, xs, b, 1, 1, 0.1, False,
+                                          torch.bfloat16)
+
+        x_cl = x.contiguous(memory_format=torch.channels_last)
+        w_cl = weight.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+        b16 = bias.to(torch.bfloat16)
+
+        def cudnn():
+            y = torch.nn.functional.conv2d(x_cl, w_cl, b16, padding=1)
+            return torch.maximum(y, 0.1 * y)
+
+        q_bytes = x.numel() * x.element_size() + xq.numel()
+        conv_ops = 2 * h * w * cout * cin * k * k
+        conv_bytes = h * w * cin + cout * cin * k * k + h * w * cout * 2
+        q = {"ms": time_ms(lambda: quant.quantize_int8(x), 50, CUDA),
+             "plain_ms": time_ms(lambda: quant.quantize_int8_reference(x), 10, CUDA),
+             "library_ms": None, "bytes": q_bytes, **bound(q_bytes, 0, F32_OPS_PER_S),
+             "quantize_device_ms": kernel_device_ms(lambda: quant.quantize_int8(x), 20,
+                                                    "quantize_kernel"),
+             "amax_device_ms": kernel_device_ms(lambda: quant.quantize_int8(x), 20,
+                                                "amax_kernel")}
+        q["device_ms"] = q["quantize_device_ms"] + q["amax_device_ms"]
+        c = {"ms": time_ms(conv, 50, CUDA),
+             "plain_ms": time_ms(lambda: quant.conv_int8_reference(
+                 xq, wp, wscale, xs, b, 1, 1, 0.1, False, torch.bfloat16), 3, CUDA, warmup=1),
+             "library_ms": time_ms(cudnn, 50, CUDA),
+             "int_mm_taps_ms": time_ms(lambda: int_mm_taps(xq, wp), 5, CUDA, warmup=1),
+             "ops": conv_ops, "bytes": conv_bytes,
+             **bound(conv_bytes, conv_ops, INT8_OPS_PER_S),
+             "device_ms": kernel_device_ms(conv, 20, "conv_int8_kernel")}
+        for t in (q, c):
+            t["bound_share"] = t["bound_ms"] / t["ms"]
+        c["tera_ops_per_s"] = conv_ops / c["ms"] / 1e9
+        shapes[name] = {"quantize_int8": q, "conv_int8": c}
+        del x, weight, bias, wp, xq, x_cl, w_cl
+    emit("int8_kernel_timing", shapes=shapes)
+    return shapes[INT8_TIMED[0]]
+
+
+def int8_share(run):
+    """The int8 kernels' share of one window's device time, from the
+    profiler: ``{kernel: (ms, launches)}`` and the device busy ms."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    busy, mine = 0.0, {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            ms = e.time_range.elapsed_us() / 1e3
+            busy += ms
+            for k in ("conv_int8_kernel", "quantize_kernel", "amax_kernel"):
+                if k in e.name:
+                    ms_n = mine.setdefault(k, [0.0, 0])
+                    ms_n[0] += ms
+                    ms_n[1] += 1
+    return mine, busy
+
+
+def module_init_state(seed=0):
+    """The network's own initialisation (the modules' inits, as
+    ``RestorationTaskBase.init_params`` draws them) from ``seed``: the weight
+    distribution that int8 quality is read on, as the JAX package read it on
+    its init's."""
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        return FinalBidirectionAttenfusion(RefidConfig()).state_dict()
+
+
+def phase_int8_serve(requests):
+    """720p windows in each int8 mode under bf16 autocast, TF32 off, with
+    the network's own init (``module_init_state``): ``"static"`` calibrated
+    on ``requests[0]``, every mode served on the rest (1 warm-up, then
+    timed), the last window against the same window in float32 (and the bf16
+    window beside it), then one window under the profiler for the int8
+    kernels' share.  Returns the two kernels' launches over the int8 path
+    and, for each mode, its dB and whether it is more than 3 dB below bf16's."""
+    state = module_init_state()
+    plain = BlurVFIPipeline(state, RefidConfig(), device="cuda")
+    out32 = plain(*requests[-1]).float()
+    with torch.autocast("cuda", dtype=torch.bfloat16):
+        bf16_db = parity_db(out32, plain(*requests[-1]).float())
+    del plain
+    int8_cuda.reset_launches()                     # the int8 path starts here
+    dbs, faults = {"bf16": bf16_db}, []
+    for mode in INT8_SITES:
+        pipe = BlurVFIPipeline(state, RefidConfig(), int8=mode, device="cuda")
+        torch.cuda.reset_peak_memory_stats()
+        calib_ms = None
+        if mode == "static":
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with torch.autocast("cuda", dtype=torch.bfloat16):
+                pipe.calibrate(*requests[0])
+            torch.cuda.synchronize()
+            calib_ms = (time.perf_counter() - t0) * 1e3
+        before = int8_cuda.CONV_LAUNCHES, int8_cuda.QUANTIZE_LAUNCHES
+        times = []
+        for i, request in enumerate(requests[1:]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with torch.autocast("cuda", dtype=torch.bfloat16):
+                out = pipe(*request)
+            torch.cuda.synchronize()
+            if i > 0:
+                times.append((time.perf_counter() - t0) * 1e3)
+        served = len(requests) - 1
+        convs = int8_cuda.CONV_LAUNCHES - before[0]
+        quants = int8_cuda.QUANTIZE_LAUNCHES - before[1]
+        peak = torch.cuda.max_memory_allocated()
+        check(out.shape == (23, HEIGHT, WIDTH, 3) and bool(torch.isfinite(out).all()),
+              f"int8={mode} window: shape {tuple(out.shape)} or not finite")
+        check(convs == quants == INT8_SITES[mode] * served,
+              f"int8={mode}: {convs} convs, {quants} quantizations for {served} windows of "
+              f"{INT8_SITES[mode]} sites")
+        dbs[mode] = parity_db(out32, out.float())
+        if dbs[mode] < bf16_db - 3.0:
+            faults.append(mode)
+        ms = sum(times) / len(times)
+
+        def run():
+            with torch.autocast("cuda", dtype=torch.bfloat16):
+                pipe(*requests[-1])
+
+        mine, busy = int8_share(run)
+        int8_ms = sum(v[0] for v in mine.values())
+        emit("int8_serve", mode=mode, weights="module init, seed 0", frame=[HEIGHT, WIDTH],
+             events=FULL_EVENTS, sites_per_window=INT8_SITES[mode], conv_launches=convs,
+             quantize_launches=quants, windows=served, ms_per_window=times,
+             mean_ms_per_window=ms, frames_per_s=23 * 1e3 / ms, db_vs_f32=dbs[mode],
+             bf16_db_vs_f32=bf16_db, calibrate_ms=calib_ms,
+             calibrated_sites=None if pipe._int8_scales is None else len(pipe._int8_scales),
+             max_memory_allocated=peak, profiled_device_busy_ms=busy,
+             int8_device_ms=int8_ms, int8_share=int8_ms / busy,
+             int8_kernels={k: {"ms": v[0], "launches": v[1]} for k, v in mine.items()})
+        del pipe, out
+    launches = {"quantize_int8": int8_cuda.QUANTIZE_LAUNCHES,   # ... and ends here
+                "conv_int8": int8_cuda.CONV_LAUNCHES}
+    windows = len(requests)          # each mode: the served windows and the profiled one
+    check(all(v == sum(INT8_SITES.values()) * windows for v in launches.values()),
+          f"int8 path launches {launches} for {windows} windows a mode")
+    return launches, dbs, faults
 
 
 def write_gopro_tree(root, seed=0, num_blur=4, num_gt=48, num_windows=47,
@@ -953,7 +1191,17 @@ def main():
           f"voxelize launched {launches} times for {2 * len(requests)} windows")
     emit("serve_bf16_vs_f32", db=parity_db(out32.float(), out16.float()))
     phase_profile(pipe, requests[-1], bf16_ms)
-    del pipe, requests, out32, out16
+    del pipe, out32, out16
+
+    t0 = time.perf_counter()
+    int8_errs = phase_int8_kernel_check()
+    int8_timing = phase_int8_kernel_timing()
+    set_tf32(False)
+    int8_launches, int8_db, int8_faults = phase_int8_serve(requests)
+    emit("int8_path", launches=int8_launches, db_vs_f32=int8_db,
+         seconds=time.perf_counter() - t0)
+    check(min(int8_launches.values()) > 0, f"an int8 kernel was not launched: {int8_launches}")
+    del requests
     launches += phase_voxel_grid_padded()        # K1's other entry, its own path
 
     phase_train_parity(state)
@@ -997,6 +1245,9 @@ def main():
                 "bound_by": r["bound_by"], "library_ms": rates[library]["ms"],
                 "device_ms": device_ms[kernel], "bound_share": r["bound_ms"] / r["ms"]}
 
+    # checked last, so that the other phases still report: an int8 mode more
+    # than 3 dB below the bf16 window is a fault, not a figure
+    check(not int8_faults, f"int8 modes {int8_faults} more than 3 dB below bf16: {int8_db}")
     print(smi, flush=True)
     print(json.dumps({"kernels": [{
         "name": "voxelize", "route": "cuda",
@@ -1026,7 +1277,17 @@ def main():
         "source": "refid_tpu_torch/csrc/band_conv.cu",
         "replaces": "scripts/probe_band_conv.py:113",
         "launches": probe_launches["band_conv_int8"], "max_abs_err": probe_errs["int8_roll"],
-        **rate_entry("int8_roll", p4_plain_ms, "library_int8", "band_conv_int8")}]}), flush=True)
+        **rate_entry("int8_roll", p4_plain_ms, "library_int8", "band_conv_int8")}, {
+        "name": "quantize_int8", "route": "cuda",
+        "source": "refid_tpu_torch/csrc/conv_int8.cu",
+        "replaces": "refid_tpu/serve/quant.py:147",
+        "launches": int8_launches["quantize_int8"], "max_abs_err": int8_errs["quantize_int8"],
+        **int8_timing["quantize_int8"]}, {
+        "name": "conv_int8", "route": "cuda",
+        "source": "refid_tpu_torch/csrc/conv_int8.cu",
+        "replaces": "refid_tpu/serve/quant.py:147",
+        "launches": int8_launches["conv_int8"], "max_abs_err": int8_errs["conv_int8"],
+        **int8_timing["conv_int8"]}]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}),
           flush=True)

@@ -4,6 +4,10 @@ Attribute names are upstream REFID's, the names that
 ``refid_tpu/models/convert.py`` reads (``conv2d``, ``conv_1``, ``conv_2``,
 ``identity``, ``down``, ``main.0``, ``main.2.{j}.conv1``, ...), so an upstream
 state_dict loads as it is.
+
+``ResidualBlock`` and ``ConvResidualBlocks`` take an optional int8 quant
+state ``q`` (``serve/quant.py::QuantState``): with it, their convs run as
+int8 sites, in the JAX serving forward's order; without it, nothing changes.
 """
 
 from __future__ import annotations
@@ -62,8 +66,10 @@ class ResidualBlock(nn.Module):
         self.conv1 = nn.Conv2d(features, features, 3, 1, 1)
         self.conv2 = nn.Conv2d(features, features, 3, 1, 1)
 
-    def forward(self, x):
-        return F.relu(self.conv2(F.relu(self.conv1(x))) + x)
+    def forward(self, x, q=None):
+        if q is None:
+            return F.relu(self.conv2(F.relu(self.conv1(x))) + x)
+        return F.relu(q.conv(self.conv2, q.conv(self.conv1, x, relu=True)) + x)
 
 
 class ResidualBlockNoBN(nn.Module):
@@ -97,8 +103,13 @@ class ConvResidualBlocks(nn.Module):
             nn.Sequential(*[ResidualBlockNoBN(features)
                             for _ in range(num_block)]))
 
-    def forward(self, x):
-        return self.main(x)
+    def forward(self, x, q=None):
+        if q is None:
+            return self.main(x)
+        h = q.conv(self.main[0], x, slope=0.1)
+        for block in self.main[2]:
+            h = h + q.conv(block.conv2, q.conv(block.conv1, h, relu=True))
+        return h
 
 
 class LayerNorm2d(nn.Module):

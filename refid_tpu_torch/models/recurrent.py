@@ -4,6 +4,13 @@
 ``stage_type='then_down'`` and ``cell='simpleconv'``, and
 ``TransposeRecurrentConvLayer``.  Other ablation axes raise
 ``NotImplementedError``.  States are explicit tensors (zeros at t=0).
+
+With an int8 quant state (``serve/quant.py::QuantState``) the stage conv,
+the trunk's three convs and the 4x4/2 ``down`` run as int8 sites, in the JAX
+serving forward's order; ``q`` quantizes the stage conv and ``down``,
+``q_trunk`` the trunk (the model passes each only where the mode quantizes
+it).  The stage conv's two leaky ReLUs (0.2, then 0.2 again) become one
+slope-0.04 epilogue there, as ``refid_tpu/serve/fast_forward.py`` does.
 """
 
 from __future__ import annotations
@@ -33,8 +40,8 @@ class SimpleRecurrentConv(nn.Module):
         self.forward_trunk = ConvResidualBlocks(2 * features, features,
                                                 num_block)
 
-    def forward(self, x, prev_state):
-        feat = self.forward_trunk(torch.cat([x, prev_state], 1))
+    def forward(self, x, prev_state, q=None):
+        feat = self.forward_trunk(torch.cat([x, prev_state], 1), q)
         return feat, feat
 
 
@@ -68,21 +75,25 @@ class RecurrentEncoderStage(nn.Module):
         self.down = nn.Conv2d(out_ch, out_ch, 4, 2, 1, bias=False)
 
     def forward(self, x, y: Optional[torch.Tensor], prev_state,
-                bi_direction_state: Optional[torch.Tensor] = None):
+                bi_direction_state: Optional[torch.Tensor] = None, q=None, q_trunk=None):
         if y is not None and self.atten_fuse is not None:
             x = self.atten_fuse(x, y)
         else:
             if y is not None:
                 x = x + y
-            # ConvLayer's own leaky ReLU, then the stage's: applied twice,
-            # as upstream does
-            x = F.leaky_relu(self.conv(x), 0.2)
-        x, state = self.recurrent_block(x, prev_state)
+            if q is None:
+                # ConvLayer's own leaky ReLU, then the stage's: applied twice,
+                # as upstream does
+                x = F.leaky_relu(self.conv(x), 0.2)
+            else:
+                x = q.conv(self.conv.conv2d, x, slope=0.04,
+                           exact=lambda v: F.leaky_relu(self.conv(v), 0.2))
+        x, state = self.recurrent_block(x, prev_state, q_trunk)
         if bi_direction_state is not None:
             if self.fuse_two_dir is None:
                 raise ValueError("stage built without fuse_two_direction")
             x = self.fuse_two_dir(torch.cat([x, bi_direction_state], 1))
-        return self.down(x), state
+        return (self.down(x) if q is None else q.conv(self.down, x)), state
 
 
 class TransposeRecurrentConvLayer(nn.Module):
@@ -94,7 +105,7 @@ class TransposeRecurrentConvLayer(nn.Module):
         self.transposed_conv2d = conv_transpose_up(in_ch, out_ch)
         self.forward_trunk = ConvResidualBlocks(2 * out_ch, out_ch, 1)
 
-    def forward(self, x, prev_state):
+    def forward(self, x, prev_state, q=None):
         out = self.transposed_conv2d(x)
-        out = self.forward_trunk(torch.cat([out, prev_state], 1))
+        out = self.forward_trunk(torch.cat([out, prev_state], 1), q)
         return out, out

@@ -24,6 +24,19 @@ backward and forward recurrent step in the backward pass
 (``torch.utils.checkpoint``, the JAX package's ``nn.remat`` of
 ``_BackwardStep`` / ``_ForwardStep``); ``dtype=torch.bfloat16`` runs the
 network under bf16 autocast with float32 parameters and returns float32.
+
+int8 serving (``serve/quant.py``): ``forward(x, event, q)`` with a
+``QuantState`` runs the convs that ``refid_tpu/serve/fast_forward.py`` routes
+through ``conv_int8``, in its call order (backward scan k = t-1 .. 0, then
+forward scan k = 0 .. t-1; in a step the encoder stages i = 0 .. n-1, each
+stage conv, trunk conv_in / conv1 / conv2, down; the resblocks; the
+decoders): for every mode the stage conv (not at stage 0, nor where EGACA
+replaces it), the trunk and ``down`` of the stages i >= 1, the resblocks and
+the trunks of the decoders before the last two; ``q.scale0`` adds the
+stage-0 trunks and ``q.last_decoders`` the last two decoders' trunks.  It
+needs the production architecture that the JAX serving forward replays
+(:func:`int8_applicable`).  The head convs, the image encoder, EGACA,
+``fuse_two_dir``, the transposed convs and ``pred`` never run in int8.
 """
 
 from __future__ import annotations
@@ -42,7 +55,7 @@ from refid_tpu_torch.models.recurrent import (
     RecurrentEncoderStage, TransposeRecurrentConvLayer,
 )
 
-__all__ = ["RefidConfig", "FinalBidirectionAttenfusion"]
+__all__ = ["RefidConfig", "FinalBidirectionAttenfusion", "int8_applicable"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -95,6 +108,14 @@ _PORTED_AXES = {
     "decoder_type": "transpose_recurrent", "bottleneck_img_add": True,
     "apply_resblocks": True, "bidir_decoder": False, "siamese_fusion": None,
 }
+
+
+def int8_applicable(cfg: Optional[RefidConfig]) -> bool:
+    """True iff int8 serving applies: the configurations that the JAX
+    serving forward replays (``refid_tpu/pipeline.py::
+    _fast_serving_applicable``) among those the port builds."""
+    return (cfg is not None and cfg.aliased_backward_states and cfg.num_block == 1
+            and cfg.num_encoders >= 2)
 
 
 class FinalBidirectionAttenfusion(nn.Module):
@@ -158,18 +179,26 @@ class FinalBidirectionAttenfusion(nn.Module):
                     for i in range(ne))
         return enc, dec
 
-    def _backward_step(self, ev_k, y_of, states):
+    @staticmethod
+    def _stage_q(i, q):
+        """The quant states of encoder stage ``i``: its stage conv and down,
+        and its trunk."""
+        if q is None:
+            return {}
+        return {"q": q if i else None, "q_trunk": q if i or q.scale0 else None}
+
+    def _backward_step(self, ev_k, y_of, states, q=None):
         """One backward-loop step over all encoder scales; returns the new
         states."""
         e = self.head(ev_k)
         new = []
         for i, stage in enumerate(self.encoders_backward):
-            e, s = stage(e, y_of[i], states[i])
+            e, s = stage(e, y_of[i], states[i], **self._stage_q(i, q))
             new.append(s)
         return tuple(new)
 
     def _forward_step(self, ev_k, y_of, x_last, head, fwd_states, dec_states,
-                      bwd):
+                      bwd, q=None):
         """One forward-loop step: encoders (fusing ``bwd``), bottleneck,
         recurrent decoders, prediction.  Returns (frame, fwd_states,
         dec_states)."""
@@ -177,14 +206,15 @@ class FinalBidirectionAttenfusion(nn.Module):
         e = self.head(ev_k)
         e_blocks, new = [], []
         for i, stage in enumerate(self.encoders_forward):
-            e, s = stage(e, y_of[i], fwd_states[i], bwd[i])
+            e, s = stage(e, y_of[i], fwd_states[i], bwd[i], **self._stage_q(i, q))
             e_blocks.append(e)
             new.append(s)
         for i, block in enumerate(self.resblocks):
-            e = block(e + x_last if i == 0 else e)
+            e = block(e + x_last if i == 0 else e, q)
         new_dec = []
         for i, dec in enumerate(self.decoders):
-            e, s = dec(e + e_blocks[ne - i - 1], dec_states[i])
+            dq = q if q is not None and (i < ne - 2 or q.last_decoders) else None
+            e, s = dec(e + e_blocks[ne - i - 1], dec_states[i], dq)
             new_dec.append(s)
         return self.pred(e + head), tuple(new), tuple(new_dec)
 
@@ -193,14 +223,18 @@ class FinalBidirectionAttenfusion(nn.Module):
             return checkpoint(fn, *args, use_reentrant=False)
         return fn(*args)
 
-    def forward(self, x, event):
+    def forward(self, x, event, q=None):
+        if q is not None and not int8_applicable(self.cfg):
+            raise ValueError("int8 serving needs aliased backward states, num_block=1 "
+                             "and num_encoders >= 2 (the JAX serving forward's "
+                             f"configurations); got {self.cfg}")
         if self.cfg.dtype != torch.bfloat16:
-            return self._forward(x, event)
+            return self._forward(x, event, q)
         with torch.autocast(x.device.type, dtype=torch.bfloat16):
-            out = self._forward(x, event)
+            out = self._forward(x, event, q)
         return out.float()
 
-    def _forward(self, x, event):
+    def _forward(self, x, event, q=None):
         if x.dim() == 5:   # (b, 2, c, h, w) -> (b, 2c, h, w)
             x = torch.cat(x.unbind(1), 1)
         b, t, _, h, w = event.shape
@@ -219,7 +253,7 @@ class FinalBidirectionAttenfusion(nn.Module):
         bwd_by_time = [None] * t
         for k in range(t - 1, -1, -1):
             bwd_states = self._step(self._backward_step, event[:, k], y_of,
-                                    bwd_states)
+                                    bwd_states, q)
             if not self.cfg.aliased_backward_states:
                 bwd_by_time[k] = bwd_states
 
@@ -230,6 +264,8 @@ class FinalBidirectionAttenfusion(nn.Module):
                    else bwd_by_time[k])
             frame, fwd_states, dec_states = self._step(
                 self._forward_step, event[:, k], y_of, x_blocks[-1], head,
-                fwd_states, dec_states, bwd)
+                fwd_states, dec_states, bwd, q)
             outs.append(frame)
+        if q is not None:
+            q.finish()
         return torch.stack(outs, 1)

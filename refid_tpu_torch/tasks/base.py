@@ -16,8 +16,11 @@ forward (``refid_tpu/serve/fast_scan.py``), a TPU re-expression that is
 exactly the plain network's math; the port trains the plain
 :class:`FinalBidirectionAttenfusion`, whatever ``train.folded_apply`` says.
 For the same reason it predicts with the plain network whatever
-``val.folded_predict`` says.  ``val.int8`` (the JAX package's quantized
-predict) raises: int8 serving is not ported yet.
+``val.folded_predict`` says.  ``val.int8`` (True or ``"scale0"``: dynamic
+activation scales, ``serve/quant.py``) predicts through the int8 forward,
+as the JAX task does, on frames whose sides are multiples of 8 (others run
+the float forward there too); ``"static"`` raises, since a task records no
+calibration (the JAX task fails there for want of one).
 """
 
 from __future__ import annotations
@@ -33,6 +36,8 @@ from refid_tpu_torch.core.device import resolve_device
 from refid_tpu_torch.core.registry import ARCHS, MODELS
 from refid_tpu_torch.models import archs as _archs  # noqa: F401 (registers archs)
 from refid_tpu_torch.models.convert import known_unused_keys, load_state
+from refid_tpu_torch.models.refid import int8_applicable
+from refid_tpu_torch.serve.quant import QuantState, WeightCache
 from refid_tpu_torch.train.losses import build_loss
 from refid_tpu_torch.train.trainer import Trainer
 
@@ -57,13 +62,22 @@ class RestorationTaskBase:
 
     def __init__(self, opt: dict, device="cuda"):
         self.opt = opt
-        if (opt.get("val") or {}).get("int8"):
-            raise NotImplementedError(
-                "val.int8 (int8 predict) is not ported yet: it comes with int8 "
-                "serving (ROADMAP queue 1, item 15)")
+        val = opt.get("val") or {}
+        self.int8 = val.get("int8", False)
+        if self.int8 not in (False, True, "scale0"):
+            raise ValueError(f"val.int8 must be False, True or 'scale0' (dynamic scales; "
+                             f"'static' requires calibration, which a task does not "
+                             f"record); got {self.int8!r}")
+        if self.int8 and val.get("folded_predict", True) is False:
+            raise ValueError("val.int8 requires the folded predict path "
+                             "(val.folded_predict: false given)")
+        self._int8_weights = WeightCache()
         self.device = resolve_device(device)
         self.is_train = opt.get("is_train", True)
         self.net = self._build_net().to(self.device)
+        if self.int8 and not int8_applicable(getattr(self.net, "cfg", None)):
+            raise ValueError("val.int8 requires the production architecture "
+                             "(aliased backward states, num_block=1, num_encoders >= 2)")
         self.trainer: Optional[Trainer] = None
         self.start_iter = 0
         self.start_epoch = 0
@@ -193,18 +207,22 @@ class RestorationTaskBase:
         from NHWC numpy ``lq (b, h, w, C)`` and ``voxel (b, t, h, w, 2)``:
         in eval mode under ``torch.inference_mode`` (the options' compute
         dtype), the training mode restored afterwards.  ``use_ema`` runs the
-        trainer's EMA weights when it keeps them."""
+        trainer's EMA weights when it keeps them; ``val.int8`` the int8
+        forward, where the frame's sides are multiples of 8."""
         lq_t, vox_t = (to_nchw(torch.from_numpy(np.ascontiguousarray(a, np.float32))
                                .to(self.device)) for a in (lq, voxel))
+        q = None
+        if self.int8 and lq_t.shape[-2] % 8 == 0 and lq_t.shape[-1] % 8 == 0:
+            q = QuantState(self.int8, self._int8_weights)
         tr = self.trainer
         training = self.net.training
         self.net.eval()
         try:
             with torch.inference_mode():
                 if use_ema and tr is not None and tr.ema is not None:
-                    out = torch.func.functional_call(self.net, tr.ema, (lq_t, vox_t))
+                    out = torch.func.functional_call(self.net, tr.ema, (lq_t, vox_t, q))
                 else:
-                    out = self.net(lq_t, vox_t)
+                    out = self.net(lq_t, vox_t, q)
         finally:
             self.net.train(training)
         return out.movedim(-3, -1)

@@ -321,3 +321,102 @@ def test_library_conv_int8_on_the_card_matches_the_cpu(cuda):
     xq, wq = bc.quantize(x, 0.05), bc.quantize(w, 0.01)
     got = bc.library_conv_int8(xq, wq)
     assert torch.equal(got.cpu(), bc.library_conv_int8(xq.cpu(), wq.cpu()))
+
+
+# --- int8 serving: csrc/conv_int8.cu ------------------------------------------
+
+def _act(seed, *shape, dtype=torch.float32):
+    """Activations with exact ties: a 1/8 grid, amax 127/8 (scale 1/8)."""
+    x = torch.round(_randn(seed, *shape, scale=40.0).clamp(-127, 127)) / 8
+    x.view(-1)[0] = 127 / 8
+    x.view(-1)[1::7] += 1 / 16       # x / scale lands on .5
+    return x.to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("scale", [None, 0.05, 1e-13], ids=["dynamic", "static", "tiny"])
+@pytest.mark.parametrize("shape", [(1, 24, 17, 19), (2, 64, 9, 40), (1, 256, 45, 80)])
+def test_quantize_int8_kernel_matches_plain(cuda, shape, scale, dtype):
+    from refid_tpu_torch.ops import int8_cuda
+    from refid_tpu_torch.serve import quant
+    x = _act(3, *shape, dtype=dtype).to(cuda)
+    before = int8_cuda.QUANTIZE_LAUNCHES
+    got, got_s = quant.quantize_int8(x, scale)
+    torch.cuda.synchronize()
+    assert int8_cuda.QUANTIZE_LAUNCHES == before + 1
+    want, want_s = quant.quantize_int8_reference(x, scale)
+    assert torch.equal(got_s, want_s) and torch.equal(got, want)
+
+
+# (n, cin, cout, h, w, k, stride, pad): toy widths (channels not a multiple
+# of 32, M not of 128), then production shapes (scale-2 trunk conv_in,
+# scale-1 down)
+CONV_INT8_SHAPES = [(1, 24, 16, 9, 13, 3, 1, 1), (2, 40, 136, 12, 20, 4, 2, 1),
+                    (1, 512, 256, 180, 320, 3, 1, 1), (1, 128, 128, 360, 640, 4, 2, 1)]
+
+
+@pytest.mark.parametrize("act", ["none", "relu", "leaky"])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("n,cin,cout,h,w,k,stride,pad", CONV_INT8_SHAPES)
+def test_conv_int8_kernel_matches_plain(cuda, n, cin, cout, h, w, k, stride, pad, out_dtype,
+                                        act):
+    from refid_tpu_torch.ops import int8_cuda
+    from refid_tpu_torch.serve import quant
+    x = _act(5, n, cin, h, w, dtype=torch.bfloat16).to(cuda)
+    weight = _randn(6, cout, cin, k, k, scale=1 / math.sqrt(cin * k * k)).to(cuda)
+    bias = None if act == "none" else _randn(7, cout, scale=0.1).to(cuda)
+    wp, wscale, b = quant.WeightCache().packed(weight, bias)
+    xq, s = quant.quantize_int8(x)
+    args = (xq, wp, wscale, s, b, stride, pad, 0.1 if act == "leaky" else None,
+            act == "relu", out_dtype)
+    before = int8_cuda.CONV_LAUNCHES
+    got = quant.conv_int8_packed(*args)
+    torch.cuda.synchronize()
+    assert int8_cuda.CONV_LAUNCHES == before + 1
+    want = quant.conv_int8_reference(*args)
+    assert got.dtype == out_dtype and torch.equal(got, want)
+
+
+def _int8_toy_pipeline(seed, int8, device):
+    from refid_tpu_torch import BlurVFIPipeline, RefidConfig
+    from refid_tpu_torch.models import FinalBidirectionAttenfusion
+    cfg = RefidConfig(img_chn=8, num_encoders=2, base_num_channels=8, num_residual_blocks=1)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        state = FinalBidirectionAttenfusion(cfg).state_dict()
+    return BlurVFIPipeline(state, cfg, m=2, n=1, int8=int8, device=device)
+
+
+@pytest.mark.parametrize("mode", [True, "scale0", "static"])
+def test_int8_pipeline_on_the_card_matches_the_cpu(cuda, mode):
+    """The toy int8 pipeline (tests/test_torch_quant.py's config) on the card
+    against its plain version on the CPU, TF32 off: at least 10 dB above the
+    card's own int8-vs-exact dB, every site in the CUDA kernels."""
+    from refid_tpu_torch.ops import int8_cuda
+
+    def parity_db(want, got):
+        span, rmse = want.max() - want.min(), np.sqrt(np.mean((want - got) ** 2))
+        return math.inf if rmse == 0 else 20 * math.log10(span / rmse)
+
+    rng = np.random.RandomState(17)
+    h = w = 32
+    b0, b1 = rng.rand(h, w, 3).astype(np.float32), rng.rand(h, w, 3).astype(np.float32)
+    ev = np.stack([np.sort(rng.rand(800)), rng.randint(0, w, 800), rng.randint(0, h, 800),
+                   rng.randint(0, 2, 800)], 1).astype(np.float32)
+    tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        card, cpu = _int8_toy_pipeline(0, mode, "cuda"), _int8_toy_pipeline(0, mode, "cpu")
+        exact = _int8_toy_pipeline(0, False, "cuda")(b0, b1, ev).cpu().numpy()
+        if mode == "static":
+            card.calibrate(b0, b1, ev)
+            cpu.calibrate(b0, b1, ev)
+            np.testing.assert_allclose(card._int8_raw_amax, cpu._int8_raw_amax, rtol=1e-5)
+        int8_cuda.reset_launches()
+        got = card(b0, b1, ev).cpu().numpy()
+        sites = int8_cuda.CONV_LAUNCHES
+        assert sites == int8_cuda.QUANTIZE_LAUNCHES == {True: 50, "scale0": 80, "static": 110}[mode]
+        want = cpu(b0, b1, ev).numpy()
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    assert parity_db(want, got) >= parity_db(exact, got) + 10.0

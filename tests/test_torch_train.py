@@ -286,11 +286,11 @@ def test_cli_trains_two_iterations_on_cpu(tmp_path, data_root):
 
 def test_cli_refuses_validation_and_defaults_to_the_card(tmp_path, data_root):
     """Validation runs (tests/test_torch_validate.py); the CLI refuses, before
-    any step, what it cannot validate: an int8 predict (not ported) and a
-    val dataset of no registered type."""
+    any step, what it cannot validate: a static int8 predict (no calibration)
+    and a val dataset of no registered type."""
     opt = _task_opt(tmp_path, data_root)
-    with pytest.raises(NotImplementedError, match="item 15"):
-        cli.train(dict(opt, val={"val_freq": 5, "int8": True}), device="cpu")
+    with pytest.raises(ValueError, match="calibrat"):
+        cli.train(dict(opt, val={"val_freq": 5, "int8": "static"}), device="cpu")
     with pytest.raises(KeyError):
         cli.train(dict(opt, datasets=dict(opt["datasets"], val={"type": "x"})),
                   device="cpu")

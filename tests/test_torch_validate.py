@@ -261,8 +261,15 @@ def test_predict_restores_the_mode_and_reads_the_ema(tmp_path, roots):
 
 
 def test_int8_predict_raises(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 15"):
-        build_task(_task_opt(tmp_path, int8=True), device="cpu")
+    """val.int8 True / "scale0" predict in int8 (tests/test_torch_quant.py);
+    "static" raises (a task records no calibration), as do other values and
+    int8 with the folded predict turned off, as in the JAX task."""
+    with pytest.raises(ValueError, match="calibrat"):
+        build_task(_task_opt(tmp_path, int8="static"), device="cpu")
+    with pytest.raises(ValueError, match="val.int8"):
+        build_task(_task_opt(tmp_path, int8="dynamic"), device="cpu")
+    with pytest.raises(ValueError, match="folded"):
+        build_task(_task_opt(tmp_path, int8=True, folded_predict=False), device="cpu")
 
 
 # --- the test CLI -------------------------------------------------------------------
