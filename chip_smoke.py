@@ -30,6 +30,14 @@ random weights:
   with 2**20 events in ``int8=True``, ``"scale0"`` and ``"static"``
   (calibrated on another window) under bf16 autocast, each against the
   float32 window;
+* single-image deblurring (K2, ``quantize_int8``, ``conv_int8``): the
+  full-width EVHINet card against CPU at 256x256, both int8 kernels against
+  their plain versions at EVHINet's 14 int8 site shapes, 1280x720 images
+  (6-bin voxels from K2) in float32, bf16, int8 ``True`` and ``"static"``
+  (each against float32, gated at 50 dB), then ``python -m
+  refid_tpu_torch.cli.test``'s entry on the synthetic tree's single-image
+  items (whole and tiled) and ``python -m refid_tpu_torch.cli.demo``'s
+  ``main`` on one frame;
 * the padded-capacity voxelizer entry (K1) at the serving shape;
 * the probes (P1-P4): ``python -m refid_tpu_torch.probes.band_conv``'s and
   ``python -m refid_tpu_torch.probes.poison``'s ``main`` at the serving
@@ -53,6 +61,7 @@ import numpy as np
 import torch
 
 from refid_tpu_torch import BlurVFIPipeline, RefidConfig
+from refid_tpu_torch.cli import demo as demo_cli
 from refid_tpu_torch.cli import test as test_cli
 from refid_tpu_torch.cli import train as train_cli
 from refid_tpu_torch.core.checkpoint import CheckpointManager
@@ -62,15 +71,17 @@ from refid_tpu_torch.data.img_util import imread, png_encode
 from refid_tpu_torch.eval.metrics import calculate_psnr, calculate_ssim
 from refid_tpu_torch.events import voxel_cuda
 from refid_tpu_torch.events.voxel import (
-    events_to_voxel_grid_padded, events_to_voxel_grid_reference, pad_events,
-    voxelize_padded_reference,
+    events_to_voxel_grid, events_to_voxel_grid_padded, events_to_voxel_grid_reference,
+    pad_events, voxel_norm_np, voxelize_padded_reference,
 )
-from refid_tpu_torch.models.convert import known_unused_keys
+from refid_tpu_torch.models.convert import known_unused_keys, load_state
+from refid_tpu_torch.models.evhinet import EVHINet
 from refid_tpu_torch.models.refid import FinalBidirectionAttenfusion
 from refid_tpu_torch.ops import build, int8_cuda, probe_cuda
 from refid_tpu_torch.probes import band_conv as probe_bc
 from refid_tpu_torch.probes import poison as probe_poison
 from refid_tpu_torch.serve import quant
+from refid_tpu_torch.tasks import build_task
 from refid_tpu_torch.tasks.base import to_nchw
 from refid_tpu_torch.train.losses import charbonnier_loss
 from refid_tpu_torch.train.trainer import Trainer
@@ -118,6 +129,27 @@ INT8_CONV_SHAPES = {
     "dec2_trunk_in": (64, 32, 720, 1280, 3, 1), "dec2_trunk": (32, 32, 720, 1280, 3, 1)}
 INT8_TIMED = ("scale1_trunk_in", "scale2_trunk_in")
 INT8_SITES = {True: 575, "scale0": 713, "static": 851}     # a t = 23 window
+# single-image deblurring: EVHINet at the width the repo defines, 6 voxel
+# bins, a request's events about ten 43690-event windows (the datasets'
+# +-5-frame window)
+EVHINET_NET = {"type": "SingleMultiConnectEVHINet", "in_chn": 3, "ev_chn": 6, "wf": 64,
+               "depth": 3, "fac_place": 2, "hin_position_left": 0, "hin_position_right": 4}
+EV_BINS = 6
+EV_EVENTS = 1 << 19
+EVHINET_IMAGES = 5                 # calibration, warm-up, 3 timed
+EVHINET_PARITY_CROP = 256
+EVHINET_CROP = 256                 # the tiled evaluation's crop_size
+EVHINET_SITES = 25
+# EVHINet's int8 sites at 1280x720 by distinct (Cin, Cout, H, W, kernel): stride
+# 1, padding kernel // 2, no fused activation (refid_tpu/serve/evhinet_fast.py)
+EVHINET_INT8_SHAPES = {
+    "full_3x3": (64, 64, 720, 1280, 3), "full_identity": (64, 64, 720, 1280, 1),
+    "full_merge": (64, 128, 720, 1280, 1), "upblk1_conv_1": (128, 64, 720, 1280, 3),
+    "upblk1_identity": (128, 64, 720, 1280, 1), "half_conv_1": (64, 128, 360, 640, 3),
+    "half_3x3": (128, 128, 360, 640, 3), "half_identity": (64, 128, 360, 640, 1),
+    "half_merge": (128, 256, 360, 640, 1), "upblk0_conv_1": (256, 128, 360, 640, 3),
+    "upblk0_identity": (256, 128, 360, 640, 1), "quarter_conv_1": (128, 256, 180, 320, 3),
+    "quarter_3x3": (256, 256, 180, 320, 3), "quarter_identity": (128, 256, 180, 320, 1)}
 
 
 def emit(phase, **fields):
@@ -719,6 +751,316 @@ def phase_int8_serve(requests):
     return launches, dbs, faults
 
 
+# --- single-image deblurring: EVHINet ---------------------------------------------
+
+def evhinet_task(state, device, compute_dtype="float32", **val):
+    """The single-image task (``TestImageEventRestorationModel``) with the
+    full-width EVHINet of EVHINET_NET and ``state`` loaded."""
+    task = build_task({"name": "chip_smoke_evhinet", "model_type": "TestImageEventRestorationModel",
+                       "is_train": False,
+                       "network_g": dict(EVHINET_NET, compute_dtype=compute_dtype),
+                       "val": val}, device)
+    load_state(task.net, state)
+    return task
+
+
+def evhinet_state(seed, filled):
+    """EVHINet weights: every parameter filled (``fill_random``), or the
+    network's own init, from ``seed``."""
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        net = EVHINet()
+    if filled:
+        fill_random(net, seed)
+    return net.state_dict()
+
+
+def evhinet_voxel(events, width, height, device="cuda"):
+    """A single-image item's voxel: ``EV_BINS`` bins ``HWC`` (K2 on the card),
+    then ``voxel_norm``, as the datasets and the demo build it."""
+    return voxel_norm_np(events_to_voxel_grid(events, EV_BINS, width, height, "HWC",
+                                              device=device))
+
+
+class RecordingQuant(quant.QuantState):
+    """A QuantState that records each site's (cin, cout, h, w, k)."""
+
+    def __init__(self, *args, **kw):
+        super().__init__(*args, **kw)
+        self.shapes = []
+
+    def conv(self, module, x, slope=None, relu=False, exact=None):
+        cout, cin, k, _ = module.weight.shape
+        self.shapes.append((cin, cout, x.shape[-2], x.shape[-1], k))
+        return super().conv(module, x, slope, relu, exact)
+
+
+def evhinet_forward(task, img, voxel, q):
+    """One image through the task's network with the quant state ``q`` (the
+    model's int8 entry; ``predict_tensor`` builds its own state)."""
+    lq, vox = (to_nchw(torch.from_numpy(a[None]).to(CUDA)) for a in (img, voxel))
+    with torch.inference_mode():
+        return task.net.eval()(lq, vox, q).movedim(-3, -1)[0]
+
+
+def phase_evhinet_parity(state):
+    """The full-width EVHINet through the single-image task on the card
+    against the CPU, f32 with TF32 off, at an EVHINET_PARITY_CROP crop."""
+    set_tf32(False)
+    rng = np.random.RandomState(7)
+    c = EVHINET_PARITY_CROP
+    img = rng.rand(c, c, 3).astype(np.float32)
+    vox = evhinet_voxel(random_events(rng, 1 << 16, c, c), c, c, device="cpu")
+    outs = {d: evhinet_task(state, d).predict_tensor(img[None], vox[None]).float().cpu()
+            for d in ("cuda", "cpu")}
+    got, want = outs["cuda"], outs["cpu"]
+    check(got.shape == (1, c, c, 3) and bool(torch.isfinite(got).all()),
+          f"evhinet parity output {tuple(got.shape)} or not finite")
+    db = parity_db(want, got)
+    emit("evhinet_parity", crop=[c, c], wf=EVHINET_NET["wf"], db=db, min_db=PARITY_DB,
+         max_abs_err=float((want - got).abs().max()))
+    check(db >= PARITY_DB, f"EVHINet card vs CPU {db:.1f} dB < {PARITY_DB}")
+
+
+def phase_evhinet_kernel_check():
+    """``quantize_int8`` (dynamic and static) and ``conv_int8`` (bias, bf16
+    out as under autocast; f32 out at the first shape) against their plain
+    versions, bit for bit, at each distinct EVHINet int8 site shape at
+    1280x720; then both kernels' times at the full-resolution 64 -> 64 3x3
+    site beside cuDNN's bf16 channels_last conv.  Returns the largest max
+    |diff| of each kernel."""
+    errs = {"quantize_int8": {}, "conv_int8": {}}
+
+    def held(kernel, name, got, want):
+        errs[kernel][name] = float((got.float() - want.float()).abs().max())
+        check(got.dtype == want.dtype and got.shape == want.shape and torch.equal(got, want),
+              f"evhinet {kernel} {name}: max|diff| {errs[kernel][name]} against plain")
+
+    for i, (name, (cin, cout, h, w, k)) in enumerate(EVHINET_INT8_SHAPES.items()):
+        gen = torch.Generator().manual_seed(40 + i)
+        x = torch.randn(1, cin, h, w, generator=gen)
+        x = torch.maximum(x, 0.2 * x).to(CUDA, torch.bfloat16)
+        weight = (torch.randn(cout, cin, k, k, generator=gen) / math.sqrt(cin * k * k)).to(CUDA)
+        bias = (0.1 * torch.randn(cout, generator=gen)).to(CUDA)
+        for scale in (None, 0.03):
+            key = name + ("" if scale is None else "_static")
+            got, want = quant.quantize_int8(x, scale), quant.quantize_int8_reference(x, scale)
+            held("quantize_int8", key, got[1], want[1])
+            held("quantize_int8", key, got[0], want[0])
+        wp, wscale, b = quant.WeightCache().packed(weight, bias)
+        xq, xs = want
+        for out_dtype in (torch.bfloat16, torch.float32) if i == 0 else (torch.bfloat16,):
+            args = (xq, wp, wscale, xs, b, 1, k // 2, None, False, out_dtype)
+            got = quant.conv_int8_packed(*args)
+            torch.cuda.synchronize()
+            held("conv_int8", name + ("_f32" if out_dtype == torch.float32 else ""), got,
+                 quant.conv_int8_reference(*args))
+        if i == 0:
+            timing = evhinet_int8_timing(x, weight, bias, wp, wscale, b, xq, xs, k)
+        del x, weight, bias, wp, xq, got, want
+    emit("evhinet_kernel_check", shapes={k: list(v) for k, v in EVHINET_INT8_SHAPES.items()},
+         max_abs_err=errs, tol="bit-exact", timed=next(iter(EVHINET_INT8_SHAPES)), **timing)
+    return {k: max(v.values()) for k, v in errs.items()}
+
+
+def evhinet_int8_timing(x, weight, bias, wp, wscale, b, xq, xs, k):
+    """Both kernels at one EVHINet site: CUDA events per call, the bound and
+    cuDNN's bf16 channels_last conv with the same bias."""
+    _, cin, h, w = x.shape
+    cout = weight.shape[0]
+    x_cl = x.contiguous(memory_format=torch.channels_last)
+    w_cl = weight.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    b16 = bias.to(torch.bfloat16)
+    ops = 2 * h * w * cout * cin * k * k
+    conv_bytes = h * w * quant.padded_channels(cin) + wp.numel() + h * w * cout * 2
+    q_bytes = x.numel() * 2 + xq.numel()
+    conv = {"ms": time_ms(lambda: quant.conv_int8_packed(xq, wp, wscale, xs, b, 1, k // 2,
+                                                         None, False, torch.bfloat16),
+                          30, CUDA),
+            "library_ms": time_ms(lambda: torch.nn.functional.conv2d(x_cl, w_cl, b16,
+                                                                     padding=k // 2), 30, CUDA),
+            "ops": ops, **bound(conv_bytes, ops, INT8_OPS_PER_S)}
+    q = {"ms": time_ms(lambda: quant.quantize_int8(x), 30, CUDA), "bytes": q_bytes,
+         **bound(q_bytes, 0, F32_OPS_PER_S)}
+    for t in (conv, q):
+        t["bound_share"] = t["bound_ms"] / t["ms"]
+    conv["tera_ops_per_s"] = ops / conv["ms"] / 1e9
+    return {"conv_int8_timing": conv, "quantize_int8_timing": q}
+
+
+def phase_evhinet_serve(requests):
+    """1280x720 single images (``EV_BINS``-bin voxels from K2) through the
+    full-width EVHINet with the network's own init (seed 0): float32 (TF32
+    off), bf16 autocast, int8 ``True`` (dynamic, the task's ``val.int8``)
+    and ``"static"`` (calibrated on ``requests[0]``), each on ``requests[1:]``
+    (1 warm-up, then timed, the host clock around a synchronised call), dB
+    against the float32 image, peak memory, the bf16 image's device time by
+    kernel and the int8 kernels' share of a profiled image.  Returns the int8 kernels' launches over the path, each
+    mode's dB and the int8 modes below PRODUCTION_DB_GATE."""
+    state = evhinet_state(0, filled=False)
+    set_tf32(False)
+    voxel_cuda.reset_grid_stats()                  # the EVHINet serving path starts here
+    int8_cuda.reset_launches()
+    requests = [(img, evhinet_voxel(ev, WIDTH, HEIGHT)) for img, ev in requests]
+    outs, dbs, rows, shapes = {}, {}, {}, None
+    conv_flops = None
+    for mode in ("f32", "bf16", True, "static"):
+        task = evhinet_task(state, "cuda", "float32" if mode == "f32" else "bfloat16",
+                            **({"int8": True} if mode is True else {}))
+        q_static = None
+        if mode == "static":
+            rec = RecordingQuant("calib", task._int8_weights)
+            evhinet_forward(task, *requests[0], rec)
+            shapes = rec.shapes
+            amax, _ = quant.calibration_stats(rec)
+            q_static = lambda: quant.QuantState("static", task._int8_weights, amax)
+
+        def run(request):
+            if q_static is None:
+                return task.predict_tensor(request[0][None], request[1][None])[0]
+            return evhinet_forward(task, *request, q_static())
+
+        if mode == "f32":
+            _, conv_flops = count_conv_flops(task.net, lambda: run(requests[-1]))
+        torch.cuda.reset_peak_memory_stats()
+        before = int8_cuda.CONV_LAUNCHES, int8_cuda.QUANTIZE_LAUNCHES
+        times = []
+        for i, request in enumerate(requests[1:]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = run(request)
+            torch.cuda.synchronize()
+            if i > 0:
+                times.append((time.perf_counter() - t0) * 1e3)
+        check(out.shape == (HEIGHT, WIDTH, 3) and bool(torch.isfinite(out).all()),
+              f"evhinet {mode}: output {tuple(out.shape)} or not finite")
+        outs[mode] = out.float().cpu()
+        ms = sum(times) / len(times)
+        row = {"ms_per_image": times, "mean_ms_per_image": ms,
+               "images_per_s": 1e3 / ms, "conv_tflops_per_s": conv_flops / ms / 1e9,
+               "max_memory_allocated": torch.cuda.max_memory_allocated(),
+               "conv_launches": int8_cuda.CONV_LAUNCHES - before[0],
+               "quantize_launches": int8_cuda.QUANTIZE_LAUNCHES - before[1]}
+        if mode == "bf16":
+            profile_window("evhinet_profile", lambda: run(requests[-1]), ms)
+        if mode in (True, "static"):
+            check(row["conv_launches"] == row["quantize_launches"]
+                  == EVHINET_SITES * (len(requests) - 1),
+                  f"evhinet int8={mode}: {row['conv_launches']} convs for "
+                  f"{len(requests) - 1} images of {EVHINET_SITES} sites")
+            mine, busy = int8_share(lambda: run(requests[-1]))
+            int8_ms = sum(v[0] for v in mine.values())
+            row.update(profiled_device_busy_ms=busy, int8_device_ms=int8_ms,
+                       int8_share=int8_ms / busy,
+                       int8_kernels={k: {"ms": v[0], "launches": v[1]} for k, v in mine.items()})
+        rows[str(mode)] = row
+        del task
+    for mode in ("bf16", True, "static"):
+        dbs[str(mode)] = parity_db(outs["f32"], outs[mode])
+    int8_ops = sum(2 * h * w * cin * cout * k * k for cin, cout, h, w, k in shapes)
+    launches = {"quantize_int8": int8_cuda.QUANTIZE_LAUNCHES,   # ... and ends here
+                "conv_int8": int8_cuda.CONV_LAUNCHES}
+    k2 = voxel_cuda.GRID_LAUNCHES
+    emit("evhinet_serve", weights="module init, seed 0", frame=[HEIGHT, WIDTH], bins=EV_BINS,
+         wf=EVHINET_NET["wf"], images_timed=len(requests) - 2, modes=rows, db_vs_f32=dbs,
+         db_gate=quant.PRODUCTION_DB_GATE, conv_flops=conv_flops, int8_sites=len(shapes),
+         int8_site_ops=int8_ops, voxel_grid_launches=k2, launches=launches)
+    check(len(shapes) == EVHINET_SITES and set(shapes) == set(EVHINET_INT8_SHAPES.values()),
+          f"evhinet int8 sites {shapes}")
+    check(k2 == len(requests), f"evhinet serving: K2 launched {k2} times for {len(requests)}")
+    expected = 2 * EVHINET_SITES * len(requests)     # both modes: served and profiled images
+    check(all(v == expected for v in launches.values()),
+          f"evhinet int8 path launches {launches}, expected {expected} each")
+    low = [m for m in ("True", "static") if dbs[m] < quant.PRODUCTION_DB_GATE]
+    return launches, k2, dbs, low
+
+
+def write_single_image_options(work, data_root, weights, crop):
+    """A test option file for the single-image task on the synthetic tree
+    (its four blurred frames), EVHINet at full width, ``crop`` tiles or
+    whole frames; images saved when untiled."""
+    import yaml
+
+    opt = {"name": f"chip_smoke_evhinet_{crop or 'full'}",
+           "model_type": "TestImageEventRestorationModel",
+           "network_g": dict(EVHINET_NET),
+           "path": {"pretrain_network_g": weights},
+           "val": {"save_img": crop is None, "crop_size": crop, "max_minibatch": 2,
+                   "metrics": {"psnr": {"type": "calculate_psnr", "crop_border": 0,
+                                        "test_y_channel": False},
+                               "ssim": {"type": "calculate_ssim", "crop_border": 0,
+                                        "test_y_channel": False}}},
+           "datasets": {"test": {"name": "synth", "type": "GoProSingleImageEventDataset",
+                                 "dataroot": data_root, "num_bins": EV_BINS}}}
+    path = os.path.join(work, f"{opt['name']}.yml")
+    with open(path, "w") as f:
+        yaml.safe_dump(opt, f)
+    return path, opt["name"]
+
+
+def phase_evhinet_eval(data_root, work, state):
+    """``cli.test`` (``run``) on the synthetic tree's single-image items,
+    untiled with its images saved and in EVHINET_CROP tiles, then
+    ``cli.demo`` on one blurred frame and one event window.  Returns K2's
+    launches."""
+    import yaml
+
+    weights = os.path.join(work, "evhinet.pth")
+    torch.save({"params": state}, weights)
+    set_tf32(True)      # PyTorch's defaults
+    torch.backends.cuda.matmul.allow_tf32 = False
+    total = 0
+    for crop in (None, EVHINET_CROP):
+        path, name = write_single_image_options(work, data_root, weights, crop)
+        voxel_cuda.reset_grid_stats()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        task = test_cli.run(["-opt", path, "--root", work])
+        seconds = time.perf_counter() - t0
+        results, timing = task.results["synth"], task.test_timing["synth"]
+        items, launches = timing["items"], voxel_cuda.GRID_LAUNCHES
+        saved = sum(len(files) for _, _, files in os.walk(
+            os.path.join(work, "results", name, "visualization")))
+        emit("evhinet_eval", crop_size=crop, frame=[HEIGHT, WIDTH], items=items,
+             results=results, predict_ms_per_item=timing["predict_ms"] / max(items, 1),
+             metric_ms_per_item=timing["metric_ms"] / max(items, 1),
+             save_ms_per_item=timing["save_ms"] / max(items, 1), images_saved=saved,
+             max_memory_allocated=torch.cuda.max_memory_allocated(),
+             voxel_grid_launches=launches, seconds=seconds)
+        check(items == 4 and all(math.isfinite(results.get(k, math.nan))
+                                 for k in ("psnr", "ssim")),
+              f"evhinet eval results {results} over {items} items")
+        check(launches == items, f"evhinet eval: K2 launched {launches} times for {items} items")
+        check(saved == (items if crop is None else 0), f"evhinet eval saved {saved} images")
+        total += launches
+        del task
+
+    out = os.path.join(work, "demo.png")
+    demo_opt = {"name": "chip_smoke_demo", "model_type": "ImageEventRestorationModel",
+                "network_g": dict(EVHINET_NET), "val": {},
+                "path": {"pretrain_network_g": weights},
+                "img_path": {"input_img": os.path.join(data_root, "train", "SYNTH", "blur",
+                                                       "000002.png"),
+                             "input_events": os.path.join(data_root, "train_event", "SYNTH",
+                                                          "000020.npz"),
+                             "output_img": out}}
+    path = os.path.join(work, "demo.yml")
+    with open(path, "w") as f:
+        yaml.safe_dump(demo_opt, f)
+    voxel_cuda.reset_grid_stats()
+    t0 = time.perf_counter()
+    task = demo_cli.main(["-opt", path, "--root", work])
+    seconds = time.perf_counter() - t0
+    written = imread(out, float32=False, rgb=False)
+    emit("evhinet_demo", frame=[HEIGHT, WIDTH], seconds=seconds, output=list(written.shape),
+         voxel_grid_launches=voxel_cuda.GRID_LAUNCHES)
+    check(written.shape == (HEIGHT, WIDTH, 3) and tuple(task.demo_output.shape)
+          == (HEIGHT, WIDTH, 3) and bool(torch.isfinite(task.demo_output).all()),
+          f"demo wrote {written.shape}")
+    check(voxel_cuda.GRID_LAUNCHES == 1, f"demo: K2 launched {voxel_cuda.GRID_LAUNCHES} times")
+    return total + voxel_cuda.GRID_LAUNCHES
+
+
 def write_gopro_tree(root, seed=0, num_blur=4, num_gt=48, num_windows=47,
                      events_per_window=FULL_EVENTS // BINS):
     """A GoPro-layout tree at 1280x720, one video: ``num_blur`` blur frames,
@@ -1202,6 +1544,17 @@ def main():
          seconds=time.perf_counter() - t0)
     check(min(int8_launches.values()) > 0, f"an int8 kernel was not launched: {int8_launches}")
     del requests
+
+    t0 = time.perf_counter()
+    evhinet_errs = phase_evhinet_kernel_check()
+    phase_evhinet_parity(evhinet_state(1, filled=True))
+    rng = np.random.RandomState(8)
+    ev_requests = [(rng.rand(HEIGHT, WIDTH, 3).astype(np.float32),
+                    random_events(rng, EV_EVENTS, WIDTH, HEIGHT)) for _ in range(EVHINET_IMAGES)]
+    evhinet_launches, serve_k2, evhinet_db, evhinet_low = phase_evhinet_serve(ev_requests)
+    emit("evhinet_path", launches=evhinet_launches, voxel_grid_launches=serve_k2,
+         db_vs_f32=evhinet_db, seconds=time.perf_counter() - t0)
+    del ev_requests
     launches += phase_voxel_grid_padded()        # K1's other entry, its own path
 
     phase_train_parity(state)
@@ -1226,6 +1579,11 @@ def main():
         del task, batch
         phase_metric_parity(data_root)
         grid_launches += phase_eval(data_root, work, state)   # the eval path
+        t0 = time.perf_counter()
+        evhinet_k2 = phase_evhinet_eval(data_root, work, evhinet_state(1, filled=True))
+        emit("evhinet_eval_path", voxel_grid_launches=evhinet_k2,
+             seconds=time.perf_counter() - t0)
+        grid_launches += serve_k2 + evhinet_k2
 
     t0 = time.perf_counter()
     probe_errs, p1, p2, p3_plain_ms, p4_plain_ms, device_ms = phase_probe_kernel_check()
@@ -1248,6 +1606,8 @@ def main():
     # checked last, so that the other phases still report: an int8 mode more
     # than 3 dB below the bf16 window is a fault, not a figure
     check(not int8_faults, f"int8 modes {int8_faults} more than 3 dB below bf16: {int8_db}")
+    check(not evhinet_low, f"EVHINet int8 modes {evhinet_low} below the "
+          f"{quant.PRODUCTION_DB_GATE} dB gate: {evhinet_db}")
     print(smi, flush=True)
     print(json.dumps({"kernels": [{
         "name": "voxelize", "route": "cuda",
@@ -1281,12 +1641,14 @@ def main():
         "name": "quantize_int8", "route": "cuda",
         "source": "refid_tpu_torch/csrc/conv_int8.cu",
         "replaces": "refid_tpu/serve/quant.py:147",
-        "launches": int8_launches["quantize_int8"], "max_abs_err": int8_errs["quantize_int8"],
+        "launches": int8_launches["quantize_int8"] + evhinet_launches["quantize_int8"],
+        "max_abs_err": max(int8_errs["quantize_int8"], evhinet_errs["quantize_int8"]),
         **int8_timing["quantize_int8"]}, {
         "name": "conv_int8", "route": "cuda",
         "source": "refid_tpu_torch/csrc/conv_int8.cu",
         "replaces": "refid_tpu/serve/quant.py:147",
-        "launches": int8_launches["conv_int8"], "max_abs_err": int8_errs["conv_int8"],
+        "launches": int8_launches["conv_int8"] + evhinet_launches["conv_int8"],
+        "max_abs_err": max(int8_errs["conv_int8"], evhinet_errs["conv_int8"]),
         **int8_timing["conv_int8"]}]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}),

@@ -7,6 +7,7 @@ from __future__ import annotations
 
 import datetime
 import logging
+import os
 import time
 from typing import Optional
 
@@ -17,20 +18,24 @@ _initialized = set()
 
 def get_root_logger(name: str = "refid_tpu_torch", log_level=logging.INFO,
                     log_file: Optional[str] = None) -> logging.Logger:
+    """The package's logger: a stream handler and the level on the first
+    call, and a file handler for each ``log_file`` not yet attached (a CLI
+    that runs after another in the same process still gets its log)."""
     logger = logging.getLogger(name)
-    if name in _initialized:
-        return logger
-    fmt = "%(asctime)s %(levelname)s: %(message)s"
-    sh = logging.StreamHandler()
-    sh.setFormatter(logging.Formatter(fmt))
-    logger.addHandler(sh)
-    logger.setLevel(log_level)
-    logger.propagate = False
-    if log_file:
+    fmt = logging.Formatter("%(asctime)s %(levelname)s: %(message)s")
+    if name not in _initialized:
+        sh = logging.StreamHandler()
+        sh.setFormatter(fmt)
+        logger.addHandler(sh)
+        logger.setLevel(log_level)
+        logger.propagate = False
+        _initialized.add(name)
+    if log_file and not any(isinstance(h, logging.FileHandler)
+                            and h.baseFilename == os.path.abspath(log_file)
+                            for h in logger.handlers):
         fh = logging.FileHandler(log_file, "a")
-        fh.setFormatter(logging.Formatter(fmt))
+        fh.setFormatter(fmt)
         logger.addHandler(fh)
-    _initialized.add(name)
     return logger
 
 

@@ -12,20 +12,30 @@ leaves and raises if any leaf has no counterpart.  The port keys it leaves
 unfilled are upstream's known-unused parameters (``convert.py``'s list):
 EGACA's ``se_2`` and the bypassed ``conv`` of attention-fused encoder
 stages; :func:`load_state` accepts exactly those as missing.
+
+:func:`evhinet_state_dict_from_jax` is the exact inverse of
+``convert_evhinet_state_dict`` for EVHINet.  An upstream EVHINet checkpoint
+(recognised by its ``conv_ev1.`` keys) also carries the stage-2 modules that
+upstream builds and never runs; :func:`load_state` ignores keys outside the
+port's EVHINet, naming them in the log, as the JAX converter reads only the
+stage-1 keys.
 """
 
 from __future__ import annotations
 
+import logging
 from typing import Dict, Mapping
 
 import numpy as np
 import torch
 import torch.nn as nn
 
+from refid_tpu_torch.models.evhinet import EVHINet
 from refid_tpu_torch.models.recurrent import RecurrentEncoderStage
 from refid_tpu_torch.models.refid import RefidConfig
 
-__all__ = ["state_dict_from_jax", "known_unused_keys", "load_state"]
+__all__ = ["state_dict_from_jax", "evhinet_state_dict_from_jax", "known_unused_keys",
+           "load_state"]
 
 _ATTEN_CONVS = ("conv1", "conv2", "conv1_e", "conv2_e", "conv3", "conv4",
                 "conv5", "conv_y_side")
@@ -132,6 +142,46 @@ def state_dict_from_jax(params: Mapping, cfg: RefidConfig) -> Dict[str, torch.Te
     return dst
 
 
+def _hin_block(dst, src, t, f):
+    """EVHINet's HIN / event block: conv1/conv2/identity -> conv_1/conv_2/
+    identity, hin_scale/hin_bias -> norm, merge -> conv_before_merge and
+    down -> downsample where the block has them."""
+    for tn, fn in (("conv_1", "conv1"), ("conv_2", "conv2"), ("identity", "identity")):
+        _conv(dst, src, f"{t}{tn}.", f"{f}{fn}/")
+    if f + "hin_scale" in src:
+        dst[t + "norm.weight"] = _tensor(src.pop(f + "hin_scale"))
+        dst[t + "norm.bias"] = _tensor(src.pop(f + "hin_bias"))
+    if f + "merge/kernel" in src:
+        _conv(dst, src, t + "conv_before_merge.", f + "merge/")
+    if f + "down/kernel" in src:
+        _conv(dst, src, t + "downsample.", f + "down/", bias=False)
+
+
+def evhinet_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """The JAX package's ``EVHINet`` params -> the port's state_dict
+    (upstream names); the geometry is read off the tree's keys."""
+    src = flatten_params(params)
+    dst: Dict[str, torch.Tensor] = {}
+    for name in ("conv_ev1", "conv_01"):
+        _conv(dst, src, f"{name}.", f"{name}/")
+    for prefix, tname in (("ev_", "down_path_ev"), ("down_", "down_path_1")):
+        i = 0
+        while f"{prefix}{i}/conv1/kernel" in src:
+            _hin_block(dst, src, f"{tname}.{i}.", f"{prefix}{i}/")
+            i += 1
+    idx = 0
+    while f"up_{idx}/kernel" in src:
+        _conv(dst, src, f"up_path_1.{idx}.up.", f"up_{idx}/")
+        _hin_block(dst, src, f"up_path_1.{idx}.conv_block.", f"upblk_{idx}/")
+        _conv(dst, src, f"skip_conv_1.{idx}.", f"skip_{idx}/")
+        idx += 1
+    for c in ("conv1", "conv2", "conv3"):
+        _conv(dst, src, f"sam12.{c}.", f"sam12/{c}/")
+    if src:
+        raise KeyError(f"JAX params with no port counterpart: {sorted(src)}")
+    return dst
+
+
 def known_unused_keys(model: nn.Module) -> set:
     """State_dict keys of ``model`` that its forward never reads: EGACA's
     ``se_2`` and the bypassed ``conv`` of attention-fused stages."""
@@ -147,9 +197,20 @@ def known_unused_keys(model: nn.Module) -> set:
 
 def load_state(model: nn.Module, state_dict: Mapping[str, torch.Tensor]) -> None:
     """Load ``state_dict`` into ``model``; only known-unused keys may be
-    missing, and no key may be unexpected."""
+    missing.  No key may be unexpected, except in an EVHINet checkpoint
+    (``conv_ev1.`` keys), whose keys outside the port's EVHINet (upstream's
+    stage-2 modules) are ignored and named in the log."""
+    is_evhinet = any(k.startswith("conv_ev1.") for k in state_dict)
+    if is_evhinet != isinstance(model, EVHINet):
+        raise ValueError(f"{'an' if is_evhinet else 'no'} EVHINet checkpoint (conv_ev1.* "
+                         f"keys) for a {type(model).__name__} network")
     missing, unexpected = model.load_state_dict(state_dict, strict=False)
     missing = set(missing) - known_unused_keys(model)
+    if is_evhinet and unexpected and not missing:
+        logging.getLogger("refid_tpu_torch").info(
+            "EVHINet checkpoint: ignored %d keys outside the stage-1 network: %s",
+            len(unexpected), sorted(unexpected))
+        unexpected = []
     if missing or unexpected:
         raise KeyError(f"state_dict mismatch: missing {sorted(missing)}, "
                        f"unexpected {sorted(unexpected)}")

@@ -22,6 +22,9 @@ tensor they run their plain versions, :func:`quantize_int8_reference` and
 :func:`conv_int8_reference`, which compute the same function on the same
 layouts.
 
+EVHINet serves in int8 too (``models/evhinet.py``: 25 sites, modes True,
+``"calib"`` and ``"static"``), where :func:`evhinet_int8_applicable` holds.
+
 The per-call quant state :class:`QuantState` carries the mode, as the JAX
 package's ``cache`` dict does: ``int8`` True (dynamic scales), ``"scale0"``
 (True plus the scale-0 encoder trunks), ``"static"`` (calibrated scales for
@@ -38,11 +41,14 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from refid_tpu_torch.models.evhinet import evhinet_int8_applicable
+
 __all__ = ["K_DEPTH", "PRODUCTION_SHAPE_DB", "PRODUCTION_DB_GATE", "PRODUCTION_DB_CARD",
-           "INT8_MODES", "int8_quality_gated", "padded_channels", "quantize_kernel",
-           "pack_kernel", "quantize_act", "static_scale", "quantize_int8",
-           "quantize_int8_reference", "conv_int8_packed", "conv_int8_reference",
-           "conv_int8", "WeightCache", "QuantState", "calibration_stats"]
+           "EVHINET_PRODUCTION_SHAPE_DB", "evhinet_int8_applicable", "INT8_MODES",
+           "int8_quality_gated", "padded_channels", "quantize_kernel", "pack_kernel",
+           "quantize_act", "static_scale", "quantize_int8", "quantize_int8_reference",
+           "conv_int8_packed", "conv_int8_reference", "conv_int8", "WeightCache",
+           "QuantState", "calibration_stats"]
 
 K_DEPTH = 32          # int8 channels per MMA step: channels pad to a multiple
 INT8_MODES = (False, True, "scale0", "static")
@@ -60,6 +66,17 @@ PRODUCTION_SHAPE_DB: Dict[Union[bool, str], float] = {
     True: 63.87,
     "scale0": 63.86,
     "static": 64.07,
+}
+
+# The JAX package's own record for EVHINet (refid_tpu/serve/quant.py
+# ``EVHINET_PRODUCTION_SHAPE_DB``: its folded serving forward on its TPU,
+# 720p single image, 25 calibrated sites; PSNR vs its f32 forward), copied
+# as it stands.  It is not a measurement of the port: the port's card
+# figures are in PERF.md (chip_smoke.py, phase evhinet_serve).
+EVHINET_PRODUCTION_SHAPE_DB: Dict[Union[bool, str], float] = {
+    False: 73.93,
+    True: 60.36,
+    "static": 59.77,
 }
 
 # An int8 mode is quality-gated in when its production-shape dB clears this

@@ -20,7 +20,10 @@ For the same reason it predicts with the plain network whatever
 activation scales, ``serve/quant.py``) predicts through the int8 forward,
 as the JAX task does, on frames whose sides are multiples of 8 (others run
 the float forward there too); ``"static"`` raises, since a task records no
-calibration (the JAX task fails there for want of one).
+calibration (the JAX task fails there for want of one).  For EVHINet
+(``SingleMultiConnectEVHINet``) a truthy ``val.int8`` means dynamic scales, as
+the JAX task's ``int8=bool(int8)``, on frames whose sides are multiples of 4;
+its batches are ``lq (b, h, w, 3)`` and ``voxel (b, h, w, bins)``.
 """
 
 from __future__ import annotations
@@ -34,27 +37,36 @@ import torch
 from refid_tpu_torch.core.checkpoint import CheckpointManager
 from refid_tpu_torch.core.device import resolve_device
 from refid_tpu_torch.core.registry import ARCHS, MODELS
+from refid_tpu_torch.eval import metrics as metric_module
 from refid_tpu_torch.models import archs as _archs  # noqa: F401 (registers archs)
 from refid_tpu_torch.models.convert import known_unused_keys, load_state
+from refid_tpu_torch.models.evhinet import evhinet_int8_applicable
 from refid_tpu_torch.models.refid import int8_applicable
 from refid_tpu_torch.serve.quant import QuantState, WeightCache
 from refid_tpu_torch.train.losses import build_loss
 from refid_tpu_torch.train.trainer import Trainer
 
-__all__ = ["RestorationTaskBase", "build_task", "to_nchw"]
+__all__ = ["RestorationTaskBase", "build_task", "to_nchw", "compute_metric"]
 
 _DEFAULT_LOSS = {"type": "CharbonnierLoss", "loss_weight": 1.0,
                  "reduction": "mean"}
 
 
 def build_task(opt: dict, device="cuda"):
-    from refid_tpu_torch.tasks import recurrent  # noqa: F401 (registers tasks)
+    from refid_tpu_torch.tasks import recurrent, single  # noqa: F401 (registers tasks)
     return MODELS.get(opt["model_type"])(opt, device)
 
 
 def to_nchw(x: torch.Tensor) -> torch.Tensor:
     """Channels from the last axis to the third from last."""
     return x.movedim(-1, -3).contiguous()
+
+
+def compute_metric(metric_opt: dict, sr_img, gt_img) -> float:
+    """One ``val.metrics`` entry (``{"type": name, **kwargs}``) of
+    ``eval/metrics.py`` on two uint8 images."""
+    opt = dict(metric_opt)
+    return getattr(metric_module, opt.pop("type"))(sr_img, gt_img, **opt)
 
 
 class RestorationTaskBase:
@@ -64,7 +76,12 @@ class RestorationTaskBase:
         self.opt = opt
         val = opt.get("val") or {}
         self.int8 = val.get("int8", False)
-        if self.int8 not in (False, True, "scale0"):
+        is_evhinet = opt["network_g"]["type"] == "SingleMultiConnectEVHINet"
+        if is_evhinet:
+            # the JAX task serves EVHINet with int8=bool(val.int8): any truthy
+            # value means dynamic scales
+            self.int8 = bool(self.int8)
+        elif self.int8 not in (False, True, "scale0"):
             raise ValueError(f"val.int8 must be False, True or 'scale0' (dynamic scales; "
                              f"'static' requires calibration, which a task does not "
                              f"record); got {self.int8!r}")
@@ -72,10 +89,17 @@ class RestorationTaskBase:
             raise ValueError("val.int8 requires the folded predict path "
                              "(val.folded_predict: false given)")
         self._int8_weights = WeightCache()
+        # int8 predicts where both frame sides are multiples of this (the JAX
+        # task's folded predict paths), the float forward elsewhere
+        self._int8_multiple = 4 if is_evhinet else 8
         self.device = resolve_device(device)
         self.is_train = opt.get("is_train", True)
         self.net = self._build_net().to(self.device)
-        if self.int8 and not int8_applicable(getattr(self.net, "cfg", None)):
+        if is_evhinet and self.int8 and not evhinet_int8_applicable(self.net):
+            raise ValueError("val.int8 requires the EVHINet geometry of the JAX serving "
+                             "forward (depth 3, fac_place 2)")
+        if not is_evhinet and self.int8 and not int8_applicable(
+                getattr(self.net, "cfg", None)):
             raise ValueError("val.int8 requires the production architecture "
                              "(aliased backward states, num_block=1, num_encoders >= 2)")
         self.trainer: Optional[Trainer] = None
@@ -203,16 +227,19 @@ class RestorationTaskBase:
 
     def predict_tensor(self, lq: np.ndarray, voxel: np.ndarray,
                        use_ema: bool = False) -> torch.Tensor:
-        """The network's frames on the task's device, ``(b, t_out, h, w, 3)``,
-        from NHWC numpy ``lq (b, h, w, C)`` and ``voxel (b, t, h, w, 2)``:
-        in eval mode under ``torch.inference_mode`` (the options' compute
-        dtype), the training mode restored afterwards.  ``use_ema`` runs the
-        trainer's EMA weights when it keeps them; ``val.int8`` the int8
-        forward, where the frame's sides are multiples of 8."""
+        """The network's output on the task's device, NHWC: ``(b, t_out, h,
+        w, 3)`` for the recurrent networks, ``(b, h, w, 3)`` for EVHINet; from
+        NHWC numpy ``lq (b, h, w, C)`` and ``voxel (b, t, h, w, 2)`` (or the
+        single-image ``(b, h, w, bins)``): in eval mode under
+        ``torch.inference_mode`` (the options' compute dtype), the training
+        mode restored afterwards.  ``use_ema`` runs the trainer's EMA weights
+        when it keeps them; ``val.int8`` the int8 forward, where the frame's
+        sides are multiples of 8 (EVHINet: 4)."""
         lq_t, vox_t = (to_nchw(torch.from_numpy(np.ascontiguousarray(a, np.float32))
                                .to(self.device)) for a in (lq, voxel))
         q = None
-        if self.int8 and lq_t.shape[-2] % 8 == 0 and lq_t.shape[-1] % 8 == 0:
+        k = self._int8_multiple
+        if self.int8 and lq_t.shape[-2] % k == 0 and lq_t.shape[-1] % k == 0:
             q = QuantState(self.int8, self._int8_weights)
         tr = self.trainer
         training = self.net.training
@@ -229,8 +256,12 @@ class RestorationTaskBase:
 
     def predict(self, lq: np.ndarray, voxel: np.ndarray,
                 use_ema: bool = False) -> np.ndarray:
-        """:meth:`predict_tensor` as NHWC numpy ``(b, t_out, h, w, 3)``."""
+        """:meth:`predict_tensor` as NHWC numpy."""
         return self.predict_tensor(lq, voxel, use_ema).cpu().numpy()
+
+    def _sync(self):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
 
     def current_lr(self) -> float:
         return self.trainer.current_lr() if self.trainer else 0.0

@@ -27,18 +27,11 @@ import torch
 
 from refid_tpu_torch.core.registry import MODELS
 from refid_tpu_torch.data.img_util import imwrite, tensor2img
-from refid_tpu_torch.eval import metrics as metric_module
 from refid_tpu_torch.eval.tiling import tiled_apply
-from refid_tpu_torch.tasks.base import RestorationTaskBase
+from refid_tpu_torch.tasks.base import RestorationTaskBase, compute_metric
 
 __all__ = ["TwoImageEventRecurrentRestorationTask",
            "TwoSharpImageEventRecurrentRestorationTask"]
-
-
-def _metric(name_opt: dict, sr_img, gt_img) -> float:
-    opt = dict(name_opt)
-    metric_type = opt.pop("type")
-    return getattr(metric_module, metric_type)(sr_img, gt_img, **opt)
 
 
 class _RecurrentTaskBase(RestorationTaskBase):
@@ -47,10 +40,6 @@ class _RecurrentTaskBase(RestorationTaskBase):
     def _mn(self, dataset_opt: dict):
         return (dataset_opt["num_end_interpolation"],
                 dataset_opt["num_inter_interpolation"])
-
-    def _sync(self):
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
 
     def validate(self, loader, dataset_opt: dict, current_iter: int = 0,
                  save_img: bool = False, logger=None,
@@ -114,7 +103,7 @@ class _RecurrentTaskBase(RestorationTaskBase):
                 else:
                     n_deblur_frames += 1
                 for mname, mopt in opts.items():
-                    bucket[mname] += _metric(mopt, sr_img, gt_img)
+                    bucket[mname] += compute_metric(mopt, sr_img, gt_img)
             cnt += 1
             self._sync()
             t2 = time.perf_counter()

@@ -123,6 +123,8 @@ def _stream(seed, n, w, h, margin=0, kind="uniform"):
     (20000, 24, 1280, 720, 8, "HWC", "uniform"),      # out-of-frame events
     (200000, 2, 1280, 720, 0, "HWC", "uniform"),      # one_voxel_flag: false
     (1900, 5, 160, 48, 4, "CHW", "uniform"),
+    (1 << 19, 6, 1280, 720, 0, "HWC", "uniform"),     # single-image datasets and demo
+    (1 << 19, 6, 1280, 720, 0, "HWC", "skew"),
     *[(*case[:5], fmt, case[5]) for fmt in ("CHW", "HWC") for case in [
         (1 << 20, 24, 1280, 720, 0, "skew"),
         (1 << 16, 24, 1280, 720, 0, "pixel"),
@@ -375,6 +377,72 @@ def test_conv_int8_kernel_matches_plain(cuda, n, cin, cout, h, w, k, stride, pad
     assert int8_cuda.CONV_LAUNCHES == before + 1
     want = quant.conv_int8_reference(*args)
     assert got.dtype == out_dtype and torch.equal(got, want)
+
+
+# EVHINet's 25 int8 sites at 1280x720 (wf 64), by distinct (cin, cout, h, w,
+# k): stride 1, padding k // 2, no fused activation
+EVHINET_INT8_SHAPES = [
+    (64, 64, 720, 1280, 3), (64, 64, 720, 1280, 1), (64, 128, 720, 1280, 1),
+    (128, 64, 720, 1280, 3), (128, 64, 720, 1280, 1),
+    (64, 128, 360, 640, 3), (128, 128, 360, 640, 3), (64, 128, 360, 640, 1),
+    (128, 256, 360, 640, 1), (256, 128, 360, 640, 3), (256, 128, 360, 640, 1),
+    (128, 256, 180, 320, 3), (256, 256, 180, 320, 3), (128, 256, 180, 320, 1)]
+
+
+@pytest.mark.parametrize("scale", [None, 0.05], ids=["dynamic", "static"])
+@pytest.mark.parametrize("cin,h,w", sorted({(c, h, w) for c, _, h, w, _ in EVHINET_INT8_SHAPES}))
+def test_quantize_int8_kernel_at_evhinet_sites(cuda, cin, h, w, scale):
+    from refid_tpu_torch.ops import int8_cuda
+    from refid_tpu_torch.serve import quant
+    x = _act(8, 1, cin, h, w, dtype=torch.bfloat16).to(cuda)
+    before = int8_cuda.QUANTIZE_LAUNCHES
+    got, got_s = quant.quantize_int8(x, scale)
+    torch.cuda.synchronize()
+    assert int8_cuda.QUANTIZE_LAUNCHES == before + 1
+    want, want_s = quant.quantize_int8_reference(x, scale)
+    assert torch.equal(got_s, want_s) and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("cin,cout,h,w,k", EVHINET_INT8_SHAPES)
+def test_conv_int8_kernel_at_evhinet_sites(cuda, cin, cout, h, w, k, out_dtype):
+    from refid_tpu_torch.ops import int8_cuda
+    from refid_tpu_torch.serve import quant
+    x = _act(9, 1, cin, h, w, dtype=torch.bfloat16).to(cuda)
+    weight = _randn(10, cout, cin, k, k, scale=1 / math.sqrt(cin * k * k)).to(cuda)
+    bias = _randn(11, cout, scale=0.1).to(cuda)
+    wp, wscale, b = quant.WeightCache().packed(weight, bias)
+    xq, s = quant.quantize_int8(x)
+    args = (xq, wp, wscale, s, b, 1, k // 2, None, False, out_dtype)
+    before = int8_cuda.CONV_LAUNCHES
+    got = quant.conv_int8_packed(*args)
+    torch.cuda.synchronize()
+    assert int8_cuda.CONV_LAUNCHES == before + 1
+    assert torch.equal(got, quant.conv_int8_reference(*args))
+
+
+def test_evhinet_int8_on_the_card_matches_the_cpu(cuda):
+    """A toy EVHINet (wf 16) in int8 on the card against the CPU, TF32 off:
+    every one of its 25 sites in the CUDA kernels, >= 60 dB."""
+    from refid_tpu_torch.models.evhinet import EVHINet
+    from refid_tpu_torch.ops import int8_cuda
+    from refid_tpu_torch.serve import quant
+    torch.manual_seed(0)
+    net = EVHINet(wf=16).eval()
+    x, ev = torch.rand(1, 3, 48, 64), _randn(12, 1, 6, 48, 64)
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        with torch.no_grad():
+            cpu = net(x, ev, quant.QuantState(True))
+            net.to(cuda)
+            int8_cuda.reset_launches()
+            card = net(x.to(cuda), ev.to(cuda), quant.QuantState(True)).cpu()
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    assert int8_cuda.CONV_LAUNCHES == int8_cuda.QUANTIZE_LAUNCHES == 25
+    rmse = float(torch.sqrt(torch.mean((card - cpu) ** 2)))
+    assert rmse == 0 or 20 * math.log10(float(cpu.max() - cpu.min()) / rmse) >= 60.0
 
 
 def _int8_toy_pipeline(seed, int8, device):

@@ -25,8 +25,13 @@ names = [m.name for m in pkgutil.walk_packages(refid_tpu_torch.__path__,
                                                "refid_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
-print(len(names))
+print(" ".join(names))
 """
+
+# the single-image path: EVHINet, its datasets and task, the demo CLI
+SINGLE_IMAGE_MODULES = {"refid_tpu_torch.models.evhinet", "refid_tpu_torch.tasks.single",
+                        "refid_tpu_torch.data.datasets.single_image",
+                        "refid_tpu_torch.cli.demo"}
 
 
 def test_every_module_imports_with_jax_and_refid_tpu_blocked():
@@ -34,7 +39,9 @@ def test_every_module_imports_with_jax_and_refid_tpu_blocked():
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 50     # the eval package and test CLI included
+    names = set(out.stdout.split())
+    assert len(names) >= 57      # the eval package, test CLI and single-image path included
+    assert SINGLE_IMAGE_MODULES <= names
 
 
 def _imported_modules(path):
@@ -70,7 +77,8 @@ def test_import_builds_nothing():
     env = {**os.environ, "PYTHONPATH": str(REPO)}
     code = ("import refid_tpu_torch.events.voxel_cuda as v, refid_tpu_torch.ops.build as b;"
             "import refid_tpu_torch.ops.probe_cuda as p, refid_tpu_torch.probes.band_conv,"
-            " refid_tpu_torch.probes.poison, refid_tpu_torch.cli.test, refid_tpu_torch.eval.niqe;"
+            " refid_tpu_torch.probes.poison, refid_tpu_torch.cli.test, refid_tpu_torch.eval.niqe,"
+            " refid_tpu_torch.cli.demo, refid_tpu_torch.tasks.single;"
             "print(v._lib is None and p._libs == {}, b._loaded == {})")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
