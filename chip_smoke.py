@@ -52,6 +52,7 @@ import json
 import logging
 import math
 import os
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -136,8 +137,11 @@ EVHINET_NET = {"type": "SingleMultiConnectEVHINet", "in_chn": 3, "ev_chn": 6, "w
                "depth": 3, "fac_place": 2, "hin_position_left": 0, "hin_position_right": 4}
 EV_BINS = 6
 EV_EVENTS = 1 << 19
-EVHINET_IMAGES = 5                 # calibration, warm-up, 3 timed
+EVHINET_IMAGES = 42                # calibration, warm-up, 40 timed
 EVHINET_PARITY_CROP = 256
+# float32 card against CPU reads ~138 dB and bf16 against float32 ~74 dB: the
+# bar between them fails a forward that leaks reduced precision (TF32, autocast)
+EVHINET_PARITY_DB = 100.0
 EVHINET_CROP = 256                 # the tiled evaluation's crop_size
 EVHINET_SITES = 25
 # EVHINet's int8 sites at 1280x720 by distinct (Cin, Cout, H, W, kernel): stride
@@ -307,6 +311,11 @@ def phase_grid_kernel_check():
     for name, (ev, w, h) in [("skewed", (skewed, WIDTH, HEIGHT)), *edge_streams(rng).items()]:
         for fmt in ("CHW", "HWC"):
             cases[f"{name}_{fmt.lower()}"] = (ev, BINS, fmt, w, h)
+    # the single-image datasets' and the demo's configuration: EV_BINS bins HWC
+    cases["evhinet_hwc"] = (random_events(rng, EV_EVENTS, WIDTH, HEIGHT), EV_BINS, "HWC",
+                            WIDTH, HEIGHT)
+    cases["evhinet_skewed_hwc"] = (skewed_events(rng, EV_EVENTS, WIDTH, HEIGHT), EV_BINS,
+                                   "HWC", WIDTH, HEIGHT)
     errs, votes = {}, {}
     for name, (ev, bins, fmt, w, h) in cases.items():
         got = voxel_cuda.events_to_voxel_grid_cuda(ev, bins, w, h, fmt)
@@ -777,9 +786,13 @@ def evhinet_state(seed, filled):
 
 def evhinet_voxel(events, width, height, device="cuda"):
     """A single-image item's voxel: ``EV_BINS`` bins ``HWC`` (K2 on the card),
-    then ``voxel_norm``, as the datasets and the demo build it."""
-    return voxel_norm_np(events_to_voxel_grid(events, EV_BINS, width, height, "HWC",
-                                              device=device))
+    then ``voxel_norm``, as the datasets and the demo build it; and the max
+    |diff| of the grid before ``voxel_norm`` against its plain version on
+    the same device."""
+    grid = events_to_voxel_grid(events, EV_BINS, width, height, "HWC", device=device)
+    want = events_to_voxel_grid_reference(torch.from_numpy(events).to(device), EV_BINS,
+                                          width, height, "HWC").cpu().numpy()
+    return voxel_norm_np(grid), float(np.abs(grid - want).max())
 
 
 class RecordingQuant(quant.QuantState):
@@ -810,16 +823,16 @@ def phase_evhinet_parity(state):
     rng = np.random.RandomState(7)
     c = EVHINET_PARITY_CROP
     img = rng.rand(c, c, 3).astype(np.float32)
-    vox = evhinet_voxel(random_events(rng, 1 << 16, c, c), c, c, device="cpu")
+    vox, _ = evhinet_voxel(random_events(rng, 1 << 16, c, c), c, c, device="cpu")
     outs = {d: evhinet_task(state, d).predict_tensor(img[None], vox[None]).float().cpu()
             for d in ("cuda", "cpu")}
     got, want = outs["cuda"], outs["cpu"]
     check(got.shape == (1, c, c, 3) and bool(torch.isfinite(got).all()),
           f"evhinet parity output {tuple(got.shape)} or not finite")
     db = parity_db(want, got)
-    emit("evhinet_parity", crop=[c, c], wf=EVHINET_NET["wf"], db=db, min_db=PARITY_DB,
-         max_abs_err=float((want - got).abs().max()))
-    check(db >= PARITY_DB, f"EVHINet card vs CPU {db:.1f} dB < {PARITY_DB}")
+    emit("evhinet_parity", crop=[c, c], wf=EVHINET_NET["wf"], db=db,
+         min_db=EVHINET_PARITY_DB, max_abs_err=float((want - got).abs().max()))
+    check(db >= EVHINET_PARITY_DB, f"EVHINet card vs CPU {db:.1f} dB < {EVHINET_PARITY_DB}")
 
 
 def phase_evhinet_kernel_check():
@@ -893,15 +906,21 @@ def phase_evhinet_serve(requests):
     full-width EVHINet with the network's own init (seed 0): float32 (TF32
     off), bf16 autocast, int8 ``True`` (dynamic, the task's ``val.int8``)
     and ``"static"`` (calibrated on ``requests[0]``), each on ``requests[1:]``
-    (1 warm-up, then timed, the host clock around a synchronised call), dB
-    against the float32 image, peak memory, the bf16 image's device time by
-    kernel and the int8 kernels' share of a profiled image.  Returns the int8 kernels' launches over the path, each
-    mode's dB and the int8 modes below PRODUCTION_DB_GATE."""
+    (1 warm-up, then timed, the host clock around a synchronised call: mean,
+    median, spread), dB against the float32 image, peak memory, the bf16
+    image's device time by kernel and the int8 kernels' share of a profiled
+    image.  Each request's K2 grid is held against its plain version.
+    Returns the int8 kernels' launches over the path, K2's launches and max
+    |diff|, each mode's dB and the int8 modes below PRODUCTION_DB_GATE."""
     state = evhinet_state(0, filled=False)
     set_tf32(False)
     voxel_cuda.reset_grid_stats()                  # the EVHINet serving path starts here
     int8_cuda.reset_launches()
-    requests = [(img, evhinet_voxel(ev, WIDTH, HEIGHT)) for img, ev in requests]
+    voxels = [evhinet_voxel(ev, WIDTH, HEIGHT) for _, ev in requests]
+    k2_err = max(err for _, err in voxels)
+    check(k2_err <= KERNEL_TOL, f"evhinet serving: K2 max|diff| {k2_err} > {KERNEL_TOL}")
+    requests = [(img, vox) for (img, _), (vox, _) in zip(requests, voxels)]
+    del voxels
     outs, dbs, rows, shapes = {}, {}, {}, None
     conv_flops = None
     for mode in ("f32", "bf16", True, "static"):
@@ -935,8 +954,10 @@ def phase_evhinet_serve(requests):
         check(out.shape == (HEIGHT, WIDTH, 3) and bool(torch.isfinite(out).all()),
               f"evhinet {mode}: output {tuple(out.shape)} or not finite")
         outs[mode] = out.float().cpu()
-        ms = sum(times) / len(times)
-        row = {"ms_per_image": times, "mean_ms_per_image": ms,
+        ms = statistics.fmean(times)
+        row = {"mean_ms_per_image": ms, "median_ms_per_image": statistics.median(times),
+               "stdev_ms_per_image": statistics.stdev(times),
+               "min_ms_per_image": min(times), "max_ms_per_image": max(times),
                "images_per_s": 1e3 / ms, "conv_tflops_per_s": conv_flops / ms / 1e9,
                "max_memory_allocated": torch.cuda.max_memory_allocated(),
                "conv_launches": int8_cuda.CONV_LAUNCHES - before[0],
@@ -964,7 +985,8 @@ def phase_evhinet_serve(requests):
     emit("evhinet_serve", weights="module init, seed 0", frame=[HEIGHT, WIDTH], bins=EV_BINS,
          wf=EVHINET_NET["wf"], images_timed=len(requests) - 2, modes=rows, db_vs_f32=dbs,
          db_gate=quant.PRODUCTION_DB_GATE, conv_flops=conv_flops, int8_sites=len(shapes),
-         int8_site_ops=int8_ops, voxel_grid_launches=k2, launches=launches)
+         int8_site_ops=int8_ops, voxel_grid_launches=k2, voxel_grid_max_abs_err=k2_err,
+         voxel_grid_tol=KERNEL_TOL, launches=launches)
     check(len(shapes) == EVHINET_SITES and set(shapes) == set(EVHINET_INT8_SHAPES.values()),
           f"evhinet int8 sites {shapes}")
     check(k2 == len(requests), f"evhinet serving: K2 launched {k2} times for {len(requests)}")
@@ -972,7 +994,7 @@ def phase_evhinet_serve(requests):
     check(all(v == expected for v in launches.values()),
           f"evhinet int8 path launches {launches}, expected {expected} each")
     low = [m for m in ("True", "static") if dbs[m] < quant.PRODUCTION_DB_GATE]
-    return launches, k2, dbs, low
+    return launches, k2, k2_err, dbs, low
 
 
 def write_single_image_options(work, data_root, weights, crop):
@@ -1551,7 +1573,8 @@ def main():
     rng = np.random.RandomState(8)
     ev_requests = [(rng.rand(HEIGHT, WIDTH, 3).astype(np.float32),
                     random_events(rng, EV_EVENTS, WIDTH, HEIGHT)) for _ in range(EVHINET_IMAGES)]
-    evhinet_launches, serve_k2, evhinet_db, evhinet_low = phase_evhinet_serve(ev_requests)
+    evhinet_launches, serve_k2, serve_k2_err, evhinet_db, evhinet_low = \
+        phase_evhinet_serve(ev_requests)
     emit("evhinet_path", launches=evhinet_launches, voxel_grid_launches=serve_k2,
          db_vs_f32=evhinet_db, seconds=time.perf_counter() - t0)
     del ev_requests
@@ -1617,7 +1640,8 @@ def main():
         "name": "voxel_grid", "route": "cuda",
         "source": "refid_tpu_torch/csrc/voxelize.cu",
         "replaces": "refid_tpu/events/voxel_pallas.py:129",
-        "launches": grid_launches, "max_abs_err": grid_err, **grid_timing}, {
+        "launches": grid_launches, "max_abs_err": max(grid_err, serve_k2_err),
+        **grid_timing}, {
         "name": "passthrough", "route": "cuda",
         "source": "refid_tpu_torch/csrc/passthrough.cu",
         "replaces": "scripts/probe_poison.py:56",

@@ -192,6 +192,17 @@ class EVHINet(nn.Module):
             prev = 2 ** i * wf
         self.sam12 = SAM(prev)
 
+    int8_side = 4    # a task predicts in int8 where both frame sides are multiples of this
+
+    def task_int8_mode(self, int8) -> bool:
+        """The int8 mode that a task's ``val.int8`` selects: any truthy value
+        means dynamic scales, as the JAX task's ``int8=bool(int8)``."""
+        if int8 and not evhinet_int8_applicable(self):
+            raise ValueError("val.int8 requires the EVHINet geometry of the JAX serving "
+                             f"forward (depth 3, fac_place 2); got depth {self.depth}, "
+                             f"fac_place {self.fac_place}")
+        return bool(int8)
+
     def forward(self, x, event, q=None):
         if q is not None and not evhinet_int8_applicable(self):
             raise ValueError("int8 serving needs the EVHINet geometry that the JAX "

@@ -223,6 +223,21 @@ class FinalBidirectionAttenfusion(nn.Module):
             return checkpoint(fn, *args, use_reentrant=False)
         return fn(*args)
 
+    int8_side = 8    # a task predicts in int8 where both frame sides are multiples of this
+
+    def task_int8_mode(self, int8):
+        """The int8 mode that a task's ``val.int8`` selects: True or
+        ``"scale0"`` (dynamic scales), as the JAX task; ``"static"`` raises,
+        since a task records no calibration."""
+        if int8 not in (False, True, "scale0"):
+            raise ValueError(f"val.int8 must be False, True or 'scale0' (dynamic scales; "
+                             f"'static' requires calibration, which a task does not "
+                             f"record); got {int8!r}")
+        if int8 and not int8_applicable(self.cfg):
+            raise ValueError("val.int8 requires the production architecture "
+                             "(aliased backward states, num_block=1, num_encoders >= 2)")
+        return int8
+
     def forward(self, x, event, q=None):
         if q is not None and not int8_applicable(self.cfg):
             raise ValueError("int8 serving needs aliased backward states, num_block=1 "

@@ -23,7 +23,7 @@ tensor they run their plain versions, :func:`quantize_int8_reference` and
 layouts.
 
 EVHINet serves in int8 too (``models/evhinet.py``: 25 sites, modes True,
-``"calib"`` and ``"static"``), where :func:`evhinet_int8_applicable` holds.
+``"calib"`` and ``"static"``), where its ``evhinet_int8_applicable`` holds.
 
 The per-call quant state :class:`QuantState` carries the mode, as the JAX
 package's ``cache`` dict does: ``int8`` True (dynamic scales), ``"scale0"``
@@ -41,10 +41,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from refid_tpu_torch.models.evhinet import evhinet_int8_applicable
-
 __all__ = ["K_DEPTH", "PRODUCTION_SHAPE_DB", "PRODUCTION_DB_GATE", "PRODUCTION_DB_CARD",
-           "EVHINET_PRODUCTION_SHAPE_DB", "evhinet_int8_applicable", "INT8_MODES",
+           "EVHINET_PRODUCTION_SHAPE_DB", "INT8_MODES",
            "int8_quality_gated", "padded_channels", "quantize_kernel", "pack_kernel",
            "quantize_act", "static_scale", "quantize_int8", "quantize_int8_reference",
            "conv_int8_packed", "conv_int8_reference", "conv_int8", "WeightCache",

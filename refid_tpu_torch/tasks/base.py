@@ -18,12 +18,12 @@ exactly the plain network's math; the port trains the plain
 For the same reason it predicts with the plain network whatever
 ``val.folded_predict`` says.  ``val.int8`` (True or ``"scale0"``: dynamic
 activation scales, ``serve/quant.py``) predicts through the int8 forward,
-as the JAX task does, on frames whose sides are multiples of 8 (others run
-the float forward there too); ``"static"`` raises, since a task records no
-calibration (the JAX task fails there for want of one).  For EVHINet
-(``SingleMultiConnectEVHINet``) a truthy ``val.int8`` means dynamic scales, as
-the JAX task's ``int8=bool(int8)``, on frames whose sides are multiples of 4;
-its batches are ``lq (b, h, w, 3)`` and ``voxel (b, h, w, bins)``.
+as the JAX task does, on frames whose sides are multiples of the network's
+``int8_side`` (others run the float forward there too); the network's
+``task_int8_mode`` maps ``val.int8`` to its mode (the flagship: ``"static"``
+raises, since a task records no calibration; EVHINet: a truthy value means
+dynamic scales, as the JAX task's ``int8=bool(int8)``).  EVHINet's batches are
+``lq (b, h, w, 3)`` and ``voxel (b, h, w, bins)``.
 """
 
 from __future__ import annotations
@@ -40,8 +40,6 @@ from refid_tpu_torch.core.registry import ARCHS, MODELS
 from refid_tpu_torch.eval import metrics as metric_module
 from refid_tpu_torch.models import archs as _archs  # noqa: F401 (registers archs)
 from refid_tpu_torch.models.convert import known_unused_keys, load_state
-from refid_tpu_torch.models.evhinet import evhinet_int8_applicable
-from refid_tpu_torch.models.refid import int8_applicable
 from refid_tpu_torch.serve.quant import QuantState, WeightCache
 from refid_tpu_torch.train.losses import build_loss
 from refid_tpu_torch.train.trainer import Trainer
@@ -75,33 +73,16 @@ class RestorationTaskBase:
     def __init__(self, opt: dict, device="cuda"):
         self.opt = opt
         val = opt.get("val") or {}
-        self.int8 = val.get("int8", False)
-        is_evhinet = opt["network_g"]["type"] == "SingleMultiConnectEVHINet"
-        if is_evhinet:
-            # the JAX task serves EVHINet with int8=bool(val.int8): any truthy
-            # value means dynamic scales
-            self.int8 = bool(self.int8)
-        elif self.int8 not in (False, True, "scale0"):
-            raise ValueError(f"val.int8 must be False, True or 'scale0' (dynamic scales; "
-                             f"'static' requires calibration, which a task does not "
-                             f"record); got {self.int8!r}")
+        self.device = resolve_device(device)
+        self.is_train = opt.get("is_train", True)
+        self.net = self._build_net().to(self.device)
+        # the network maps val.int8 to its int8 mode and raises where it
+        # cannot serve in int8
+        self.int8 = self.net.task_int8_mode(val.get("int8", False))
         if self.int8 and val.get("folded_predict", True) is False:
             raise ValueError("val.int8 requires the folded predict path "
                              "(val.folded_predict: false given)")
         self._int8_weights = WeightCache()
-        # int8 predicts where both frame sides are multiples of this (the JAX
-        # task's folded predict paths), the float forward elsewhere
-        self._int8_multiple = 4 if is_evhinet else 8
-        self.device = resolve_device(device)
-        self.is_train = opt.get("is_train", True)
-        self.net = self._build_net().to(self.device)
-        if is_evhinet and self.int8 and not evhinet_int8_applicable(self.net):
-            raise ValueError("val.int8 requires the EVHINet geometry of the JAX serving "
-                             "forward (depth 3, fac_place 2)")
-        if not is_evhinet and self.int8 and not int8_applicable(
-                getattr(self.net, "cfg", None)):
-            raise ValueError("val.int8 requires the production architecture "
-                             "(aliased backward states, num_block=1, num_encoders >= 2)")
         self.trainer: Optional[Trainer] = None
         self.start_iter = 0
         self.start_epoch = 0
@@ -234,11 +215,11 @@ class RestorationTaskBase:
         ``torch.inference_mode`` (the options' compute dtype), the training
         mode restored afterwards.  ``use_ema`` runs the trainer's EMA weights
         when it keeps them; ``val.int8`` the int8 forward, where the frame's
-        sides are multiples of 8 (EVHINet: 4)."""
+        sides are multiples of the network's ``int8_side``."""
         lq_t, vox_t = (to_nchw(torch.from_numpy(np.ascontiguousarray(a, np.float32))
                                .to(self.device)) for a in (lq, voxel))
         q = None
-        k = self._int8_multiple
+        k = self.net.int8_side
         if self.int8 and lq_t.shape[-2] % k == 0 and lq_t.shape[-1] % k == 0:
             q = QuantState(self.int8, self._int8_weights)
         tr = self.trainer

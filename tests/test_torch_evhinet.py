@@ -5,6 +5,8 @@ calib and static modes.  Inputs come from numpy seeds; every JAX parameter
 is filled randomly (HIN scales near 1, HIN biases included) and reaches the
 port through ``models/convert.py::evhinet_state_dict_from_jax``."""
 
+import logging
+
 import numpy as np
 import pytest
 import torch
@@ -130,11 +132,13 @@ def test_bf16_compute_dtype_tracks_f32():
 
 @pytest.mark.slow
 def test_production_geometry_matches_jax():
-    """wf 64 (the shipped width) on a 256x256 crop, >= 60 dB."""
+    """wf 64 (the shipped width) on a 256x256 crop, >= 100 dB: float32 reads
+    about 140 dB here and the port under bf16 compute about 60 dB, so a leak
+    of reduced precision into the float32 forward fails."""
     x, ev = _inputs(3, 256, 256)
     jnet, params, net = _pair(64, x, ev, seed=3)
     want = np.asarray(jnet.apply(params, jnp.asarray(x), jnp.asarray(ev)))
-    assert parity_db(want, _port(net, x, ev)) >= 60.0
+    assert parity_db(want, _port(net, x, ev)) >= 100.0
 
 
 def test_dead_branches_keep_their_parameters_and_get_no_gradient():
@@ -230,7 +234,7 @@ def test_int8_modes_and_gate(toy):
         _port(net, x, ev, quant.QuantState("static", amax=[1.0] * (SITES - 1)))
     with pytest.raises(ValueError, match="fac_place"):
         _port(EVHINet(wf=8, fac_place=1), x, ev, quant.QuantState(True))
-    assert quant.evhinet_int8_applicable(net)
+    assert evhinet_int8_applicable(net)
     assert quant.EVHINET_PRODUCTION_SHAPE_DB == jax_quant.EVHINET_PRODUCTION_SHAPE_DB
     # every site excluded serves the float forward exactly
     calib = quant.QuantState("calib")
@@ -272,8 +276,15 @@ def test_load_state_takes_upstream_checkpoints_with_stage_two_keys(caplog):
     state["down_path_2.0.conv_1.weight"] = torch.zeros(8, 3, 3, 3)
     state["sam23.conv1.weight"] = torch.zeros(8, 8, 3, 3)
     fresh = EVHINet(wf=8)
+    # a CLI run earlier in the process may have turned off propagation
+    # (get_root_logger): catch the package logger's records directly
+    logger = logging.getLogger("refid_tpu_torch")
     with caplog.at_level("INFO", logger="refid_tpu_torch"):
-        load_state(fresh, state)
+        logger.addHandler(caplog.handler)
+        try:
+            load_state(fresh, state)
+        finally:
+            logger.removeHandler(caplog.handler)
     assert "down_path_2.0.conv_1.weight" in caplog.text
     assert all(torch.equal(v, state[k]) for k, v in fresh.state_dict().items())
     del state["down_path_1.0.conv_1.weight"]
