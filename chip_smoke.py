@@ -24,9 +24,11 @@ random weights:
   at a checkpoint of the seeded weights, after PSNR / SSIM on the card are
   held against the CPU;
 * int8 serving (``quantize_int8``, ``conv_int8``): both kernels against
-  their plain versions at every production int8 conv shape, their times at
-  the scale-1 and scale-2 trunk ``conv_in`` shapes beside cuDNN's bf16
-  channels_last conv and nine ``torch._int_mm`` taps, then 1280x720 windows
+  their plain versions at every production int8 conv shape and at the edge
+  shapes of the conv's tile plan (one for each tile variant and store
+  path), their times at the scale-1 and scale-2 trunk ``conv_in`` and the
+  ``dec2_trunk`` shapes beside cuDNN's bf16 channels_last conv and nine
+  ``torch._int_mm`` taps (the quantization dynamic and static), then 1280x720 windows
   with 2**20 events in ``int8=True``, ``"scale0"`` and ``"static"``
   (calibrated on another window) under bf16 autocast, each against the
   float32 window;
@@ -128,7 +130,18 @@ INT8_CONV_SHAPES = {
     "scale0_trunk_in": (128, 64, 720, 1280, 3, 1), "scale0_trunk": (64, 64, 720, 1280, 3, 1),
     "dec1_trunk_in": (128, 64, 360, 640, 3, 1), "dec1_trunk": (64, 64, 360, 640, 3, 1),
     "dec2_trunk_in": (64, 32, 720, 1280, 3, 1), "dec2_trunk": (32, 32, 720, 1280, 3, 1)}
-INT8_TIMED = ("scale1_trunk_in", "scale2_trunk_in")
+INT8_TIMED = ("scale1_trunk_in", "scale2_trunk_in", "dec2_trunk")
+# conv_int8 at the edges of its tile plan (ops/int8_cuda.py::conv_plan), one
+# case for each variant and store path: (n, Cin, Cout, H, W, kernel, stride,
+# padding) -> N 16, 32, 64 (operands swapped), 128 (Cout 136, 256: two
+# tiles); K chunks of 32 (cp 32, 96), 64 and 128 bytes; weights resident and
+# streamed; 1x1, 3x3/1, 4x4/2 (odd input height too); rows that take 16-byte
+# stores and rows that do not (widths 19, 13; 20 in bf16); n = 2
+INT8_EDGE_SHAPES = [(1, 16, 16, 24, 40, 3, 1, 1), (2, 32, 32, 20, 19, 3, 1, 1),
+                    (1, 64, 64, 33, 72, 3, 1, 1), (2, 64, 64, 16, 20, 1, 1, 0),
+                    (1, 128, 128, 30, 64, 4, 2, 1), (1, 96, 136, 14, 22, 3, 1, 1),
+                    (1, 256, 256, 24, 48, 3, 1, 1), (2, 40, 136, 13, 20, 4, 2, 1),
+                    (1, 512, 64, 12, 16, 1, 1, 0), (1, 24, 40, 9, 13, 3, 1, 1)]
 INT8_SITES = {True: 575, "scale0": 713, "static": 851}     # a t = 23 window
 # single-image deblurring: EVHINet at the width the repo defines, 6 voxel
 # bins, a request's events about ten 43690-event windows (the datasets'
@@ -588,8 +601,29 @@ def phase_int8_kernel_check():
             torch.cuda.synchronize()
             held("conv_int8", name + tag, got, quant.conv_int8_reference(*args))
             del x, weight, bias, wp, xq, got, want
+    for i, (n, cin, cout, h, w, k, stride, pad) in enumerate(INT8_EDGE_SHAPES):
+        gen = torch.Generator().manual_seed(60 + i)
+        x = torch.randn(n, cin, h, w, generator=gen)
+        x = torch.maximum(x, 0.1 * x).to(CUDA, torch.bfloat16)
+        weight = (torch.randn(cout, cin, k, k, generator=gen) / math.sqrt(cin * k * k)).to(CUDA)
+        bias = (0.1 * torch.randn(cout, generator=gen)).to(CUDA)
+        got, want = quant.quantize_int8(x), quant.quantize_int8_reference(x)
+        held("quantize_int8", f"edge{i}", got[0], want[0])
+        wp, wscale, b = quant.WeightCache().packed(weight, bias)
+        xq, xs = want
+        for out_dtype, slope, relu in ((torch.bfloat16, 0.1, False), (torch.float32, None, i % 2)):
+            args = (xq, wp, wscale, xs, b if relu or slope else None, stride, pad, slope,
+                    bool(relu), out_dtype)
+            got = quant.conv_int8_packed(*args)
+            torch.cuda.synchronize()
+            plan = int8_cuda.conv_plan(n, got.shape[2], got.shape[3], xq.shape[3], cout, k, k,
+                                       stride, got.element_size())
+            held("conv_int8", f"edge{i}_{str(out_dtype)[6:]}_n{plan.bn}_c{plan.chunk}"
+                 f"_{'res' if plan.resident else 'ring'}_{'vec' if plan.vector_store else 'elt'}"
+                 f"_{'kx' if plan.shared else 'tap'}",
+                 got, quant.conv_int8_reference(*args))
     emit("int8_kernel_check", shapes={k: list(v) for k, v in INT8_CONV_SHAPES.items()},
-         max_abs_err=errs, tol="bit-exact")
+         edge_shapes=INT8_EDGE_SHAPES, max_abs_err=errs, tol="bit-exact")
     return {k: max(v.values()) for k, v in errs.items()}
 
 
@@ -600,12 +634,13 @@ def int_mm_taps(xq, wp):
 
 
 def phase_int8_kernel_timing():
-    """Both kernels at the scale-1 and scale-2 trunk ``conv_in`` shapes (bf16
-    input, dynamic scale, bias, leaky 0.1, bf16 out): CUDA events per call,
-    device time from the profiler, the plain versions, the bound, cuDNN's
-    bf16 channels_last conv with the same epilogue and nine ``torch._int_mm``
-    taps.  Returns ``{"quantize_int8": ..., "conv_int8": ...}`` at
-    INT8_TIMED[0], with both shapes' figures in the phase's line."""
+    """Both kernels at the INT8_TIMED shapes (bf16 input, dynamic scale, bias,
+    leaky 0.1, bf16 out): CUDA events per call, device time from the
+    profiler, the plain versions, the bound, TOP/s, cuDNN's bf16
+    channels_last conv with the same epilogue and nine ``torch._int_mm``
+    taps; the quantization static too.  Returns ``{"quantize_int8": ...,
+    "conv_int8": ...}`` at INT8_TIMED[0], with every shape's figures in the
+    phase's line."""
     shapes = {}
     for name in INT8_TIMED:
         cin, cout, h, w, k, stride = INT8_CONV_SHAPES[name]
@@ -627,15 +662,19 @@ def phase_int8_kernel_timing():
 
         q_bytes = x.numel() * x.element_size() + xq.numel()
         conv_ops = 2 * h * w * cout * cin * k * k
-        conv_bytes = h * w * cin + cout * cin * k * k + h * w * cout * 2
+        conv_bytes = xq.numel() + wp.numel() + h * w * cout * 2
         q = {"ms": time_ms(lambda: quant.quantize_int8(x), 50, CUDA),
              "plain_ms": time_ms(lambda: quant.quantize_int8_reference(x), 10, CUDA),
              "library_ms": None, "bytes": q_bytes, **bound(q_bytes, 0, F32_OPS_PER_S),
              "quantize_device_ms": kernel_device_ms(lambda: quant.quantize_int8(x), 20,
                                                     "quantize_kernel"),
              "amax_device_ms": kernel_device_ms(lambda: quant.quantize_int8(x), 20,
-                                                "amax_kernel")}
+                                                "amax_kernel"),
+             "static_ms": time_ms(lambda: quant.quantize_int8(x, 0.02), 50, CUDA),
+             "static_device_ms": kernel_device_ms(lambda: quant.quantize_int8(x, 0.02), 20,
+                                                  "quantize_kernel")}
         q["device_ms"] = q["quantize_device_ms"] + q["amax_device_ms"]
+        q["static_bound_share"] = q["bound_ms"] / q["static_ms"]
         c = {"ms": time_ms(conv, 50, CUDA),
              "plain_ms": time_ms(lambda: quant.conv_int8_reference(
                  xq, wp, wscale, xs, b, 1, 1, 0.1, False, torch.bfloat16), 3, CUDA, warmup=1),
@@ -643,35 +682,48 @@ def phase_int8_kernel_timing():
              "int_mm_taps_ms": time_ms(lambda: int_mm_taps(xq, wp), 5, CUDA, warmup=1),
              "ops": conv_ops, "bytes": conv_bytes,
              **bound(conv_bytes, conv_ops, INT8_OPS_PER_S),
-             "device_ms": kernel_device_ms(conv, 20, "conv_int8_kernel")}
+             "device_ms": kernel_device_ms(conv, 20, "conv_int8_kernel"),
+             "plan": int8_cuda.conv_plan(1, h, w, xq.shape[3], cout, k, k, 1)._asdict()}
         for t in (q, c):
             t["bound_share"] = t["bound_ms"] / t["ms"]
         c["tera_ops_per_s"] = conv_ops / c["ms"] / 1e9
+        c["device_bound_share"] = c["bound_ms"] / c["device_ms"]
         shapes[name] = {"quantize_int8": q, "conv_int8": c}
         del x, weight, bias, wp, xq, x_cl, w_cl
     emit("int8_kernel_timing", shapes=shapes)
     return shapes[INT8_TIMED[0]]
 
 
-def int8_share(run):
+def int8_share(run, dynamic):
     """The int8 kernels' share of one window's device time, from the
-    profiler: ``{kernel: (ms, launches)}`` and the device busy ms."""
+    profiler: ``{kernel: (ms, launches)}`` and the device busy ms.  Fails
+    when the profiler saw no launch of a kernel that the wrappers' counts
+    (and, for ``amax_kernel``, a ``dynamic`` mode) say ran: a kernel whose
+    name no longer matches would read as 0 % of the window."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    names = ("conv_int8_kernel", "quantize_kernel", "amax_kernel")
+    before = int8_cuda.CONV_LAUNCHES, int8_cuda.QUANTIZE_LAUNCHES
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         run()
         torch.cuda.synchronize()
+    counted = {"conv_int8_kernel": int8_cuda.CONV_LAUNCHES - before[0],
+               "quantize_kernel": int8_cuda.QUANTIZE_LAUNCHES - before[1]}
+    counted["amax_kernel"] = counted["quantize_kernel"] if dynamic else 0
     busy, mine = 0.0, {}
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             ms = e.time_range.elapsed_us() / 1e3
             busy += ms
-            for k in ("conv_int8_kernel", "quantize_kernel", "amax_kernel"):
+            for k in names:
                 if k in e.name:
                     ms_n = mine.setdefault(k, [0.0, 0])
                     ms_n[0] += ms
                     ms_n[1] += 1
+    for k in names:
+        check(counted[k] == 0 or mine.get(k, [0.0, 0])[1] > 0,
+              f"the profiler saw no {k} launch where the wrappers counted {counted[k]}")
     return mine, busy
 
 
@@ -740,7 +792,7 @@ def phase_int8_serve(requests):
             with torch.autocast("cuda", dtype=torch.bfloat16):
                 pipe(*requests[-1])
 
-        mine, busy = int8_share(run)
+        mine, busy = int8_share(run, mode != "static")
         int8_ms = sum(v[0] for v in mine.values())
         emit("int8_serve", mode=mode, weights="module init, seed 0", frame=[HEIGHT, WIDTH],
              events=FULL_EVENTS, sites_per_window=INT8_SITES[mode], conv_launches=convs,
@@ -877,8 +929,9 @@ def phase_evhinet_kernel_check():
 
 
 def evhinet_int8_timing(x, weight, bias, wp, wscale, b, xq, xs, k):
-    """Both kernels at one EVHINet site: CUDA events per call, the bound and
-    cuDNN's bf16 channels_last conv with the same bias."""
+    """Both kernels at one EVHINet site: CUDA events per call, device time
+    from the profiler, the bound, cuDNN's bf16 channels_last conv with the
+    same bias; the quantization static too."""
     _, cin, h, w = x.shape
     cout = weight.shape[0]
     x_cl = x.contiguous(memory_format=torch.channels_last)
@@ -887,17 +940,28 @@ def evhinet_int8_timing(x, weight, bias, wp, wscale, b, xq, xs, k):
     ops = 2 * h * w * cout * cin * k * k
     conv_bytes = h * w * quant.padded_channels(cin) + wp.numel() + h * w * cout * 2
     q_bytes = x.numel() * 2 + xq.numel()
-    conv = {"ms": time_ms(lambda: quant.conv_int8_packed(xq, wp, wscale, xs, b, 1, k // 2,
-                                                         None, False, torch.bfloat16),
-                          30, CUDA),
+
+    def run():
+        return quant.conv_int8_packed(xq, wp, wscale, xs, b, 1, k // 2, None, False,
+                                      torch.bfloat16)
+
+    conv = {"ms": time_ms(run, 30, CUDA),
+            "device_ms": kernel_device_ms(run, 20, "conv_int8_kernel"),
             "library_ms": time_ms(lambda: torch.nn.functional.conv2d(x_cl, w_cl, b16,
                                                                      padding=k // 2), 30, CUDA),
-            "ops": ops, **bound(conv_bytes, ops, INT8_OPS_PER_S)}
+            "ops": ops, **bound(conv_bytes, ops, INT8_OPS_PER_S),
+            "plan": int8_cuda.conv_plan(1, h, w, xq.shape[3], cout, k, k, 1)._asdict()}
     q = {"ms": time_ms(lambda: quant.quantize_int8(x), 30, CUDA), "bytes": q_bytes,
-         **bound(q_bytes, 0, F32_OPS_PER_S)}
+         **bound(q_bytes, 0, F32_OPS_PER_S),
+         "quantize_device_ms": kernel_device_ms(lambda: quant.quantize_int8(x), 20,
+                                                "quantize_kernel"),
+         "amax_device_ms": kernel_device_ms(lambda: quant.quantize_int8(x), 20, "amax_kernel"),
+         "static_ms": time_ms(lambda: quant.quantize_int8(x, 0.03), 30, CUDA)}
+    q["device_ms"] = q["quantize_device_ms"] + q["amax_device_ms"]
     for t in (conv, q):
         t["bound_share"] = t["bound_ms"] / t["ms"]
     conv["tera_ops_per_s"] = ops / conv["ms"] / 1e9
+    conv["device_bound_share"] = conv["bound_ms"] / conv["device_ms"]
     return {"conv_int8_timing": conv, "quantize_int8_timing": q}
 
 
@@ -969,7 +1033,7 @@ def phase_evhinet_serve(requests):
                   == EVHINET_SITES * (len(requests) - 1),
                   f"evhinet int8={mode}: {row['conv_launches']} convs for "
                   f"{len(requests) - 1} images of {EVHINET_SITES} sites")
-            mine, busy = int8_share(lambda: run(requests[-1]))
+            mine, busy = int8_share(lambda: run(requests[-1]), mode is True)
             int8_ms = sum(v[0] for v in mine.values())
             row.update(profiled_device_busy_ms=busy, int8_device_ms=int8_ms,
                        int8_share=int8_ms / busy,

@@ -82,12 +82,10 @@
 //   1440 tiles x 6 x (32 + 3 x 16) KB = 0.71 GB; mode 1 2970 x 3 x 80 KB =
 //   0.73 GB; mode 2 1440 x 3 x 80 KB = 0.35 GB.  The earlier wmma kernel moved
 //   1.65 GB in every mode.
+// * The PTX wrappers (mbarriers, TMA, wgmma, descriptors) and the tensor-map
+//   encoder lookup live in hopper.cuh, shared with conv_int8.cu.
 
-#include <cuda.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
-
+#include "hopper.cuh"
 
 namespace {
 
@@ -99,7 +97,6 @@ constexpr int kBBytes = 16384;        // a tap: 128 outputs x 128 bytes of input
 constexpr int kQBytes = 16384;        // mode 1: an int8 window, 128 rows x 128 bytes
 constexpr int kConsumerWarps = 8;     // two warpgroups
 constexpr int kThreads = 32 * kConsumerWarps + 32;   // + one producer warp
-constexpr int kTensorMapError = 100000;
 
 template <int kMode>
 struct Cfg;
@@ -121,139 +118,6 @@ struct Cfg<2> {                       // P4: int8 x, int8 taps
   using Acc = int;
   static constexpr int kWindow = 256, kChunks = 1, kABoxes = 1;
 };
-
-// ---- PTX wrappers ----
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_u32(bar)), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_u32(bar)) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar,
-                                         int col, int row) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4}], [%2];" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(col), "r"(row)
-      : "memory");
-}
-
-// Bulk tensor store of a box of shared memory to (c0, c1, c2); clipped at
-// the tensor's bounds.
-__device__ __forceinline__ void tma_store(const CUtensorMap* map, const void* src, int c0, int c1,
-                                          int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];" ::"l"(
-          reinterpret_cast<uint64_t>(map)),
-      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2)
-      : "memory");
-}
-__device__ __forceinline__ void bulk_commit() {
-  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
-}
-__device__ __forceinline__ void bulk_wait_read() {     // the stores have read their source
-  asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
-}
-__device__ __forceinline__ void bulk_wait() {          // the stores are complete
-  asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
-}
-
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-}
-
-__device__ __forceinline__ void named_sync(int id, int threads) {
-  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-template <int kN>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(kN) : "memory");
-}
-
-// Shared-memory matrix descriptor: K-major, 128-byte swizzle, 8-row atoms of
-// 1024 bytes (SBO 1024), base 1024-byte aligned.  Adding bytes along K
-// inside the 128-byte row moves the start address only.
-__device__ __forceinline__ uint64_t smem_desc(const void* p) {
-  const uint32_t a = smem_u32(p);
-  return static_cast<uint64_t>((a & 0x3FFFF) >> 4) | (static_cast<uint64_t>(1) << 16) |
-         (static_cast<uint64_t>(1024 >> 4) << 32) | (static_cast<uint64_t>(1) << 62);
-}
-
-#define REFID_OUT64                                                                      \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "              \
-  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "     \
-  "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "      \
-  "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
-#define REFID_8(c, i)                                                                    \
-  c(d[i + 0]), c(d[i + 1]), c(d[i + 2]), c(d[i + 3]), c(d[i + 4]), c(d[i + 5]),          \
-      c(d[i + 6]), c(d[i + 7])
-#define REFID_64(c)                                                                      \
-  REFID_8(c, 0), REFID_8(c, 8), REFID_8(c, 16), REFID_8(c, 24), REFID_8(c, 32),          \
-      REFID_8(c, 40), REFID_8(c, 48), REFID_8(c, 56)
-
-// d (64 rows x 128 columns, f32) += A (64 x 16 bf16) B (16 x 128 bf16)
-__device__ __forceinline__ void wgmma_tile(float (&d)[64], uint64_t da, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " REFID_OUT64
-      ", %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : REFID_64("+f")
-      : "l"(da), "l"(db), "r"(1));
-}
-
-// d (64 x 128, s32) += A (64 x 32 s8) B (32 x 128 s8)
-__device__ __forceinline__ void wgmma_tile(int (&d)[64], uint64_t da, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 " REFID_OUT64
-      ", %64, %65, p;\n}\n"
-      : REFID_64("+r")
-      : "l"(da), "l"(db), "r"(1));
-}
-
-// Keep the compiler from moving accumulator accesses across wgmma.
-__device__ __forceinline__ void fence_operands(float (&d)[64]) {
-#pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-__device__ __forceinline__ void fence_operands(int (&d)[64]) {
-#pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+r"(d[i])::"memory");
-}
 
 // quantize(x) = clamp(rint(x * 20), -127, 127) of the plain version, as a
 // float whose low byte is the int8 value.  Clamping first gives the same
@@ -327,7 +191,7 @@ band_conv_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__
       mbar_init(&full_b[s], 1);
       mbar_init(&empty_b[s], kConsumerWarps);
     }
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    mbar_init_fence();
   }
   __syncthreads();
 
@@ -537,29 +401,6 @@ band_conv_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__
     }
   }
   if (threadIdx.x == 0) bulk_wait();
-}
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver through the runtime, so the library
-// links no libcuda.
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
-#if CUDART_VERSION >= 12050
-    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
-                                     &found);
-#else
-    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
 }
 
 // A (rows, 128) matrix of 2-byte (bf16) or 1-byte elements, boxes of

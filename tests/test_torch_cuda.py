@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import INT8_EDGE_SHAPES
 from refid_tpu_torch.events import voxel_cuda
 from refid_tpu_torch.events.voxel import voxelize_padded, voxelize_padded_reference
 
@@ -335,9 +336,15 @@ def _act(seed, *shape, dtype=torch.float32):
     return x.to(dtype)
 
 
+# (n, c, h, w): pixel counts off the 16-byte vector (63; 260 in bf16), a
+# whole and a partial 256-pixel tile, channels past one 32-channel run, n = 3
+QUANTIZE_INT8_EDGES = [(2, 33, 7, 9), (1, 32, 16, 20), (3, 100, 5, 52), (1, 8, 1, 1)]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("scale", [None, 0.05, 1e-13], ids=["dynamic", "static", "tiny"])
-@pytest.mark.parametrize("shape", [(1, 24, 17, 19), (2, 64, 9, 40), (1, 256, 45, 80)])
+@pytest.mark.parametrize("shape", [(1, 24, 17, 19), (2, 64, 9, 40), (1, 256, 45, 80)]
+                         + QUANTIZE_INT8_EDGES)
 def test_quantize_int8_kernel_matches_plain(cuda, shape, scale, dtype):
     from refid_tpu_torch.ops import int8_cuda
     from refid_tpu_torch.serve import quant
@@ -352,9 +359,11 @@ def test_quantize_int8_kernel_matches_plain(cuda, shape, scale, dtype):
 
 # (n, cin, cout, h, w, k, stride, pad): toy widths (channels not a multiple
 # of 32, M not of 128), then production shapes (scale-2 trunk conv_in,
-# scale-1 down)
+# scale-1 down), then chip_smoke.py's edges of the conv's tile plan (one
+# for each tile variant and store path of ops/int8_cuda.py::conv_plan)
 CONV_INT8_SHAPES = [(1, 24, 16, 9, 13, 3, 1, 1), (2, 40, 136, 12, 20, 4, 2, 1),
                     (1, 512, 256, 180, 320, 3, 1, 1), (1, 128, 128, 360, 640, 4, 2, 1)]
+CONV_INT8_SHAPES += INT8_EDGE_SHAPES
 
 
 @pytest.mark.parametrize("act", ["none", "relu", "leaky"])
@@ -377,6 +386,22 @@ def test_conv_int8_kernel_matches_plain(cuda, n, cin, cout, h, w, k, stride, pad
     assert int8_cuda.CONV_LAUNCHES == before + 1
     want = quant.conv_int8_reference(*args)
     assert got.dtype == out_dtype and torch.equal(got, want)
+
+
+def test_quantize_int8_dynamic_state_resets(cuda):
+    """The dynamic amax state is zero again after each call: a smaller
+    tensor after a larger one, on two streams, gets its own scale."""
+    from refid_tpu_torch.serve import quant
+    xs = [_act(12 + i, 1, 40, 30, 50).to(cuda) * g for i, g in enumerate((4.0, 0.5, 0.25))]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    for x in xs:
+        for stream in (torch.cuda.current_stream(), side):
+            with torch.cuda.stream(stream):
+                got, got_s = quant.quantize_int8(x)
+            stream.synchronize()
+            want, want_s = quant.quantize_int8_reference(x)
+            assert torch.equal(got_s, want_s) and torch.equal(got, want)
 
 
 # EVHINet's 25 int8 sites at 1280x720 (wf 64), by distinct (cin, cout, h, w,

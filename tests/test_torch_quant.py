@@ -392,6 +392,59 @@ def test_jax_records_production_sites(mode, monkeypatch):
     assert calls[0] == SITES_T23[mode]
 
 
+# --- the CUDA conv's tile plan (ops/int8_cuda.py::conv_plan) -------------------------
+
+def _plan_cases():
+    """(name, n, ho, wo, cp, co, kh, kw, stride): the 16 blurry-VFI and 14
+    EVHINet int8 site shapes at 1280x720 and the card tests' toy and edge
+    shapes, from chip_smoke.py's tables."""
+    import chip_smoke as cs
+    pc = quant.padded_channels
+    cases = [(name, 1, h, w, pc(cin), cout, k, k, s)
+             for name, (cin, cout, h, w, k, s) in cs.INT8_CONV_SHAPES.items()]
+    cases += [(f"evhinet_{name}", 1, h, w, pc(cin), cout, k, k, 1)
+              for name, (cin, cout, h, w, k) in cs.EVHINET_INT8_SHAPES.items()]
+    toys = [(1, 24, 16, 9, 13, 3, 1, 1), (2, 40, 136, 12, 20, 4, 2, 1)] + cs.INT8_EDGE_SHAPES
+    cases += [(f"toy{i}", n, (h + 2 * p - k) // s + 1, (w + 2 * p - k) // s + 1, pc(cin), cout,
+               k, k, s) for i, (n, cin, cout, h, w, k, s, p) in enumerate(toys)]
+    return cases
+
+
+@pytest.mark.parametrize("out_bytes", [4, 2], ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", _plan_cases(), ids=lambda c: c[0])
+def test_conv_plan_covers_each_output_once(case, out_bytes):
+    """The tiles (decoded as the kernel decodes them: N tile outermost, then
+    image, tile row, tile column) cover every output pixel and channel
+    exactly once; N is fit to Cout (no 128-wide tile for Cout 32 or 64); the
+    TMA boxes and shared memory are within the card's limits."""
+    from refid_tpu_torch.ops.int8_cuda import SMEM_BYTES, TILE_PIXELS, conv_plan
+    _, n, ho, wo, cp, co, kh, kw, stride = case
+    plan = conv_plan(n, ho, wo, cp, co, kh, kw, stride, out_bytes)
+    assert plan.bn == (next(b for b in (16, 32, 64, 128) if b >= co) if co <= 128 else 128)
+    assert plan.bw * plan.bh == TILE_PIXELS and max(plan.bw, plan.bh) * stride <= 256
+    assert plan.shared == (stride == 1 and kw > 1)
+    assert not plan.shared or (plan.bw >= 64 and plan.bw + kw - 1 <= 256)
+    assert not (plan.shared and plan.bn == 64) or plan.bh == 1     # swapped: one box row
+    assert cp % plan.chunk == 0 and plan.chunk in (32, 64, 128)
+    assert plan.stages >= (6 if plan.resident else 4) and plan.stages % 2 == 0    # 2 rings
+    assert plan.smem <= SMEM_BYTES
+    assert not plan.vector_store or wo % (16 // out_bytes) == 0
+    tiles_x, tiles_y = -(-wo // plan.bw), -(-ho // plan.bh)
+    m_tiles = n * tiles_x * tiles_y
+    n_tiles = -(-co // plan.bn)
+    assert plan.tiles == m_tiles * n_tiles
+    pixels = np.zeros((n_tiles, n, ho, wo), np.int32)
+    channels = np.zeros(co, np.int32)
+    for t in range(plan.tiles):
+        nt, mt = divmod(t, m_tiles)
+        img, r = divmod(mt, tiles_x * tiles_y)
+        ty, tx = divmod(r, tiles_x)
+        pixels[nt, img, ty * plan.bh:(ty + 1) * plan.bh, tx * plan.bw:(tx + 1) * plan.bw] += 1
+        if mt == 0:
+            channels[nt * plan.bn:(nt + 1) * plan.bn] += 1
+    assert (pixels == 1).all() and (channels == 1).all()
+
+
 # --- val.int8 through the test CLI ----------------------------------------------------
 
 def test_val_int8_test_cli_matches_jax(tmp_path, toy):
