@@ -40,6 +40,16 @@ random weights:
   refid_tpu_torch.cli.test``'s entry on the synthetic tree's single-image
   items (whole and tiled) and ``python -m refid_tpu_torch.cli.demo``'s
   ``main`` on one frame;
+* the IO and training tail (K2): the host PNG codec on a 1280x720 frame
+  (decode per row filter, adaptive and Adam7 through the C unfilter, held
+  byte for byte against the plain Python unfilter; the write split into
+  packing, zlib, chunks and file write for the earlier writer and the
+  current one; the recipe's train items from the filter-0 tree and a
+  filter-4 copy),
+  one full-width EVHINet optimiser step card against CPU, EVHINet trained
+  through the train CLI's ``main`` in float32 and bf16 with validations and
+  its TensorBoard file read back, and one item of each deblur dataset and
+  of BS-ERGB built on the card against the CPU;
 * the padded-capacity voxelizer entry (K1) at the serving shape;
 * the probes (P1-P4): ``python -m refid_tpu_torch.probes.band_conv``'s and
   ``python -m refid_tpu_torch.probes.poison``'s ``main`` at the serving
@@ -57,8 +67,11 @@ import os
 import statistics
 import subprocess
 import sys
+import struct
 import tempfile
 import time
+import zlib
+from unittest import mock
 
 import numpy as np
 import torch
@@ -69,8 +82,11 @@ from refid_tpu_torch.cli import test as test_cli
 from refid_tpu_torch.cli import train as train_cli
 from refid_tpu_torch.core.checkpoint import CheckpointManager
 from refid_tpu_torch.core.device import time_ms
+from refid_tpu_torch.core.tb_writer import read_scalars
+from refid_tpu_torch.data import img_util
 from refid_tpu_torch.data.datasets.base import GOPRO_TEST_VIDEOS
-from refid_tpu_torch.data.img_util import imread, png_encode
+from refid_tpu_torch.data.img_util import imread, png_encode, tensor2img
+from refid_tpu_torch.data.loader import build_dataset
 from refid_tpu_torch.eval.metrics import calculate_psnr, calculate_ssim
 from refid_tpu_torch.events import voxel_cuda
 from refid_tpu_torch.events.voxel import (
@@ -156,6 +172,13 @@ EVHINET_PARITY_CROP = 256
 # bar between them fails a forward that leaks reduced precision (TF32, autocast)
 EVHINET_PARITY_DB = 100.0
 EVHINET_CROP = 256                 # the tiled evaluation's crop_size
+# EVHINet training (no shipped option file fixes the batch) and the new
+# datasets' items: 6-bin single-image items, crops of ITEM_CROP
+EVHINET_TRAIN_BATCH = 4
+ITEM_CROP = 256
+EVHINET_TRAIN_PARITY_CROP = 64
+PNG_REPEATS = 5                    # decode and write timings: the median
+PNG_DATA_ITEMS = 2                 # the recipe's train items read from each tree
 EVHINET_SITES = 25
 # EVHINet's int8 sites at 1280x720 by distinct (Cin, Cout, H, W, kernel): stride
 # 1, padding kernel // 2, no fused activation (refid_tpu/serve/evhinet_fast.py)
@@ -1199,42 +1222,57 @@ def recipe_overrides(opt, data_root, name, dtype):
     return opt
 
 
-def phase_train_parity(state):
-    """One optimiser step of the recipe's network and optimiser, t=23 on a
-    32x48 crop, on the card (TF32 off) and on the CPU from the same weights
-    and batch."""
-    import yaml
-
-    with open(RECIPE) as f:
-        train_opt = yaml.safe_load(f)["train"]
+def card_vs_cpu_step(make_net, state, train_opt, batch, nchw):
+    """One optimiser step on the card (TF32 off) and on the CPU from the
+    same weights and batch: ``{device: (loss, grad norm, update, params)}``."""
     set_tf32(False)
-    rng = np.random.RandomState(4)
-    h, w, t = 32, 48, 23
-    batch = [rng.rand(1, h, w, 26), rng.randn(1, t, h, w, 2), rng.rand(1, t, h, w, 3)]
     results = {}
-    for device in ("cuda", "cpu"):
-        net = FinalBidirectionAttenfusion(RefidConfig(remat=True))
+    for key, device in (("cuda", CUDA), ("cpu", torch.device("cpu"))):
+        net = make_net()
         net.load_state_dict(state)
         net.to(device)
         trainer = Trainer(net, charbonnier_loss, train_opt, train_opt["total_iter"],
                           frozen=known_unused_keys(net))
         before = {k: p.detach().clone() for k, p in trainer.named}
-        args = [to_nchw(torch.from_numpy(a.astype(np.float32)).to(device)) for a in batch]
+        args = [nchw(torch.from_numpy(a.astype(np.float32)).to(device)) for a in batch]
         metrics = trainer.train_step(*args)
         after = {k: p.detach().float().cpu() for k, p in trainer.named}
-        results[device] = (float(metrics["loss"]), float(metrics["grad_norm"]),
-                           torch.cat([(after[k] - before[k].cpu()).flatten() for k in after]),
-                           torch.cat([after[k].flatten() for k in after]))
+        results[key] = (float(metrics["loss"]), float(metrics["grad_norm"]),
+                        torch.cat([(after[k] - before[k].cpu()).flatten() for k in after]),
+                        torch.cat([after[k].flatten() for k in after]))
+    return results
+
+
+def check_step_parity(phase, results, **fields):
     (lc, gc, dc, pc), (lp, gp, dp, pp) = results["cuda"], results["cpu"]
     update_db, params_db = parity_db(dp, dc), parity_db(pp, pc)
-    emit("train_parity", shape=[32, 48], t=23, loss_cuda=lc, loss_cpu=lp,
+    emit(phase, **fields, loss_cuda=lc, loss_cpu=lp,
          loss_rel_diff=abs(lc - lp) / abs(lp), grad_norm_rel_diff=abs(gc - gp) / abs(gp),
          update_db=update_db, params_db=params_db, min_db=PARITY_DB)
     check(math.isfinite(lc) and abs(lc - lp) / abs(lp) < 1e-4,
-          f"train step loss card {lc} vs CPU {lp}")
+          f"{phase}: loss card {lc} vs CPU {lp}")
     check(update_db >= PARITY_DB and params_db >= PARITY_DB,
-          f"train step card vs CPU: update {update_db:.1f} dB, params "
+          f"{phase} card vs CPU: update {update_db:.1f} dB, params "
           f"{params_db:.1f} dB < {PARITY_DB}")
+
+
+def recipe_train_opt():
+    import yaml
+
+    with open(RECIPE) as f:
+        return yaml.safe_load(f)["train"]
+
+
+def phase_train_parity(state):
+    """One optimiser step of the recipe's network and optimiser, t=23 on a
+    32x48 crop, on the card (TF32 off) and on the CPU from the same weights
+    and batch."""
+    rng = np.random.RandomState(4)
+    h, w, t = 32, 48, 23
+    batch = [rng.rand(1, h, w, 26), rng.randn(1, t, h, w, 2), rng.rand(1, t, h, w, 3)]
+    results = card_vs_cpu_step(lambda: FinalBidirectionAttenfusion(RefidConfig(remat=True)),
+                               state, recipe_train_opt(), batch, to_nchw)
+    check_step_parity("train_parity", results, shape=[32, 48], t=23)
 
 
 def phase_train(data_root, work, dtype):
@@ -1377,6 +1415,341 @@ def phase_eval(data_root, work, state):
     check(launches == items, f"eval: K2 launched {launches} times for {items} items")
     check(saved == items * 23, f"eval saved {saved} images for {items} items")
     return launches
+
+
+def median_ms(fn, repeats):
+    """Median host milliseconds of ``repeats`` calls of ``fn`` (and its
+    last result)."""
+    times = []
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        out = fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times), out
+
+
+def synthetic_frame(rng):
+    """A 1280x720 RGB uint8 frame like the synthetic tree's: a coarse random
+    field, upsampled, plus noise."""
+    coarse = rng.rand(HEIGHT // 40, WIDTH // 40, 3) * 200
+    return (np.kron(coarse, np.ones((40, 40, 1))) + rng.rand(HEIGHT, WIDTH, 3) * 55).astype(
+        np.uint8)
+
+
+def legacy_png_write(bgr, path):
+    """The port's earlier PNG write, step by step, from a uint8
+    BGR tensor on the card: the copy to the host, then filter 0 and zlib's
+    default strategy at level 1, with a copy of the flipped view, of the
+    rows' bytes and of each chunk.  ``{step: ms}``."""
+    t0 = time.perf_counter()
+    host = bgr.cpu().numpy()
+    t1 = time.perf_counter()
+    img = np.ascontiguousarray(host[..., ::-1])
+    rows = np.zeros((HEIGHT, 1 + WIDTH * 3), np.uint8)
+    rows[:, 1:] = img.reshape(HEIGHT, -1)
+    raw = rows.tobytes()
+    t2 = time.perf_counter()
+    idat = zlib.compress(raw, 1)
+    t3 = time.perf_counter()
+
+    def chunk(kind, body):
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body)))
+
+    data = (b"\x89PNG\r\n\x1a\n"
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", WIDTH, HEIGHT, 8, 2, 0, 0, 0))
+            + chunk(b"IDAT", idat) + chunk(b"IEND", b""))
+    t4 = time.perf_counter()
+    with open(path, "wb") as f:
+        f.write(data)
+    t5 = time.perf_counter()
+    return {"to_host_ms": (t1 - t0) * 1e3, "pack_ms": (t2 - t1) * 1e3,
+            "zlib_ms": (t3 - t2) * 1e3, "chunks_crc_ms": (t4 - t3) * 1e3,
+            "write_ms": (t5 - t4) * 1e3, "bytes": len(data)}
+
+
+def png_write(bgr, path):
+    """``img_util.imwrite``'s steps from a uint8 BGR tensor on the card:
+    channels reordered on the card and copied to the host, Sub rows, zlib's
+    RLE strategy at level 1 (cv2.imwrite's settings).  ``{step: ms}``."""
+    t0 = time.perf_counter()
+    rgb = img_util.png_order(bgr)
+    t1 = time.perf_counter()
+    header, lines = img_util.png_scanlines(rgb, 1)
+    t2 = time.perf_counter()
+    idat = img_util.png_deflate(lines, 1, zlib.Z_RLE)
+    t3 = time.perf_counter()
+    data = img_util.png_chunks(header, idat)
+    t4 = time.perf_counter()
+    with open(path, "wb") as f:
+        f.write(data)
+    t5 = time.perf_counter()
+    return {"to_host_ms": (t1 - t0) * 1e3, "pack_ms": (t2 - t1) * 1e3,
+            "zlib_ms": (t3 - t2) * 1e3, "chunks_crc_ms": (t4 - t3) * 1e3,
+            "write_ms": (t5 - t4) * 1e3, "bytes": len(data)}
+
+
+def filtered_tree(src, dst, filter):
+    """A copy of the synthetic tree's train video with every PNG re-encoded
+    with row filter ``filter``; the event windows linked."""
+    for sub in ("blur", "gt"):
+        out = os.path.join(dst, "train", "SYNTH", sub)
+        os.makedirs(out)
+        for name in sorted(os.listdir(os.path.join(src, "train", "SYNTH", sub))):
+            img = imread(os.path.join(src, "train", "SYNTH", sub, name), float32=False)
+            with open(os.path.join(out, name), "wb") as f:
+                f.write(png_encode(img, filter=filter))
+    os.makedirs(os.path.join(dst, "train_event"))
+    os.symlink(os.path.join(src, "train_event", "SYNTH"),
+               os.path.join(dst, "train_event", "SYNTH"))
+
+
+def data_ms_per_item(data_root, items=PNG_DATA_ITEMS):
+    """The recipe's train dataset on ``data_root`` (K2 on the card): host ms
+    per item of reading (PNG decode and event windows), voxelizing, and
+    cropping, and K2's launches."""
+    import yaml
+
+    with open(RECIPE) as f:
+        opt = yaml.safe_load(f)["datasets"]["train"]
+    opt.update(dataroot=data_root, video_list=["SYNTH"], phase="train", seed=0)
+    ds = build_dataset(opt, "cuda")
+    voxel_cuda.reset_grid_stats()
+    for k in range(items):
+        ds[k % len(ds)]
+    timing = dict(ds.timing)
+    n = timing.pop("items")
+    return {k: v / n for k, v in timing.items()}, voxel_cuda.GRID_LAUNCHES
+
+
+def phase_png(data_root, work):
+    """The host PNG codec on a 1280x720 RGB frame: decode through the C
+    unfilter for each row filter, an adaptive mix and Adam7 (equal to the
+    plain Python unfilter byte for byte; the plain path timed on the
+    filter-4 file), ``tensor2img`` on the card, the write of its output split
+    into the copy to the host, packing, zlib, chunks and the file write,
+    for the earlier writer and the current one, and the recipe's train items
+    read from the filter-0 tree and from a filter-4 copy.  Host times.
+    Returns K2's launches."""
+    rng = np.random.RandomState(11)
+    frame = synthetic_frame(rng)
+    decode = {}
+    for name, filt, interlace in [("0", 0, False), ("1", 1, False), ("2", 2, False),
+                                  ("3", 3, False), ("4", 4, False),
+                                  ("adaptive", "adaptive", False), ("adam7", "adaptive", True)]:
+        header, lines = img_util.png_scanlines(frame, filt, interlace)
+        idat = img_util.png_deflate(lines, 1)
+        data = img_util.png_chunks(header, idat)
+        ms, got = median_ms(lambda: img_util.imfrombytes(data, float32=True, rgb=True),
+                            PNG_REPEATS)
+        inflate_ms, raw = median_ms(lambda: np.frombuffer(zlib.decompress(idat), np.uint8),
+                                    PNG_REPEATS)
+        entry = {"bytes": len(data), "decode_ms": ms, "inflate_ms": inflate_ms}
+        if not interlace:
+            entry["unfilter_ms"], _ = median_ms(
+                lambda: img_util.unfilter(raw, HEIGHT, WIDTH * 3, 3), PNG_REPEATS)
+        check(np.array_equal(np.round(got * 255).astype(np.uint8), frame),
+              f"png decode (filter {name}) does not give the frame back")
+        t0 = time.perf_counter()
+        with mock.patch.object(img_util, "unfilter", img_util._unfilter):
+            plain = img_util.imfrombytes(data, "unchanged")
+        if name == "4":
+            entry["plain_decode_ms"] = (time.perf_counter() - t0) * 1e3
+        check(np.array_equal(plain, img_util.imfrombytes(data, "unchanged")),
+              f"png decode (filter {name}): the C unfilter differs from the plain one")
+        decode[name] = entry
+
+    pred = torch.from_numpy(frame.astype(np.float32) / 255).to(CUDA)
+    torch.cuda.synchronize()
+
+    def to_bgr():
+        out = tensor2img(pred)
+        torch.cuda.synchronize()
+        return out
+
+    tensor2img_ms, bgr = median_ms(to_bgr, PNG_REPEATS)
+    encode = {}
+    for name, write in (("before", legacy_png_write), ("after", png_write)):
+        runs = [write(bgr, os.path.join(work, f"png_{name}.png")) for _ in range(PNG_REPEATS)]
+        encode[name] = {k: statistics.median(r[k] for r in runs) for k in runs[0]}
+        encode[name]["total_ms"] = statistics.median(
+            sum(v for k, v in r.items() if k.endswith("_ms")) for r in runs)
+        check(np.array_equal(imread(os.path.join(work, f"png_{name}.png"), float32=False),
+                             frame), f"png write ({name}) does not read back")
+
+    t0 = time.perf_counter()
+    paeth_root = os.path.join(work, "gopro_filter4")
+    filtered_tree(data_root, paeth_root, 4)
+    copy_s = time.perf_counter() - t0
+    filter0, k2_0 = data_ms_per_item(data_root)
+    filter4, k2_4 = data_ms_per_item(paeth_root)
+    emit("png", frame=[HEIGHT, WIDTH, 3], repeats=PNG_REPEATS, decode=decode,
+         tensor2img_ms=tensor2img_ms, encode=encode,
+         data_ms_per_item={"filter0_tree": filter0, "filter4_tree": filter4},
+         items_per_tree=PNG_DATA_ITEMS, filter4_copy_seconds=copy_s,
+         voxel_grid_launches=k2_0 + k2_4, clock="host")
+    check(k2_0 == k2_4 == PNG_DATA_ITEMS, f"png data items: K2 launched {k2_0} + {k2_4} times")
+    return k2_0 + k2_4
+
+
+def evhinet_train_options(data_root, name, dtype):
+    """EVHINet trained as no shipped option file does: the flagship recipe's
+    optimiser, schedule, loss and loader, ``SingleMultiConnectEVHINet`` at
+    its defaults, 6-bin single-image items cropped to ITEM_CROP with flips and
+    rotations in batches of EVHINET_TRAIN_BATCH, validation every
+    ``VAL_FREQ`` iterations on the tree's single-image items, TensorBoard
+    on."""
+    import yaml
+
+    with open(RECIPE) as f:
+        recipe = yaml.safe_load(f)
+    loader = {k: recipe["datasets"]["train"][k]
+              for k in ("use_shuffle", "num_worker_per_gpu", "dataset_enlarge_ratio",
+                        "num_prefetch_queue")}
+    single = {"type": "GoProSingleImageEventDataset", "dataroot": data_root,
+              "num_bins": EV_BINS, "io_backend": {"type": "disk"}}
+    network = {"type": "SingleMultiConnectEVHINet"}
+    if dtype == "bf16":
+        network["compute_dtype"] = "bfloat16"
+    return {"name": name, "model_type": "ImageEventRestorationModel", "scale": 1,
+            "num_gpu": 1, "manual_seed": recipe["manual_seed"],
+            "datasets": {
+                "train": {**single, **loader, "name": "train", "video_list": ["SYNTH"],
+                          "gt_size": ITEM_CROP, "use_hflip": True, "use_rot": True,
+                          "batch_size_per_gpu": EVHINET_TRAIN_BATCH},
+                "val": {**single, "name": "synth"}},
+            "network_g": network,
+            "path": {"pretrain_network_g": None},
+            "train": recipe["train"],
+            "val": {"val_freq": VAL_FREQ, "save_img": False,
+                    "metrics": {k: {"type": f"calculate_{k}", "crop_border": 0,
+                                    "test_y_channel": False} for k in ("psnr", "ssim")}},
+            "logger": {"print_freq": 1, "save_checkpoint_freq": 0, "use_tb_logger": True}}
+
+
+def phase_evhinet_train_parity(state):
+    """One optimiser step of full-width EVHINet with the recipe's optimiser
+    on an EVHINET_TRAIN_PARITY_CROP crop, batch 2, card (TF32 off) against
+    CPU from the same weights and batch."""
+    rng = np.random.RandomState(12)
+    c = EVHINET_TRAIN_PARITY_CROP
+    batch = [rng.rand(2, c, c, 3), rng.randn(2, c, c, EV_BINS), rng.rand(2, c, c, 3)]
+    results = card_vs_cpu_step(lambda: EVHINet(), state, recipe_train_opt(), batch,
+                               lambda t: t.permute(0, 3, 1, 2).contiguous())
+    check_step_parity("evhinet_train_parity", results, shape=[c, c], batch=2, wf=64)
+
+
+def phase_evhinet_train(data_root, work, dtype):
+    """EVHINet through the train CLI's ``main`` for TRAIN_ITERS iterations
+    with validations after iterations 4 and 8, its TensorBoard file read
+    back; returns K2's launches."""
+    import yaml
+
+    name = f"chip_smoke_evhinet_{dtype}"
+    path = os.path.join(work, f"{name}.yml")
+    with open(path, "w") as f:
+        yaml.safe_dump(evhinet_train_options(data_root, name, dtype), f)
+    voxel_cuda.reset_grid_stats()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    task = train_cli.main(["-opt", path, "--root", work, "--max-iters", str(TRAIN_ITERS)])
+    seconds = time.perf_counter() - t0
+    timing = dict(task.train_loader.dataset.timing)
+    items, launches = timing.pop("items"), voxel_cuda.GRID_LAUNCHES
+    val_items = sum(loader.dataset.timing["items"] for _, loader in task.val_loaders)
+    steps = [h for h in task.history if "loss" in h]
+    vals = [h for h in task.history if "val" in h]
+    losses = [h["loss"] for h in steps]
+    step_ms = [h["time"] * 1e3 for h in steps]
+    tb_dir = os.path.join(work, "tb_logger", name)
+    files = [f for f in os.listdir(tb_dir) if f.startswith("events.out.tfevents.")]
+    scalars = read_scalars(os.path.join(tb_dir, files[0])) if len(files) == 1 else []
+    tags = sorted({tag for _, tag, _ in scalars})
+    want_tags = sorted(["learning_rate", "losses/grad_norm", "losses/loss",
+                        "metrics/synth/psnr", "metrics/synth/ssim"])
+    loss_steps = [step for step, tag, _ in scalars if tag == "losses/loss"]
+    metric_steps = [step for step, tag, _ in scalars if tag == "metrics/synth/psnr"]
+    emit("evhinet_train", dtype=dtype, iters=TRAIN_ITERS, batch=EVHINET_TRAIN_BATCH,
+         crop=ITEM_CROP, wf=64, losses=losses, step_ms=step_ms,
+         mean_step_ms_after_first=sum(step_ms[1:]) / len(step_ms[1:]),
+         items_loaded=items, val_items_loaded=val_items, voxel_grid_launches=launches,
+         data_ms_per_item={k: v / items for k, v in timing.items()}, validations=vals,
+         max_memory_allocated=torch.cuda.max_memory_allocated(),
+         tensorboard={"files": files, "tags": tags, "scalars": len(scalars),
+                      "loss_steps": loss_steps, "metric_steps": metric_steps},
+         seconds=seconds)
+    check(len(losses) == TRAIN_ITERS and all(math.isfinite(v) for v in losses),
+          f"evhinet {dtype} training losses {losses}")
+    check([h["iter"] for h in vals] == list(range(VAL_FREQ, TRAIN_ITERS + 1, VAL_FREQ))
+          and all(math.isfinite(h[k]) for h in vals for k in ("psnr", "ssim")),
+          f"evhinet {dtype} training validations {vals}")
+    check(items > 0 and val_items > 0 and launches == items + val_items,
+          f"evhinet {dtype} training: K2 launched {launches} times for {items} + "
+          f"{val_items} items")
+    check(tags == want_tags and loss_steps == list(range(1, TRAIN_ITERS + 1))
+          and metric_steps == [h["iter"] for h in vals],
+          f"evhinet {dtype} TensorBoard file {files}: tags {tags}, loss steps "
+          f"{loss_steps}, metric steps {metric_steps}")
+    return launches
+
+
+def layout_trees(data_root, work):
+    """The synthetic video in the HighREV layout (events under the video,
+    ``(N, 1)`` fields, x and y swapped) and the BS-ERGB one
+    (``3_TRAINING/<video>/images`` with one more frame than
+    ``events/``)."""
+    highrev = os.path.join(work, "highrev")
+    video = os.path.join(highrev, "train", "SYNTH")
+    os.makedirs(os.path.join(video, "event"))
+    for sub in ("blur", "gt"):
+        os.symlink(os.path.join(data_root, "train", "SYNTH", sub), os.path.join(video, sub))
+    ev_dir = os.path.join(data_root, "train_event", "SYNTH")
+    for name in sorted(os.listdir(ev_dir)):
+        d = np.load(os.path.join(ev_dir, name))
+        np.savez(os.path.join(video, "event", name), timestamp=d["timestamp"][:, None],
+                 x=d["y"][:, None].astype(np.float32), y=d["x"][:, None].astype(np.float32),
+                 polarity=d["polarity"][:, None].astype(np.float32))
+    bsergb = os.path.join(work, "bsergb")
+    video = os.path.join(bsergb, "3_TRAINING", "SYNTH")
+    os.makedirs(video)
+    os.symlink(os.path.join(data_root, "train", "SYNTH", "gt"), os.path.join(video, "images"))
+    os.symlink(ev_dir, os.path.join(video, "events"))
+    return highrev, bsergb
+
+
+def phase_datasets(data_root, work):
+    """One item of each deblur dataset and of BS-ERGB at 1280x720, built on
+    the card (K2) and on the CPU (the plain voxelizer) from one seed: images
+    equal, voxels within KERNEL_TOL.  Returns K2's launches."""
+    highrev, bsergb = layout_trees(data_root, work)
+    deblur = {"num_end_interpolation": 11, "num_inter_interpolation": 1}
+    cases = [("DeblurGoProEventRecurrentDataset", data_root, deblur),
+             ("DeblurUNDEventRecurrentDataset", highrev, deblur),
+             ("DeblurGoProBidirEventRecurrentDataset", data_root, deblur),
+             ("BsergbSharpEventRecurrentDataset", bsergb,
+              {"num_end_interpolation": 1, "num_inter_interpolation": 3})]
+    results, total = {}, 0
+    for dtype, root, kw in cases:
+        opt = {"type": dtype, "dataroot": root, "phase": "train", "scale": 1,
+               "video_list": ["SYNTH"], "one_voxel_flag": True, "return_deblur_voxel": False,
+               "gt_size": ITEM_CROP, "use_hflip": True, "use_rot": True, "seed": 5, **kw}
+        voxel_cuda.reset_grid_stats()
+        card = build_dataset(dict(opt), "cuda")[0]
+        launches = voxel_cuda.GRID_LAUNCHES
+        cpu = build_dataset(dict(opt), "cpu")[0]
+        err = float(np.abs(card["voxel"] - cpu["voxel"]).max())
+        same = all(np.array_equal(card[k], cpu[k]) for k in ("lq", "gt"))
+        results[dtype] = {"lq": list(card["lq"].shape), "gt": list(card["gt"].shape),
+                          "voxel": list(card["voxel"].shape), "images_equal": same,
+                          "voxel_max_abs_err": err, "voxel_grid_launches": launches}
+        check(same and card["voxel"].shape == cpu["voxel"].shape and err <= KERNEL_TOL
+              and np.isfinite(card["voxel"]).all(),
+              f"{dtype}: card item differs from the CPU item ({results[dtype]})")
+        check(launches == (2 if "Bidir" in dtype else 1),
+              f"{dtype}: K2 launched {launches} times for one item")
+        total += launches
+    emit("datasets", frame=[HEIGHT, WIDTH], datasets=results, tol=KERNEL_TOL)
+    return total
 
 
 def phase_voxel_grid_padded(calls=4):
@@ -1588,10 +1961,13 @@ def main():
 
     t0 = time.perf_counter()
     built = build.build()
+    t1 = time.perf_counter()
+    host = build.build_host("png_unfilter")        # the host C unfilter, not a kernel
     emit("build", seconds=time.perf_counter() - t0,
          kernels={k: {"seconds": v["seconds"], "ptxas": [
              line for line in v["log"].splitlines() if "Used" in line or "spill" in line]}
-                  for k, v in built.items()})
+                  for k, v in built.items()},
+         host={"png_unfilter": {"seconds": time.perf_counter() - t1, "path": host.name}})
 
     max_err, events, skewed, n_valid = phase_kernel_check()
     timing = phase_kernel_timing(events, skewed, n_valid)
@@ -1671,6 +2047,15 @@ def main():
         emit("evhinet_eval_path", voxel_grid_launches=evhinet_k2,
              seconds=time.perf_counter() - t0)
         grid_launches += serve_k2 + evhinet_k2
+        t0 = time.perf_counter()                   # the IO and training tail
+        grid_launches += phase_png(data_root, work)
+        phase_evhinet_train_parity(evhinet_state(1, filled=True))
+        torch.backends.cudnn.allow_tf32 = True       # PyTorch's defaults
+        torch.backends.cuda.matmul.allow_tf32 = False
+        for dtype in ("f32", "bf16"):
+            grid_launches += phase_evhinet_train(data_root, work, dtype)
+        grid_launches += phase_datasets(data_root, work)
+        emit("io_train_tail", seconds=time.perf_counter() - t0)
 
     t0 = time.perf_counter()
     probe_errs, p1, p2, p3_plain_ms, p4_plain_ms, device_ms = phase_probe_kernel_check()

@@ -16,6 +16,11 @@ pairs) and ``task.history``: the logged iterations (loss,
 grad norm, lr and seconds since the previous iteration ended, its
 checkpoint counted and its validation not) and the
 validations (``val``: the dataset's name, its results, ``seconds``).
+
+``logger.use_tb_logger`` writes ``losses/<name>`` and ``learning_rate`` at
+each logged iteration and ``metrics/<dataset>/<name>`` at each validation
+to ``<path.root>/tb_logger/<name>/`` (``core/tb_writer.py``), with wandb
+syncing it when ``logger.wandb.project`` is set.
 """
 
 from __future__ import annotations
@@ -30,7 +35,7 @@ import torch
 
 from refid_tpu_torch.core.config import dict2str, parse_options
 from refid_tpu_torch.core.device import resolve_device
-from refid_tpu_torch.core.logging_util import MessageLogger, get_root_logger
+from refid_tpu_torch.core.logging_util import MessageLogger, get_root_logger, init_tb_logger
 from refid_tpu_torch.data.loader import build_dataset, build_loader
 from refid_tpu_torch.tasks import build_task
 
@@ -58,9 +63,9 @@ def main(argv=None):
     return train(opt, args.device)
 
 
-def _validate(task, current_iter, epoch, msg_logger, logger):
-    """Each val loader once: results to the log, the message logger and
-    ``task.history``."""
+def _validate(task, current_iter, tb_logger, logger):
+    """Each val loader once: results to the log, ``task.history`` and the
+    TensorBoard file (``metrics/<dataset>/<name>``)."""
     save_img = (task.opt.get("val") or {}).get("save_img", False)
     for dataset_opt, loader in task.val_loaders:
         name = dataset_opt.get("name", "val")
@@ -70,8 +75,9 @@ def _validate(task, current_iter, epoch, msg_logger, logger):
         seconds = time.perf_counter() - t0
         task.history.append({"iter": current_iter, "val": name, "seconds": seconds,
                              **results})
-        msg_logger({"iter": current_iter, "epoch": epoch,
-                    **{f"{name}_{k}": v for k, v in results.items()}})
+        if tb_logger is not None and results:
+            tb_logger.add_scalars({f"metrics/{name}/{k}": v for k, v in results.items()},
+                                  current_iter)
 
 
 def train(opt: dict, device="cuda"):
@@ -120,20 +126,33 @@ def train(opt: dict, device="cuda"):
     if task.auto_resume():
         logger.info(f"auto-resumed from iter {task.start_iter}")
 
+    tb_logger = init_tb_logger(opt)
+    try:
+        _train_loop(task, opt, tb_logger, logger)
+    finally:
+        if tb_logger is not None:
+            tb_logger.close()
+    return task
+
+
+def _train_loop(task, opt, tb_logger, logger):
+    """Iterations from ``task.start_iter`` to ``train.total_iter``: log,
+    checkpoint and validate at their frequencies, then the final checkpoint
+    and, unless the last iteration just ran one, a validation."""
     total_iter = opt["train"]["total_iter"]
     print_freq = opt.get("logger", {}).get("print_freq", 100)
     save_freq = int(opt.get("logger", {}).get("save_checkpoint_freq", 0) or 0)
     val_freq = int((opt.get("val") or {}).get("val_freq", 0) or 0)
     validated_at = None
-    msg_logger = MessageLogger(opt, task.start_iter + 1)
+    msg_logger = MessageLogger(opt, task.start_iter + 1, tb_logger)
 
     current_iter = task.start_iter
     epoch = task.start_epoch
     t_iter = time.time()
     logger.info(f"start training from iter {current_iter} to {total_iter}")
     while current_iter < total_iter:
-        train_loader.set_epoch(epoch)
-        for dev_batch in task.device_prefetch(train_loader):
+        task.train_loader.set_epoch(epoch)
+        for dev_batch in task.device_prefetch(task.train_loader):
             if current_iter >= total_iter:
                 break
             current_iter += 1
@@ -149,9 +168,9 @@ def train(opt: dict, device="cuda"):
             if save_freq and current_iter % save_freq == 0:
                 logger.info(f"saving checkpoint at iter {current_iter}")
                 task.save(current_iter, epoch)
-            if val_freq and current_iter % val_freq == 0 and val_loaders:
+            if val_freq and current_iter % val_freq == 0 and task.val_loaders:
                 t_val = time.time()
-                _validate(task, current_iter, epoch, msg_logger, logger)
+                _validate(task, current_iter, tb_logger, logger)
                 validated_at = current_iter
                 t_iter += time.time() - t_val     # a validation is not the next step's
         epoch += 1
@@ -159,8 +178,7 @@ def train(opt: dict, device="cuda"):
     logger.info("training complete; saving final checkpoint")
     task.save(current_iter, epoch)
     if validated_at != current_iter:
-        _validate(task, current_iter, epoch, msg_logger, logger)
-    return task
+        _validate(task, current_iter, tb_logger, logger)
 
 
 if __name__ == "__main__":

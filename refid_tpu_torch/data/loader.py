@@ -31,7 +31,7 @@ __all__ = ["build_dataset", "build_loader", "EnlargedIndexSampler",
 
 def build_dataset(dataset_opt: dict, device="cuda"):
     from refid_tpu_torch.data.datasets import (  # noqa: F401 (registers)
-        gopro_recurrent, gopro_sharp, highrev, single_image,
+        bsergb, deblur_recurrent, gopro_recurrent, gopro_sharp, highrev, single_image,
     )
     cls = DATASETS.get(dataset_opt["type"])
     return cls(dataset_opt, device=device)

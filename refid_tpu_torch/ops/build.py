@@ -1,4 +1,5 @@
-"""Build the port's CUDA kernels with ``nvcc`` and load them with ``ctypes``.
+"""Build the port's CUDA kernels with ``nvcc``, and its host C functions with
+the C compiler, and load them with ``ctypes``.
 
 Each ``csrc/<name>.cu`` compiles on its own into ``lib<name>-<hash>.so``, a
 shared library with a plain C interface, for Hopper (``sm_90a``).  The hash
@@ -7,6 +8,12 @@ source rebuilds and an unchanged one is reused.  Builds happen at first
 use, into ``refid_tpu_torch/_build/`` (listed in ``.gitignore``), from the
 sources in the checkout alone; nothing is downloaded.  A missing ``nvcc``
 or a failed compile raises with the compiler's output.
+
+Each ``csrc/<name>.c`` (host code, e.g. the PNG unfilter) compiles with
+``$CC``, else ``cc``, else ``gcc`` (``-O3 -shared -fPIC``) into
+``lib<name>-<hash>.so`` in the same directory, hashed from that one source,
+the compiler and its flags: editing it rebuilds no CUDA library, and
+editing a ``.cu`` rebuilds no host library.  A missing compiler raises.
 
 Nothing here runs at import: the CPU tests import every module of the
 package on a machine without ``nvcc``.
@@ -17,6 +24,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import shlex
 import shutil
 import subprocess
 import threading
@@ -24,13 +32,15 @@ import time
 from pathlib import Path
 from typing import Dict, Iterable, Optional
 
-__all__ = ["CSRC_DIR", "BUILD_DIR", "kernel_names", "build", "load", "raise_on_error"]
+__all__ = ["CSRC_DIR", "BUILD_DIR", "kernel_names", "build", "load", "raise_on_error",
+           "build_host", "load_host"]
 
 _PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PKG_DIR / "csrc"
 BUILD_DIR = _PKG_DIR / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+HOST_CFLAGS = ("-O3", "-shared", "-fPIC")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 _load_lock = threading.Lock()
@@ -105,6 +115,53 @@ def load(name: str) -> ctypes.CDLL:
             lib.refid_cuda_error_string.argtypes = [ctypes.c_int]
             lib.refid_cuda_error_string.restype = ctypes.c_char_p
             _loaded[name] = lib
+        return lib
+
+
+def _find_cc() -> list:
+    """The host C compiler: ``$CC`` (may carry flags), else ``cc``, else
+    ``gcc``."""
+    env = shlex.split(os.environ.get("CC", ""))
+    for cand in ([env] if env else []) + [["cc"], ["gcc"]]:
+        path = shutil.which(cand[0])
+        if path:
+            return [path, *cand[1:]]
+    raise RuntimeError("no C compiler found ($CC, cc, gcc on PATH): cannot build the "
+                       "port's host C functions (csrc/*.c)")
+
+
+def build_host(name: str) -> Path:
+    """Compile ``csrc/<name>.c`` into a shared library (reused when built
+    from the same source, compiler and flags) and return its path."""
+    src = CSRC_DIR / f"{name}.c"
+    if not src.is_file():
+        raise FileNotFoundError(f"no host source {src}")
+    cmd = _find_cc()
+    digest = hashlib.sha256(" ".join(cmd + list(HOST_CFLAGS)).encode())
+    digest.update(src.read_bytes())
+    out = BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
+    if out.is_file():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.{threading.get_ident()}.tmp")
+    cmd = [*cmd, *HOST_CFLAGS, "-o", str(tmp), str(src)]
+    proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"host C build failed:\n{' '.join(cmd)}\n"
+                           f"(exit {proc.returncode})\n{proc.stdout}")
+    os.replace(tmp, out)    # atomic: another process never loads half a file
+    return out
+
+
+def load_host(name: str) -> ctypes.CDLL:
+    """Build (if needed) and load ``csrc/<name>.c``'s library, once per
+    process."""
+    key = f"{name}.c"
+    with _load_lock:
+        lib = _loaded.get(key)
+        if lib is None:
+            lib = _loaded[key] = ctypes.CDLL(str(build_host(name)))
         return lib
 
 

@@ -94,7 +94,7 @@ class _RecurrentTaskBase(RestorationTaskBase):
                         self.opt["path"].get("visualization", "vis"),
                         dataset_opt.get("name", "val"), name)
                     ts = time.perf_counter()
-                    imwrite(sr_img.cpu().numpy(), path)
+                    imwrite(sr_img, path)
                     save_s += time.perf_counter() - ts
                 bucket = acc_interpo if is_interpo else acc_deblur
                 opts = metrics_interpo if is_interpo else metrics_deblur

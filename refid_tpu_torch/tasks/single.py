@@ -78,7 +78,7 @@ class ImageEventRestorationTask(RestorationTaskBase):
             if save_img:
                 name = f"{batch['seq'][0]}/{batch['origin_index'][0]}.png"
                 ts = time.perf_counter()
-                imwrite(sr_img.cpu().numpy(), os.path.join(
+                imwrite(sr_img, os.path.join(
                     self.opt["path"].get("visualization", "vis"),
                     dataset_opt.get("name", "val"), name))
                 save_s = time.perf_counter() - ts
@@ -104,7 +104,7 @@ class ImageEventRestorationTask(RestorationTaskBase):
         (tiled when ``val.crop_size`` is set) and write the PNG to
         ``save_path``; returns the ``(h, w, 3)`` prediction."""
         pred = self._predict_item(img, voxel)
-        imwrite(tensor2img(pred).cpu().numpy(), save_path)
+        imwrite(tensor2img(pred), save_path)
         return pred
 
 

@@ -267,6 +267,68 @@ def test_dataset_items_equal_jax(gopro_root, dtype, kw):
     assert ours.timing["items"] == 5 and ours.timing["voxelize_ms"] > 0
 
 
+@pytest.fixture(scope="module")
+def highrev_root(tmp_path_factory):
+    root = str(tmp_path_factory.mktemp("highrev"))
+    make_gopro_tree(root, layout="highrev", m=M, n=N)
+    return root
+
+
+@pytest.fixture(scope="module")
+def bsergb_root(tmp_path_factory):
+    """BS-ERGB layout, as tests/test_datasets.py::test_bsergb_dataset writes
+    it: 3_TRAINING/<video>/{images,events}, one more image than windows."""
+    rng = np.random.RandomState(0)
+    root = str(tmp_path_factory.mktemp("bsergb"))
+    h, w = 24, 32
+    for video, n_imgs in (("seq0", 10), ("seq1", 7)):
+        vdir = os.path.join(root, "3_TRAINING", video)
+        os.makedirs(os.path.join(vdir, "images"))
+        os.makedirs(os.path.join(vdir, "events"))
+        for k in range(n_imgs):
+            cv2.imwrite(os.path.join(vdir, "images", "%06d.png" % k),
+                        (rng.rand(h, w, 3) * 255).astype(np.uint8))
+        for k in range(n_imgs - 1):
+            ne = 200
+            np.savez(os.path.join(vdir, "events", "%06d.npz" % k),
+                     timestamp=np.sort(rng.rand(ne) + k).astype(np.float32),
+                     x=rng.randint(0, w, ne).astype(np.int16),
+                     y=rng.randint(0, h, ne).astype(np.int16),
+                     polarity=rng.choice([0, 1], ne).astype(np.int8))
+    return root
+
+
+@pytest.mark.parametrize("root,dtype,kw", [
+    ("gopro_root", "DeblurGoProEventRecurrentDataset", {}),
+    ("gopro_root", "DeblurGoProEventRecurrentDataset", {"gt_size": None, "use_rot": False}),
+    ("highrev_root", "DeblurUNDEventRecurrentDataset", {"video_list": None}),
+    ("gopro_root", "DeblurGoProBidirEventRecurrentDataset", {"random_reverse": True}),
+    ("bsergb_root", "BsergbSharpEventRecurrentDataset",
+     {"video_list": None, "num_end_interpolation": 1, "num_inter_interpolation": 2}),
+    ("bsergb_root", "BsergbSharpEventRecurrentDataset",
+     {"video_list": ["seq1"], "num_end_interpolation": 1, "num_inter_interpolation": 1,
+      "return_deblur_voxel": True, "gt_size": None}),
+])
+def test_deblur_and_bsergb_items_equal_jax(request, root, dtype, kw):
+    """The deblur datasets (one blurred frame -> m sharp ones) and BS-ERGB
+    against the JAX package's, elementwise: images exact, voxels at the C++
+    host path's 1e-5; the same crops, flips and reversals from one seed."""
+    root = request.getfixturevalue(root)
+    opt = _opt(root, dtype, **{"return_deblur_voxel": False, **kw})
+    ours = build_dataset(opt, device="cpu")
+    ref = jax_build_dataset(_opt(root, dtype, **{"return_deblur_voxel": False, **kw}))
+    assert len(ours) == len(ref) > 0
+    for idx in [0, len(ref) - 1, 0, len(ref) // 2]:
+        got, want = ours[idx], ref[idx]
+        assert got.keys() == want.keys()
+        for key in ("lq", "gt"):
+            assert got[key].shape == want[key].shape and got[key].dtype == np.float32
+            np.testing.assert_array_equal(got[key], want[key])
+        assert got["voxel"].shape == want["voxel"].shape
+        np.testing.assert_allclose(got["voxel"], want["voxel"], rtol=0, atol=1e-5)
+        assert (got["seq"], got["origin_index"]) == (want["seq"], want["origin_index"])
+
+
 def test_norm_voxel_is_not_applied(gopro_root):
     a = build_dataset(_opt(gopro_root, norm_voxel=True, gt_size=None,
                            use_hflip=False, use_rot=False), device="cpu")[0]

@@ -1,7 +1,8 @@
 """refid_tpu_torch stands alone: it imports with jax, flax and refid_tpu blocked
 (and with cv2 and yaml blocked: the port reads PNG itself, and yaml is needed
 only when an option file is parsed), and no module of it (nor chip_smoke.py)
-names them in an import statement."""
+names them in an import statement; lmdb, mc and wandb are imported only
+inside the functions that use them."""
 
 import ast
 import os
@@ -32,6 +33,14 @@ print(" ".join(names))
 SINGLE_IMAGE_MODULES = {"refid_tpu_torch.models.evhinet", "refid_tpu_torch.tasks.single",
                         "refid_tpu_torch.data.datasets.single_image",
                         "refid_tpu_torch.cli.demo"}
+# the IO and training tail: backends, lmdb tooling, path pairing, the deblur
+# and BS-ERGB datasets, the TensorBoard writer
+IO_MODULES = {"refid_tpu_torch.data.file_client", "refid_tpu_torch.data.lmdb_util",
+              "refid_tpu_torch.data.data_util", "refid_tpu_torch.cli.create_lmdb",
+              "refid_tpu_torch.data.datasets.deblur_recurrent",
+              "refid_tpu_torch.data.datasets.bsergb", "refid_tpu_torch.core.tb_writer"}
+# client packages imported only inside the function that needs them
+LAZY = ("lmdb", "mc", "wandb")
 
 
 def test_every_module_imports_with_jax_and_refid_tpu_blocked():
@@ -40,8 +49,8 @@ def test_every_module_imports_with_jax_and_refid_tpu_blocked():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     names = set(out.stdout.split())
-    assert len(names) >= 57      # the eval package, test CLI and single-image path included
-    assert SINGLE_IMAGE_MODULES <= names
+    assert len(names) >= 64      # the eval package, test CLI, single-image path and IO
+    assert SINGLE_IMAGE_MODULES | IO_MODULES <= names
 
 
 def _imported_modules(path):
@@ -58,6 +67,17 @@ def test_no_import_names_the_jax_package(path):
     bad = [m for m in _imported_modules(path)
            if m.split(".")[0] in FORBIDDEN]
     assert not bad, f"{path.name} imports {bad}"
+
+
+@pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")), ids=lambda p: str(p.relative_to(REPO)))
+def test_client_packages_are_imported_only_where_used(path):
+    """lmdb, mc and wandb are in no module-level import: a module imports
+    without them, and only a backend that is built needs its package."""
+    tree = ast.parse(path.read_text(), str(path))
+    top = [n for n in tree.body if isinstance(n, (ast.Import, ast.ImportFrom))]
+    names = [a.name for n in top if isinstance(n, ast.Import) for a in n.names]
+    names += [n.module for n in top if isinstance(n, ast.ImportFrom) and n.module]
+    assert not [m for m in names if m.split(".")[0] in LAZY]
 
 
 def test_yaml_is_needed_only_to_parse_a_file(tmp_path):
@@ -78,8 +98,10 @@ def test_import_builds_nothing():
     code = ("import refid_tpu_torch.events.voxel_cuda as v, refid_tpu_torch.ops.build as b;"
             "import refid_tpu_torch.ops.probe_cuda as p, refid_tpu_torch.probes.band_conv,"
             " refid_tpu_torch.probes.poison, refid_tpu_torch.cli.test, refid_tpu_torch.eval.niqe,"
-            " refid_tpu_torch.cli.demo, refid_tpu_torch.tasks.single;"
-            "print(v._lib is None and p._libs == {}, b._loaded == {})")
+            " refid_tpu_torch.cli.demo, refid_tpu_torch.tasks.single,"
+            " refid_tpu_torch.cli.create_lmdb, refid_tpu_torch.data.lmdb_util;"
+            "import refid_tpu_torch.data.img_util as i;"
+            "print(v._lib is None and p._libs == {} and i._lib is None, b._loaded == {})")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.stdout.split() == ["True", "True"], out.stderr
