@@ -82,6 +82,7 @@ from refid_tpu_torch.cli import test as test_cli
 from refid_tpu_torch.cli import train as train_cli
 from refid_tpu_torch.core.checkpoint import CheckpointManager
 from refid_tpu_torch.core.device import time_ms
+from refid_tpu_torch.core.registry import ARCHS
 from refid_tpu_torch.core.tb_writer import read_scalars
 from refid_tpu_torch.data import img_util
 from refid_tpu_torch.data.datasets.base import GOPRO_TEST_VIDEOS
@@ -93,6 +94,7 @@ from refid_tpu_torch.events.voxel import (
     events_to_voxel_grid, events_to_voxel_grid_padded, events_to_voxel_grid_reference,
     pad_events, voxel_norm_np, voxelize_padded_reference,
 )
+from refid_tpu_torch.models import archs as _archs  # noqa: F401 (registers the archs)
 from refid_tpu_torch.models.convert import known_unused_keys, load_state
 from refid_tpu_torch.models.evhinet import EVHINet
 from refid_tpu_torch.models.refid import FinalBidirectionAttenfusion
@@ -180,6 +182,35 @@ EVHINET_TRAIN_PARITY_CROP = 64
 PNG_REPEATS = 5                    # decode and write timings: the median
 PNG_DATA_ITEMS = 2                 # the recipe's train items read from each tree
 EVHINET_SITES = 25
+# the ablation lineages (registry name, recurrent_block_type): the 13 cases of
+# tests/test_ablation_shapes.py, UNetPSDecoderRecurrent/convgru of
+# tests/test_ablation_parity.py and FinalBidirection; then one with the DCN
+# first conv (use_first_dcn)
+ABLATIONS = [("UNetRecurrent", "convlstm", False), ("UNetRecurrent", "convgru", False),
+             ("UNetDecoderRecurrent", "simpleconv", False),
+             ("UNetDecoderRecurrent", "simpleconvThendown", False),
+             ("UNetDecoderRecurrent", "convlstm", False),
+             ("UNetDecoderRecurrent", "convgru", False),
+             ("BidirUNetRecurrent", "simpleconv", False),
+             ("UNetDecoderRecurrentBidirection", "simpleconv", False),
+             ("UNetDecoderRecurrentBidirection", "simpleconvThendown", False),
+             ("UNetDecoderRecurrentAllBidirection", "simpleconvThendown", False),
+             ("UNetPSDecoderRecurrent", "convlstm", False),
+             ("UNetDecoderRecurrentSiameseImg", "simpleconvThendown", False),
+             ("UNetDecoderRecurrentSiameseImgNoAtten", "simpleconvThendown", False),
+             ("UNetPSDecoderRecurrent", "convgru", False),
+             ("FinalBidirection", None, False),
+             ("UNetDecoderRecurrent", "simpleconv", True)]
+ABLATION_PARITY_SIZE, ABLATION_PARITY_T = 128, 5
+ABLATION_WINDOWS = 3               # a dtype's windows: 1 warm-up, 2 timed
+# the ablation_train phase's networks: (name, recurrent_block_type, overrides)
+ABLATION_TRAIN = [("UNetRecurrent", "convlstm", {}), ("UNetPSDecoderRecurrent", "convgru", {}),
+                  ("UNetDecoderRecurrentAllBidirection", None, {}),
+                  ("UNetDecoderRecurrentSiameseImg", None, {}),
+                  ("FinalBidirectionAttenfusion", None, {"remat_policy": "all"}),
+                  ("FinalBidirectionAttenfusion", None, {"remat_policy": "stage_outputs"})]
+ABLATION_TRAIN_ITERS = 3
+ABLATION_FIXED_STEPS = 3           # timed steps on one batch after the CLI's
 # EVHINet's int8 sites at 1280x720 by distinct (Cin, Cout, H, W, kernel): stride
 # 1, padding kernel // 2, no fused activation (refid_tpu/serve/evhinet_fast.py)
 EVHINET_INT8_SHAPES = {
@@ -1949,6 +1980,249 @@ def phase_probe_poison():
     emit("probe_poison", variants=results)
 
 
+# --- the ablation lineages ------------------------------------------------------
+
+def ablation_label(name, rbt, dcn=False, **overrides):
+    return "/".join([name] + ([rbt] if rbt else []) + (["dcn"] if dcn else [])
+                    + [f"{k}={v}" for k, v in overrides.items()])
+
+
+def ablation_net_opt(name, rbt, dcn=False):
+    """``network_g`` at the production widths (blurry VFI 11+1), seeded
+    weights to come."""
+    opt = {"type": name, "img_chn": 26, "ev_chn": 2, "num_encoders": 3,
+           "base_num_channels": 32, "num_block": 1, "num_residual_blocks": 2,
+           "use_first_dcn": dcn}
+    if rbt:
+        opt["recurrent_block_type"] = rbt
+    return opt
+
+
+def ablation_model(k, name, rbt, dcn):
+    model = ARCHS.get(name)(ablation_net_opt(name, rbt, dcn))
+    fill_random(model, seed=100 + k)         # every parameter, DCN offsets included
+    return model
+
+
+def phase_ablation_parity():
+    """Each ablation network (seeded random weights) on the card (float32,
+    TF32 off) against the CPU, at full width on a 128x128 frame, t = 5."""
+    set_tf32(False)
+    t0 = time.perf_counter()
+    rng = np.random.RandomState(11)
+    s, t = ABLATION_PARITY_SIZE, ABLATION_PARITY_T
+    x = torch.from_numpy(rng.rand(1, 26, s, s).astype(np.float32))
+    ev = torch.from_numpy(rng.randn(1, t, 2, s, s).astype(np.float32))
+    dbs, errs = {}, {}
+    for k, (name, rbt, dcn) in enumerate(ABLATIONS):
+        label = ablation_label(name, rbt, dcn)
+        model = ablation_model(k, name, rbt, dcn).eval()
+        with torch.no_grad():
+            want = model(x, ev)
+            got = model.to(CUDA)(x.to(CUDA), ev.to(CUDA)).cpu()
+        check(got.shape == (1, t, 3, s, s) and bool(torch.isfinite(got).all()),
+              f"ablation_parity {label}: shape {tuple(got.shape)} or not finite")
+        dbs[label] = parity_db(want, got)
+        errs[label] = float((want - got).abs().max())
+        del model
+    emit("ablation_parity", shape=[s, s], t=t, db=dbs, max_abs_err=errs, min_db=PARITY_DB,
+         seconds=time.perf_counter() - t0)
+    low = {k: v for k, v in dbs.items() if v < PARITY_DB}
+    check(not low, f"ablation card vs CPU below {PARITY_DB} dB: {low}")
+
+
+def dcn_hooks(model, enter, leave):
+    """``enter(mod)`` before and ``leave(mod)`` after every call of a
+    deformable conv of ``model``; returns a function that removes the hooks."""
+    from refid_tpu_torch.ops.deform_conv import ModulatedDeformConvPack
+
+    handles = []
+    for mod in model.modules():
+        if isinstance(mod, ModulatedDeformConvPack):
+            handles += [mod.register_forward_pre_hook(lambda m, inp: enter(m)),
+                        mod.register_forward_hook(lambda m, inp, out: leave(m))]
+    return lambda: [handle.remove() for handle in handles]
+
+
+def profile_dcn_window(pipe, request, dtype):
+    """The DCN network's deformable convs in two more windows: CUDA events
+    around each call (the stream's time from a call's first kernel to its
+    last, host gaps included) against the host-clock window; then
+    torch.profiler with a ``deform_conv`` range around each call: the
+    device time of the kernels the ranges launched against all kernels'."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    def run():
+        with torch.autocast("cuda", dtype=torch.bfloat16, enabled=dtype == "bf16"):
+            pipe(*request)
+        torch.cuda.synchronize()
+
+    pairs, scopes = [], []
+
+    def start_events(mod):
+        pairs.append((torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)))
+        pairs[-1][0].record()
+
+    remove = dcn_hooks(pipe.model, start_events, lambda mod: pairs[-1][1].record())
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        window_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        remove()
+    event_ms = sum(start.elapsed_time(end) for start, end in pairs)
+
+    def enter(mod):
+        scopes.append(record_function("deform_conv"))
+        scopes[-1].__enter__()
+
+    remove = dcn_hooks(pipe.model, enter, lambda mod: scopes.pop().__exit__(None, None, None))
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            run()
+    finally:
+        remove()
+    events = prof.events()
+    # kernels and copies; the ranges' own device-side spans are not kernels
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA and e.name != "deform_conv"]
+    busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    dcn_ms = sum(e.device_time_total for e in events
+                  if e.name == "deform_conv" and e.device_type == DeviceType.CPU) / 1e3
+    check(busy_ms > 0 and pairs and event_ms > 0 and dcn_ms > 0,
+          f"DCN window: busy {busy_ms} ms, {len(pairs)} calls, {event_ms} / {dcn_ms} ms")
+    return {"dtype": dtype, "window_ms": window_ms, "dcn_calls": len(pairs),
+            "dcn_ms_cuda_events": event_ms, "dcn_share_of_window": event_ms / window_ms,
+            "device_busy_ms_profiled": busy_ms, "kernels_profiled": len(kernels),
+            "dcn_device_ms_profiler": dcn_ms, "dcn_share_of_device_time": dcn_ms / busy_ms}
+
+
+def phase_ablation_serve():
+    """Each ablation network (seeded random weights) through BlurVFIPipeline
+    at 1280x720 with 2**20 events, ``voxelizer='pallas'`` (K1): float32 (TF32
+    off) and bf16 autocast, ``ABLATION_WINDOWS`` windows each (the first a
+    warm-up); host-clock ms per synchronised window, peak memory, bf16 against
+    float32; the DCN network's deformable convs timed and profiled in two
+    more windows of each dtype.  Returns K1's launches."""
+    t_phase = time.perf_counter()
+    rng = np.random.RandomState(12)
+    requests = [(rng.rand(HEIGHT, WIDTH, 3).astype(np.float32),
+                 rng.rand(HEIGHT, WIDTH, 3).astype(np.float32),
+                 random_events(rng, FULL_EVENTS, WIDTH, HEIGHT))
+                for _ in range(ABLATION_WINDOWS)]
+    rows, dcn_profile = {}, []
+    voxel_cuda.LAUNCHES = 0                      # the ablation serving path starts here
+    for k, (name, rbt, dcn) in enumerate(ABLATIONS):
+        label = ablation_label(name, rbt, dcn)
+        model = ablation_model(k, name, rbt, dcn)
+        pipe = BlurVFIPipeline(model, model.cfg, voxelizer="pallas", device="cuda")
+        row, outs = {}, {}
+        for dtype in ("f32", "bf16"):
+            set_tf32(False)      # float32 without TF32; bf16 autocast ignores it
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            times = []
+            for i, request in enumerate(requests):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                with torch.autocast("cuda", dtype=torch.bfloat16, enabled=dtype == "bf16"):
+                    out = pipe(*request)
+                torch.cuda.synchronize()
+                if i:
+                    times.append((time.perf_counter() - t0) * 1e3)
+            check(out.shape == (23, HEIGHT, WIDTH, 3) and bool(torch.isfinite(out).all()),
+                  f"ablation_serve {label} {dtype}: shape {tuple(out.shape)} or not finite")
+            outs[dtype] = out.float()
+            mean = sum(times) / len(times)
+            row[dtype] = {"ms_per_window": times, "mean_ms_per_window": mean,
+                          "frames_per_s": 23 * 1e3 / mean,
+                          "max_memory_allocated": torch.cuda.max_memory_allocated()}
+        row["bf16_vs_f32_db"] = parity_db(outs["f32"], outs["bf16"])
+        if dcn:
+            dcn_profile = [profile_dcn_window(pipe, requests[-1], dtype)
+                           for dtype in ("f32", "bf16")]
+        rows[label] = row
+        del pipe, model, outs, out
+        torch.cuda.empty_cache()
+    launches = voxel_cuda.LAUNCHES               # ... and ends here
+    emit("ablation_serve", frame=[HEIGHT, WIDTH], events=FULL_EVENTS, voxelizer="pallas",
+         windows_per_dtype=ABLATION_WINDOWS, results=rows, dcn_profile=dcn_profile,
+         voxelize_launches=launches, seconds=time.perf_counter() - t_phase)
+    windows = len(ABLATIONS) * 2 * ABLATION_WINDOWS + 4      # + the DCN's four
+    check(launches == windows, f"ablation serving launched K1 {launches} times for "
+          f"{windows} windows")
+    return launches
+
+
+def ablation_train_options(data_root, name, rbt, overrides):
+    """The production recipe as ``phase_train`` runs it (``recipe_overrides``,
+    bf16), with ``network_g.type`` (and the block type and overrides)
+    replaced, and no validation dataset."""
+    import yaml
+
+    with open(RECIPE) as f:
+        opt = recipe_overrides(yaml.safe_load(f), data_root,
+                               "ablation_" + ablation_label(name, rbt, **overrides)
+                               .replace("/", "_").replace("=", "_"), "bf16")
+    opt["network_g"].update(type=name, **overrides)
+    if rbt:
+        opt["network_g"]["recurrent_block_type"] = rbt
+    del opt["datasets"]["val"]
+    return opt
+
+
+def phase_ablation_train(data_root, work):
+    """The recipe (256x256 crops, t = 23, batch 1, remat) through the train
+    CLI's ``main`` in bf16 for ``ABLATION_TRAIN_ITERS`` iterations, for each
+    network of ABLATION_TRAIN (the flagship with ``remat_policy`` ``'all'``
+    and ``'stage_outputs'``), then ``ABLATION_FIXED_STEPS`` timed steps on
+    one batch: ms per iteration and peak memory.  Returns K2's launches."""
+    import yaml
+
+    t_phase = time.perf_counter()
+    rows, grid_launches = {}, 0
+    for k, (name, rbt, overrides) in enumerate(ABLATION_TRAIN):
+        label = ablation_label(name, rbt, **overrides)
+        path = os.path.join(work, f"ablation_{k}.yml")
+        with open(path, "w") as f:
+            yaml.safe_dump(ablation_train_options(data_root, name, rbt, overrides), f)
+        voxel_cuda.reset_grid_stats()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        task = train_cli.main(["-opt", path, "--root", work,
+                               "--max-iters", str(ABLATION_TRAIN_ITERS)])
+        cli_memory = torch.cuda.max_memory_allocated()
+        steps = [h for h in task.history if "loss" in h]
+        losses = [h["loss"] for h in steps]
+        items, launches = task.train_loader.dataset.timing["items"], voxel_cuda.GRID_LAUNCHES
+        check(len(losses) == ABLATION_TRAIN_ITERS and all(math.isfinite(v) for v in losses),
+              f"ablation_train {label}: losses {losses}")
+        check(items > 0 and launches == items,
+              f"ablation_train {label}: K2 launched {launches} times for {items} items")
+        check(task.net.cfg.remat and task.net.cfg.dtype == torch.bfloat16,
+              f"ablation_train {label}: not the recipe's remat in bf16")
+        grid_launches += launches
+        batch = next(iter(task.train_loader))
+        torch.cuda.reset_peak_memory_stats()
+        fixed_losses, fixed_ms = timed_steps(task, batch, ABLATION_FIXED_STEPS)
+        rows[label] = {
+            "losses": losses, "step_ms": [h["time"] * 1e3 for h in steps],
+            "fixed_batch_losses": fixed_losses, "fixed_batch_step_ms": fixed_ms,
+            "mean_fixed_step_ms_after_first": sum(fixed_ms[1:]) / len(fixed_ms[1:]),
+            "max_memory_allocated_cli": cli_memory,
+            "max_memory_allocated_fixed": torch.cuda.max_memory_allocated(),
+            "items_loaded": items, "voxel_grid_launches": launches,
+            "params": sum(p.numel() for p in task.net.parameters())}
+        check(all(math.isfinite(v) for v in fixed_losses),
+              f"ablation_train {label}: fixed-batch losses {fixed_losses}")
+        del task, batch
+        torch.cuda.empty_cache()
+    emit("ablation_train", dtype="bf16", crop=256, t=23, batch=1, iters=ABLATION_TRAIN_ITERS,
+         results=rows, seconds=time.perf_counter() - t_phase)
+    return grid_launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -2057,17 +2331,26 @@ def main():
         grid_launches += phase_datasets(data_root, work)
         emit("io_train_tail", seconds=time.perf_counter() - t0)
 
-    t0 = time.perf_counter()
-    probe_errs, p1, p2, p3_plain_ms, p4_plain_ms, device_ms = phase_probe_kernel_check()
-    probe_cuda.reset_launches()                     # the probe path starts here
-    rates = phase_probe_band_conv()
-    phase_probe_poison()
-    probe_launches = {"passthrough": probe_cuda.PASSTHROUGH_LAUNCHES,
-                      "passthrough_slice": probe_cuda.SLICE_LAUNCHES,
-                      "band_conv": probe_cuda.BAND_CONV_LAUNCHES,
-                      "band_conv_int8": probe_cuda.BAND_CONV_INT8_LAUNCHES}   # ... and ends here
-    emit("probe_path", launches=probe_launches, seconds=time.perf_counter() - t0)
-    check(min(probe_launches.values()) > 0, f"a probe kernel was not launched: {probe_launches}")
+        t0 = time.perf_counter()
+        probe_errs, p1, p2, p3_plain_ms, p4_plain_ms, device_ms = phase_probe_kernel_check()
+        probe_cuda.reset_launches()                     # the probe path starts here
+        rates = phase_probe_band_conv()
+        phase_probe_poison()
+        probe_launches = {"passthrough": probe_cuda.PASSTHROUGH_LAUNCHES,
+                          "passthrough_slice": probe_cuda.SLICE_LAUNCHES,
+                          "band_conv": probe_cuda.BAND_CONV_LAUNCHES,
+                          "band_conv_int8": probe_cuda.BAND_CONV_INT8_LAUNCHES}   # ... and ends here
+        emit("probe_path", launches=probe_launches, seconds=time.perf_counter() - t0)
+        check(min(probe_launches.values()) > 0,
+              f"a probe kernel was not launched: {probe_launches}")
+
+        t0 = time.perf_counter()                   # the ablation lineages
+        phase_ablation_parity()
+        launches += phase_ablation_serve()          # K1, each window
+        torch.backends.cudnn.allow_tf32 = True       # PyTorch's defaults
+        torch.backends.cuda.matmul.allow_tf32 = False
+        grid_launches += phase_ablation_train(data_root, work)   # K2, each item
+        emit("ablation_path", seconds=time.perf_counter() - t0)
 
     def rate_entry(variant, plain_ms, library, kernel):
         r = rates[variant]

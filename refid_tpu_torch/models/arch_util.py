@@ -1,0 +1,161 @@
+"""Arch utility ops and the EICA block (NCHW), mirroring
+``refid_tpu/models/arch_util.py`` (upstream basicsr ``arch_util.py``).
+
+Library functions with no caller in either package:
+  * flow_warp        — bilinear warping by optical flow, zeros outside
+  * resize_flow      — flow resampling with its magnitudes rescaled
+  * pixel_unshuffle / pixel_shuffle — space-to-depth and back, in the JAX
+    functions' channel order: output channel ``(dy * s + dx) * c + ch``
+    (``nn.PixelShuffle`` orders them ``ch * s * s + dy * s + dx``)
+  * MutualAttention + EventImageChannelAttentionTransformerBlock ("EICA") —
+    channel-attention cross-modal transformer
+  * SpatialCrossAttention — token-space cross attention with an optional
+    spatial reduction of the key/value source
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from refid_tpu_torch.ops.deform_conv import _bilinear_rows
+
+__all__ = ["flow_warp", "resize_flow", "pixel_unshuffle", "pixel_shuffle",
+           "MutualAttention", "EventImageChannelAttentionTransformerBlock",
+           "SpatialCrossAttention"]
+
+
+def flow_warp(x, flow, align_corners=True):
+    """Warp ``x (b, c, h, w)`` by ``flow (b, h, w, 2)`` (x-displacement
+    first): bilinear sampling at pixel ``p + flow(p)``, zeros outside —
+    ``grid_sample``'s ``align_corners=True``, ``padding_mode='zeros'``
+    semantics, as the JAX version computes whatever ``align_corners`` says."""
+    b, c, h, w = x.shape
+    gy, gx = torch.meshgrid(torch.arange(h, dtype=torch.float32, device=x.device),
+                            torch.arange(w, dtype=torch.float32, device=x.device),
+                            indexing="ij")
+    py = (gy[None] + flow[..., 1].float()).reshape(b, h * w)
+    px = (gx[None] + flow[..., 0].float()).reshape(b, h * w)
+    rows = x.permute(0, 2, 3, 1).reshape(b * h * w, c)
+    return _bilinear_rows(rows, b, h, w, py, px).view(b, h, w, c).permute(0, 3, 1, 2)
+
+
+def resize_flow(flow, size_type, sizes, align_corners=False):
+    """Resize a flow field ``(b, 2, h, w)`` (x, y) and rescale its magnitudes
+    by the size ratios: ``size_type`` ``'ratio'`` (``sizes`` = (ratio_h,
+    ratio_w)) or ``'shape'`` (``sizes`` = (h, w)).  Bilinear, antialiased
+    when shrinking, as ``jax.image.resize``."""
+    _, _, h, w = flow.shape
+    if size_type == "ratio":
+        out_h, out_w = int(h * sizes[0]), int(w * sizes[1])
+    elif size_type == "shape":
+        out_h, out_w = sizes
+    else:
+        raise ValueError(f"unknown size_type {size_type!r}")
+    scale = torch.tensor([out_w / w, out_h / h], dtype=flow.dtype, device=flow.device)
+    return F.interpolate(flow * scale.view(1, 2, 1, 1), size=(out_h, out_w),
+                         mode="bilinear", align_corners=False, antialias=True)
+
+
+def pixel_unshuffle(x, scale: int):
+    """Space-to-depth: (b, c, h, w) -> (b, c*s*s, h/s, w/s)."""
+    b, c, h, w = x.shape
+    x = x.reshape(b, c, h // scale, scale, w // scale, scale)
+    return x.permute(0, 3, 5, 1, 2, 4).reshape(b, scale * scale * c, h // scale, w // scale)
+
+
+def pixel_shuffle(x, scale: int):
+    """Depth-to-space: (b, c, h, w) -> (b, c/(s*s), h*s, w*s)."""
+    b, c, h, w = x.shape
+    c_out = c // (scale * scale)
+    x = x.reshape(b, scale, scale, c_out, h, w)
+    return x.permute(0, 3, 4, 1, 5, 2).reshape(b, c_out, h * scale, w * scale)
+
+
+class MutualAttention(nn.Module):
+    """Channel attention between image (query) and event (key / value):
+    attention over channels, O(c^2 * hw)."""
+
+    def __init__(self, dim: int, num_heads: int, bias: bool = False):
+        super().__init__()
+        self.num_heads = num_heads
+        self.temperature = nn.Parameter(torch.ones(num_heads, 1, 1))
+        self.q = nn.Conv2d(dim, dim, 1, bias=bias)
+        self.k = nn.Conv2d(dim, dim, 1, bias=bias)
+        self.v = nn.Conv2d(dim, dim, 1, bias=bias)
+        self.project_out = nn.Conv2d(dim, dim, 1, bias=bias)
+
+    def forward(self, x, y):
+        if x.shape != y.shape:
+            raise ValueError(f"image {tuple(x.shape)} and event {tuple(y.shape)} differ")
+        b, c, h, w = x.shape
+
+        def heads(z):   # (b, c, h, w) -> (b, head, c/head, h*w)
+            return z.reshape(b, self.num_heads, c // self.num_heads, h * w)
+
+        q = F.normalize(heads(self.q(x)), dim=-1, eps=1e-12)
+        k = F.normalize(heads(self.k(y)), dim=-1, eps=1e-12)
+        attn = torch.softmax(q @ k.transpose(-2, -1) * self.temperature, dim=-1)
+        return self.project_out((attn @ heads(self.v(y))).reshape(b, c, h, w))
+
+
+class EventImageChannelAttentionTransformerBlock(nn.Module):
+    """EICA: cross-modal channel attention and an MLP, each with a residual,
+    LayerNorm (over channels) before each."""
+
+    def __init__(self, dim: int, num_heads: int, ffn_expansion_factor: int = 2,
+                 bias: bool = False):
+        super().__init__()
+        self.norm1_image = nn.LayerNorm(dim, eps=1e-6)
+        self.norm1_event = nn.LayerNorm(dim, eps=1e-6)
+        self.attn = MutualAttention(dim, num_heads, bias)
+        self.norm2 = nn.LayerNorm(dim, eps=1e-6)
+        self.fc1 = nn.Linear(dim, dim * ffn_expansion_factor)
+        self.fc2 = nn.Linear(dim * ffn_expansion_factor, dim)
+
+    def forward(self, image, event):
+        if image.shape != event.shape:
+            raise ValueError(f"image {tuple(image.shape)} and event {tuple(event.shape)} differ")
+
+        def channels_last(norm, z):
+            return norm(z.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
+
+        fused = image + self.attn(channels_last(self.norm1_image, image),
+                                  channels_last(self.norm1_event, event))
+        y = self.fc2(F.gelu(self.fc1(self.norm2(fused.permute(0, 2, 3, 1)))))
+        return fused + y.permute(0, 3, 1, 2)
+
+
+class SpatialCrossAttention(nn.Module):
+    """Token-space cross attention: image tokens ``x`` query event tokens
+    ``y``, both ``(b, n, c)``; with ``sr_ratio > 1`` the key / value source
+    is first reduced by an ``sr_ratio`` strided conv over its ``H x W`` grid
+    and a LayerNorm."""
+
+    def __init__(self, dim: int, num_heads: int = 8, qkv_bias: bool = False,
+                 sr_ratio: int = 1):
+        super().__init__()
+        self.num_heads = num_heads
+        self.sr_ratio = sr_ratio
+        self.q = nn.Linear(dim, dim, bias=qkv_bias)
+        self.kv = nn.Linear(dim, 2 * dim, bias=qkv_bias)
+        self.proj = nn.Linear(dim, dim)
+        if sr_ratio > 1:
+            self.sr = nn.Conv2d(dim, dim, sr_ratio, sr_ratio)
+            self.norm = nn.LayerNorm(dim, eps=1e-6)
+
+    def forward(self, x, y, H=None, W=None):
+        if x.dim() != 3 or x.shape != y.shape:
+            raise ValueError(f"x {tuple(x.shape)} and y {tuple(y.shape)} must be one (b, n, c)")
+        b, n, c = x.shape
+        hd = self.num_heads
+        q = self.q(x).reshape(b, n, hd, c // hd).transpose(1, 2)
+        if self.sr_ratio > 1:
+            if H is None or W is None:
+                raise ValueError("sr_ratio > 1 needs the token grid's H and W")
+            y = self.sr(y.reshape(b, H, W, c).permute(0, 3, 1, 2))
+            y = self.norm(y.flatten(2).transpose(1, 2))
+        kv = self.kv(y).reshape(b, -1, 2, hd, c // hd).permute(2, 0, 3, 1, 4)
+        attn = torch.softmax(q @ kv[0].transpose(-2, -1) * (c // hd) ** -0.5, dim=-1)
+        return self.proj((attn @ kv[1]).transpose(1, 2).reshape(b, n, c))

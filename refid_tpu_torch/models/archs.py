@@ -1,7 +1,26 @@
 """Arch registry entries: reference ``network_g.type`` -> network constructor
-(mirrors ``_refid_cfg`` and the ``FinalBidirectionAttenfusion`` and
-``SingleMultiConnectEVHINet`` entries of ``refid_tpu/models/archs.py``; the
-ablation lineages come later).
+(mirrors ``refid_tpu/models/archs.py``: every name it registers, with its
+``_refid_cfg``, ``_ablation_cfg`` and ``_STAGE_BY_RBT``).
+
+The paper's ablation lineages (upstream's XXNet_*_arch.py files) are flag
+combinations of ``FinalBidirectionAttenfusion``; the YAML
+``recurrent_block_type`` selects the encoder stage and cell as upstream's
+if/elif chains do.  Where the upstream arch is broken the JAX analog
+implements the intended semantics, and so does this one (the breakage map in
+``refid_tpu/models/archs.py``):
+
+* ``UNetRecurrent`` / ``UNetPSDecoderRecurrent``: upstream runs only with
+  convlstm / convgru; the other block types build here as the flags say.
+* ``BidirUNetRecurrent``: upstream runs only with ``simpleconv``;
+  convlstm / convgru raise (the rec_conv stage has no bidirectional fuse).
+* ``UNetDecoderRecurrentBidirection`` / ``AllBidirection``: upstream's
+  bottleneck resblocks are built and never called; here they are absent.
+  ``AllBidirection`` never runs upstream (the backward pass feeds decoder
+  outputs to the encoders) and discards its decoder fuse; here the backward
+  decoder states are fused into the forward decoders.
+* ``UNetDecoderRecurrentSiameseImg{,NoAtten}``: upstream's ``head_img``
+  reads ``img_chn`` channels but is fed one frame's half; here it reads the
+  half.  NoAtten's unused SE fusions are absent.
 
 ``compute_dtype: bfloat16`` maps to bf16 autocast with float32 parameters.
 """
@@ -14,7 +33,19 @@ from refid_tpu_torch.core.registry import ARCHS
 from refid_tpu_torch.models.evhinet import EVHINet
 from refid_tpu_torch.models.refid import FinalBidirectionAttenfusion, RefidConfig
 
-__all__ = ["final_bidirection_attenfusion", "single_multiconnect_evhinet"]
+__all__ = ["final_bidirection_attenfusion", "final_bidirection", "single_multiconnect_evhinet",
+           "unet_recurrent", "unet_decoder_recurrent", "bidir_unet_recurrent",
+           "unet_decoder_recurrent_bidir", "unet_decoder_recurrent_allbidir",
+           "unet_ps_decoder_recurrent", "unet_decoder_recurrent_siamese",
+           "unet_decoder_recurrent_siamese_noatten"]
+
+# upstream recurrent_block_type -> (encoder_stage, recurrent_cell)
+_STAGE_BY_RBT = {
+    "simpleconvThendown": ("then_down", "simpleconv"),
+    "simpleconv": ("conv_down", "simpleconv"),
+    "convlstm": ("rec_conv", "convlstm"),
+    "convgru": ("rec_conv", "convgru"),
+}
 
 
 def _refid_cfg(opt: dict, **overrides) -> RefidConfig:
@@ -36,6 +67,21 @@ def _refid_cfg(opt: dict, **overrides) -> RefidConfig:
     return RefidConfig(dtype=_compute_dtype(opt), **kw)
 
 
+def _ablation_cfg(opt: dict, default_rbt: str, **overrides) -> RefidConfig:
+    """The ablation lineages' wiring: the encoder stage and cell follow the
+    YAML ``recurrent_block_type`` (default ``default_rbt``), no EGACA, and no
+    image add at the bottleneck (a flagship-only behaviour)."""
+    rbt = opt.get("recurrent_block_type", default_rbt)
+    if rbt not in _STAGE_BY_RBT:
+        raise ValueError(f"recurrent_block_type must be one of {sorted(_STAGE_BY_RBT)}, "
+                         f"got {rbt!r}")
+    stage, cell = _STAGE_BY_RBT[rbt]
+    base = dict(atten_fuse_at=(), encoder_stage=stage, recurrent_cell=cell,
+                bottleneck_img_add=False)
+    base.update(overrides)
+    return _refid_cfg(opt, **base)
+
+
 def _compute_dtype(opt: dict):
     dtype = opt.get("compute_dtype")
     if dtype not in (None, "float32", "bfloat16"):
@@ -49,6 +95,13 @@ def final_bidirection_attenfusion(opt: dict) -> FinalBidirectionAttenfusion:
     return FinalBidirectionAttenfusion(_refid_cfg(opt))
 
 
+@ARCHS.register("FinalBidirection")
+def final_bidirection(opt: dict) -> FinalBidirectionAttenfusion:
+    """The flagship without EGACA (additive fusion at every scale): the JAX
+    package's own variant, with the flagship's bottleneck."""
+    return FinalBidirectionAttenfusion(_refid_cfg(opt, atten_fuse_at=()))
+
+
 @ARCHS.register("SingleMultiConnectEVHINet")
 def single_multiconnect_evhinet(opt: dict) -> EVHINet:
     """Event-guided HINet for single-image deblurring (upstream
@@ -59,3 +112,68 @@ def single_multiconnect_evhinet(opt: dict) -> EVHINet:
                    hin_left=opt.get("hin_position_left", 0),
                    hin_right=opt.get("hin_position_right", 4),
                    dtype=_compute_dtype(opt))
+
+
+# --- the ablation lineages ----------------------------------------------------
+
+@ARCHS.register("UNetRecurrent")
+def unet_recurrent(opt: dict) -> FinalBidirectionAttenfusion:
+    """Unidirectional encoder, bilinear-k5 decoder without recurrence
+    (upstream XXNet_arch.py)."""
+    return FinalBidirectionAttenfusion(_ablation_cfg(
+        opt, "convlstm", bidirectional=False, decoder_type="upsample_conv"))
+
+
+@ARCHS.register("UNetDecoderRecurrent")
+def unet_decoder_recurrent(opt: dict) -> FinalBidirectionAttenfusion:
+    """Unidirectional encoder, recurrent decoder
+    (upstream XXNet_decoder_recurrent_arch.py)."""
+    return FinalBidirectionAttenfusion(_ablation_cfg(opt, "convlstm", bidirectional=False))
+
+
+@ARCHS.register("BidirUNetRecurrent")
+def bidir_unet_recurrent(opt: dict) -> FinalBidirectionAttenfusion:
+    """Bidirectional encoder, decoder without recurrence
+    (upstream XXNet_bidirection_arch.py)."""
+    return FinalBidirectionAttenfusion(_ablation_cfg(
+        opt, "simpleconv", decoder_type="upsample_conv"))
+
+
+@ARCHS.register("UNetDecoderRecurrentBidirection")
+def unet_decoder_recurrent_bidir(opt: dict) -> FinalBidirectionAttenfusion:
+    """Bidirectional encoder, recurrent decoder, additive fusion, no
+    bottleneck (upstream XXNet_decoder_recurrent_bidirection_arch.py)."""
+    return FinalBidirectionAttenfusion(_ablation_cfg(
+        opt, "simpleconvThendown", apply_resblocks=False))
+
+
+@ARCHS.register("UNetDecoderRecurrentAllBidirection")
+def unet_decoder_recurrent_allbidir(opt: dict) -> FinalBidirectionAttenfusion:
+    """Bidirectional encoder and decoder
+    (upstream XXNet_decoder_recurrent_allbidirection_arch.py, as intended)."""
+    return FinalBidirectionAttenfusion(_ablation_cfg(
+        opt, "simpleconvThendown", apply_resblocks=False, bidir_decoder=True))
+
+
+@ARCHS.register("UNetPSDecoderRecurrent")
+def unet_ps_decoder_recurrent(opt: dict) -> FinalBidirectionAttenfusion:
+    """Unidirectional encoder, pixel-shuffle recurrent decoder
+    (upstream XXNet_ps_decoder_recurrent_arch.py)."""
+    return FinalBidirectionAttenfusion(_ablation_cfg(
+        opt, "convlstm", bidirectional=False, decoder_type="pixelshuffle_recurrent"))
+
+
+@ARCHS.register("UNetDecoderRecurrentSiameseImg")
+def unet_decoder_recurrent_siamese(opt: dict) -> FinalBidirectionAttenfusion:
+    """Siamese image encoder with per-scale SE fusion
+    (upstream XXNet_decoder_recurrent_siamese_arch.py, head fixed)."""
+    return FinalBidirectionAttenfusion(_ablation_cfg(
+        opt, "simpleconvThendown", bidirectional=False, siamese_fusion="se"))
+
+
+@ARCHS.register("UNetDecoderRecurrentSiameseImgNoAtten")
+def unet_decoder_recurrent_siamese_noatten(opt: dict) -> FinalBidirectionAttenfusion:
+    """Siamese image encoder with additive fusion
+    (upstream XXNet_decoder_recurrent_siamese_noatten_arch.py, head fixed)."""
+    return FinalBidirectionAttenfusion(_ablation_cfg(
+        opt, "simpleconvThendown", bidirectional=False, siamese_fusion="add"))

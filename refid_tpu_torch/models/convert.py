@@ -11,7 +11,10 @@ It takes the nested ``{'params': ...}`` tree with numpy (or array-like)
 leaves and raises if any leaf has no counterpart.  The port keys it leaves
 unfilled are upstream's known-unused parameters (``convert.py``'s list):
 EGACA's ``se_2`` and the bypassed ``conv`` of attention-fused encoder
-stages; :func:`load_state` accepts exactly those as missing.
+stages; :func:`load_state` accepts exactly those as missing.  An upstream
+checkpoint of the bidirection lineages also carries the bottleneck
+``resblocks`` that upstream builds and never calls; a network without
+resblocks ignores them, as the JAX converter does.
 
 :func:`evhinet_state_dict_from_jax` is the exact inverse of
 ``convert_evhinet_state_dict`` for EVHINet.  An upstream EVHINet checkpoint
@@ -101,41 +104,76 @@ def _img_block(dst, src, t, f):
     _conv(dst, src, t + "down.", f + "down/", bias=False)
 
 
+def _cell(dst, src, t, f):
+    """A recurrent cell: SimpleRecurrentConv's trunk, ConvLSTM's ``gates``
+    or ConvGRU's three gate convs."""
+    if f + "gates/kernel" in src:
+        _conv(dst, src, t + "Gates.", f + "gates/")
+    elif f + "update_gate/kernel" in src:
+        for g in ("reset_gate", "update_gate", "out_gate"):
+            _conv(dst, src, f"{t}{g}.", f"{f}{g}/")
+    else:
+        _trunk(dst, src, t + "forward_trunk.", f + "trunk/")
+
+
 def _stage(dst, src, t, f):
-    """RecurrentEncoderStage (then_down, simpleconv)."""
+    """RecurrentEncoderStage, any lineage: EGACA or the first conv (a
+    ConvLayer, the rec_conv stage's plain conv or a DCN), the cell, the
+    bidirectional fuse and ``down`` where the stage has them."""
     if f + "atten/beta" in src:
         _atten(dst, src, t + "atten_fuse.", f + "atten/")
+    elif f + "conv/conv_offset/kernel" in src:          # ModulatedDeformConvPack
+        _conv(dst, src, t + "conv.conv_offset.", f + "conv/conv_offset/")
+        _conv(dst, src, t + "conv.", f + "conv/")
+    elif f + "conv/kernel" in src:                      # rec_conv's plain conv
+        _conv(dst, src, t + "conv.conv2d.", f + "conv/")
     else:
         _conv(dst, src, t + "conv.conv2d.", f + "conv/conv/")
-    _trunk(dst, src, t + "recurrent_block.forward_trunk.", f + "rec/trunk/")
-    _conv(dst, src, t + "down.", f + "down/", bias=False)
+    _cell(dst, src, t + "recurrent_block.", f + "rec/")
+    if f + "down/kernel" in src:
+        _conv(dst, src, t + "down.", f + "down/", bias=False)
     if f + "fuse_bidir/conv/kernel" in src:
         _conv(dst, src, t + "fuse_two_dir.conv2d.", f + "fuse_bidir/conv/")
 
 
 def _decoder(dst, src, t, f):
-    _conv(dst, src, t + "transposed_conv2d.", f + "up/")
-    _trunk(dst, src, t + "forward_trunk.", f + "trunk/")
+    """Any decoder: the transposed conv (with the bidirectional fuse) or the
+    upsampling conv, and the trunk where the decoder has them."""
+    if f + "up/kernel" in src:
+        _conv(dst, src, t + "transposed_conv2d.", f + "up/")
+    if f + "fuse_bidir/conv/kernel" in src:
+        _conv(dst, src, t + "fuse_two_dir.conv2d.", f + "fuse_bidir/conv/")
+    if f + "conv/kernel" in src:                        # UpsampleConvLayer
+        _conv(dst, src, t + "conv2d.", f + "conv/")
+    else:
+        _trunk(dst, src, t + "forward_trunk.", f + "trunk/")
 
 
 def state_dict_from_jax(params: Mapping, cfg: RefidConfig) -> Dict[str, torch.Tensor]:
-    """The JAX package's ``FinalBidirectionAttenfusion`` params -> the port's
-    state_dict (upstream names)."""
+    """The JAX package's ``FinalBidirectionAttenfusion`` params, any
+    lineage -> the port's state_dict (upstream names)."""
     src = flatten_params(params)
     dst: Dict[str, torch.Tensor] = {}
     _conv(dst, src, "head.conv2d.", "head/")
     _conv(dst, src, "head_img.conv2d.", "head_img/conv/")
     for i in range(cfg.num_encoders):
         _img_block(dst, src, f"img_encoders.{i}.", f"img_enc_{i}/")
-    for direction, name in (("bwd", "encoders_backward"),
-                            ("fwd", "encoders_forward")):
+    directions = ((("bwd", "encoders_backward"), ("fwd", "encoders_forward"))
+                  if cfg.bidirectional else (("fwd", "encoders"),))
+    for direction, name in directions:
         for i in range(cfg.num_encoders):
             _stage(dst, src, f"{name}.{i}.", f"{direction}/enc_{i}/")
-    for i in range(cfg.num_residual_blocks):
+    for i in range(cfg.num_encoders):
+        if f"fwd/img_ev_fusion_{i}/se_0/kernel" in src:
+            for g in ("se_0", "se_1"):
+                _conv(dst, src, f"img_ev_fusions.{i}.{g}.1.", f"fwd/img_ev_fusion_{i}/{g}/")
+    for i in range(cfg.num_residual_blocks if cfg.apply_resblocks else 0):
         for c in ("conv1", "conv2"):
             _conv(dst, src, f"resblocks.{i}.{c}.", f"fwd/res_{i}/{c}/")
-    for i in range(cfg.num_encoders):
-        _decoder(dst, src, f"decoders.{i}.", f"fwd/dec_{i}/")
+    for direction, name in (("fwd", "decoders"), ("bwd", "decoders_backward")):
+        for i in range(cfg.num_encoders):
+            if any(k.startswith(f"{direction}/dec_{i}/") for k in src):
+                _decoder(dst, src, f"{name}.{i}.", f"{direction}/dec_{i}/")
     _conv(dst, src, "pred.conv2d.", "fwd/pred/conv/")
     if src:
         raise KeyError(f"JAX params with no port counterpart: {sorted(src)}")
@@ -197,15 +235,23 @@ def known_unused_keys(model: nn.Module) -> set:
 
 def load_state(model: nn.Module, state_dict: Mapping[str, torch.Tensor]) -> None:
     """Load ``state_dict`` into ``model``; only known-unused keys may be
-    missing.  No key may be unexpected, except in an EVHINet checkpoint
-    (``conv_ev1.`` keys), whose keys outside the port's EVHINet (upstream's
-    stage-2 modules) are ignored and named in the log."""
+    missing.  No key may be unexpected, except upstream's dead bottleneck
+    ``resblocks.*`` where the network has none, and in an EVHINet checkpoint
+    (``conv_ev1.`` keys) the keys outside the port's EVHINet (upstream's
+    stage-2 modules); both are ignored and named in the log."""
     is_evhinet = any(k.startswith("conv_ev1.") for k in state_dict)
     if is_evhinet != isinstance(model, EVHINet):
         raise ValueError(f"{'an' if is_evhinet else 'no'} EVHINet checkpoint (conv_ev1.* "
                          f"keys) for a {type(model).__name__} network")
     missing, unexpected = model.load_state_dict(state_dict, strict=False)
     missing = set(missing) - known_unused_keys(model)
+    cfg = getattr(model, "cfg", None)
+    if isinstance(cfg, RefidConfig) and not cfg.apply_resblocks:
+        dead = [k for k in unexpected if k.startswith("resblocks.")]
+        if dead:
+            logging.getLogger("refid_tpu_torch").info(
+                "ignored upstream's %d dead bottleneck keys: %s", len(dead), sorted(dead))
+            unexpected = [k for k in unexpected if k not in dead]
     if is_evhinet and unexpected and not missing:
         logging.getLogger("refid_tpu_torch").info(
             "EVHINet checkpoint: ignored %d keys outside the stage-1 network: %s",

@@ -1,6 +1,7 @@
-"""EGACA cross-modal attention fusion (NCHW), mirroring
-``refid_tpu/models/fusion.py::CrossmodalAtten`` with ``all_add=True`` (the
-production block, upstream ``CrossmodalAtten_imgeventalladd``).
+"""Cross-modal fusion blocks (NCHW), mirroring ``refid_tpu/models/fusion.py``:
+EGACA (``CrossmodalAtten`` with ``all_add=True``, the production block,
+upstream ``CrossmodalAtten_imgeventalladd``) and the siamese lineage's
+``ImgEvFusion``.
 
 LayerNorm2d -> 1x1 + depthwise 3x3 -> exact GELU on each branch; the EVENT
 branch's SE gate ``se_1`` gates BOTH branches (upstream's quirk, kept for
@@ -17,7 +18,7 @@ import torch.nn.functional as F
 
 from refid_tpu_torch.models.layers import LayerNorm2d, SELayer
 
-__all__ = ["CrossmodalAtten"]
+__all__ = ["CrossmodalAtten", "ImgEvFusion"]
 
 
 class CrossmodalAtten(nn.Module):
@@ -49,3 +50,19 @@ class CrossmodalAtten(nn.Module):
         y = event_feat + image_feat + x * self.beta
         ffn = self.conv5(F.gelu(self.conv4(self.norm2(y))))
         return self.conv_y_side(y) + ffn * self.gamma
+
+
+class ImgEvFusion(nn.Module):
+    """Siamese two-image fusion gated by the event features (upstream
+    ``img_ev_fusion``): two SE gates, each a 1x1 conv of the event features'
+    spatial mean and a sigmoid, weight the two image-encoder features;
+    ``feat_0 * se_0(ev) + feat_1 * se_1(ev)``.  The event features are not
+    passed through."""
+
+    def __init__(self, c: int):
+        super().__init__()
+        self.se_0 = nn.Sequential(nn.AdaptiveAvgPool2d(1), nn.Conv2d(c, c, 1), nn.Sigmoid())
+        self.se_1 = nn.Sequential(nn.AdaptiveAvgPool2d(1), nn.Conv2d(c, c, 1), nn.Sigmoid())
+
+    def forward(self, ev, feat_0, feat_1):
+        return feat_0 * self.se_0(ev) + feat_1 * self.se_1(ev)

@@ -34,7 +34,7 @@ from refid_tpu_torch.events.voxel import (
 )
 from refid_tpu_torch.models.convert import load_state
 from refid_tpu_torch.models.refid import (
-    FinalBidirectionAttenfusion, RefidConfig, int8_applicable,
+    INT8_NEEDS, FinalBidirectionAttenfusion, RefidConfig, int8_applicable,
 )
 from refid_tpu_torch.serve.quant import (
     INT8_MODES, QuantState, WeightCache, calibration_stats,
@@ -72,8 +72,7 @@ class BlurVFIPipeline:
             raise ValueError(f"int8 must be False, True, 'scale0', or 'static'; "
                              f"got {int8!r}")
         if int8 and not int8_applicable(cfg):
-            raise ValueError("int8 serving needs aliased backward states, num_block=1 "
-                             "and num_encoders >= 2")
+            raise ValueError(f"int8 serving needs {INT8_NEEDS}")
         self.int8 = int8
         self._int8_scales = None        # calibrated amaxes (headroom applied)
         self._int8_raw_amax = None

@@ -39,6 +39,54 @@ def random_params(module, *inputs, seed=0):
     return jax.tree_util.tree_map_with_path(fill, shapes)
 
 
+# the ablation combinations: the 13 cases of tests/test_ablation_shapes.py
+# (registry name x recurrent_block_type), UNetPSDecoderRecurrent/convgru of
+# tests/test_ablation_parity.py and FinalBidirection; their toy widths
+ABLATION_COMBOS = [
+    ("UNetRecurrent", "convlstm"), ("UNetRecurrent", "convgru"),
+    ("UNetDecoderRecurrent", "simpleconv"), ("UNetDecoderRecurrent", "simpleconvThendown"),
+    ("UNetDecoderRecurrent", "convlstm"), ("UNetDecoderRecurrent", "convgru"),
+    ("BidirUNetRecurrent", "simpleconv"),
+    ("UNetDecoderRecurrentBidirection", "simpleconv"),
+    ("UNetDecoderRecurrentBidirection", "simpleconvThendown"),
+    ("UNetDecoderRecurrentAllBidirection", "simpleconvThendown"),
+    ("UNetPSDecoderRecurrent", "convlstm"),
+    ("UNetDecoderRecurrentSiameseImg", "simpleconvThendown"),
+    ("UNetDecoderRecurrentSiameseImgNoAtten", "simpleconvThendown"),
+    ("UNetPSDecoderRecurrent", "convgru"),
+    ("FinalBidirection", None),
+]
+ABLATION_IDS = [f"{n}-{r}" if r else n for n, r in ABLATION_COMBOS]
+ABLATION_KW = dict(img_chn=6, ev_chn=2, out_chn=3, num_encoders=2, base_num_channels=8,
+                   num_residual_blocks=1, num_block=1)
+
+
+def ablation_opt(rbt, **kw):
+    """A ``network_g`` option dict at the toy widths."""
+    opt = dict(ABLATION_KW, **kw)
+    if rbt is not None:
+        opt["recurrent_block_type"] = rbt
+    return opt
+
+
+def build_ablation(name, opt, seed=0, b=1, t=3, h=16, w=16):
+    """The JAX network from ``refid_tpu``'s registry with every parameter
+    random, and the port's from its registry with the same weights (through
+    ``state_dict_from_jax``): (jax net, jax params, port net)."""
+    from refid_tpu.core.registry import ARCHS as JAX_ARCHS
+    import refid_tpu.models.archs  # noqa: F401
+    from refid_tpu_torch.core.registry import ARCHS
+    import refid_tpu_torch.models.archs  # noqa: F401
+    from refid_tpu_torch.models.convert import load_state, state_dict_from_jax
+
+    jnet = JAX_ARCHS.get(name)(opt)
+    params = random_params(jnet, jnp.zeros((b, h, w, opt["img_chn"])),
+                           jnp.zeros((b, t, h, w, opt["ev_chn"])), seed=seed)
+    tnet = ARCHS.get(name)(opt)
+    load_state(tnet, state_dict_from_jax(params, tnet.cfg))
+    return jnet, params, tnet
+
+
 def to_nhwc(x):
     """(..., C, H, W) numpy -> (..., H, W, C) jax array."""
     return jnp.asarray(np.moveaxis(x, -3, -1))

@@ -163,16 +163,28 @@ def test_transpose_decoder_matches_flax():
     assert max_diff(tout, to_nchw(jout)) < TOL
 
 
-@pytest.mark.parametrize("build", [
-    lambda: recurrent.RecurrentEncoderStage(4, 8, cell="convgru"),
-    lambda: recurrent.RecurrentEncoderStage(4, 8, stage_type="conv_down"),
-    lambda: FinalBidirectionAttenfusion(RefidConfig(bidir_decoder=True)),
-    lambda: FinalBidirectionAttenfusion(RefidConfig(bidirectional=False)),
-    lambda: FinalBidirectionAttenfusion(RefidConfig(siamese_fusion="se")),
+# the configurations that the JAX network refuses, refused here with its
+# reasons (the ids are the axes these cases pinned as unported before the
+# ablation lineages were ported)
+@pytest.mark.parametrize("build,reason", [
+    (lambda: FinalBidirectionAttenfusion(RefidConfig(
+        encoder_stage="rec_conv", recurrent_cell="convgru")),
+     "rec_conv has no bidirectional-state fuse"),
+    (lambda: FinalBidirectionAttenfusion(RefidConfig(
+        encoder_stage="rec_conv", bidirectional=False)),
+     "rec_conv stage is the ConvLSTM/ConvGRU lineage"),
+    (lambda: FinalBidirectionAttenfusion(RefidConfig(
+        bidir_decoder=True, aliased_backward_states=False)),
+     "bidir_decoder replicates the aliased all-bidirection lineage"),
+    (lambda: FinalBidirectionAttenfusion(RefidConfig(
+        bidir_decoder=True, bidirectional=False)),
+     "bidir_decoder replicates the aliased all-bidirection lineage"),
+    (lambda: FinalBidirectionAttenfusion(RefidConfig(siamese_fusion="se")),
+     "the siamese lineage is unidirectional"),
 ], ids=["convgru", "conv_down", "bidir_decoder", "unidirectional",
         "siamese"])
-def test_unported_ablation_axes_raise(build):
-    with pytest.raises(NotImplementedError):
+def test_unported_ablation_axes_raise(build, reason):
+    with pytest.raises(ValueError, match=reason):
         build()
 
 

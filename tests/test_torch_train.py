@@ -139,8 +139,13 @@ def test_config_options_map_like_jax():
     opt = {"img_chn": 26, "ev_chn": 2, "remat": True, "compute_dtype": "bfloat16"}
     cfg = _refid_cfg(opt)
     assert cfg.remat and cfg.remat_policy == "all" and cfg.dtype == torch.bfloat16
-    with pytest.raises(NotImplementedError):
-        FinalBidirectionAttenfusion(dataclasses.replace(cfg, remat_policy="stage_outputs"))
+    # stage_outputs builds and maps like the JAX config
+    from refid_tpu.models.archs import _refid_cfg as jax_refid_cfg
+    staged = _refid_cfg(dict(opt, remat_policy="stage_outputs"))
+    assert staged.remat_policy == jax_refid_cfg(
+        dict(opt, remat_policy="stage_outputs")).remat_policy == "stage_outputs"
+    net = FinalBidirectionAttenfusion(staged)
+    assert net.cfg == dataclasses.replace(cfg, remat_policy="stage_outputs")
     with pytest.raises(ValueError):
         _refid_cfg(dict(opt, compute_dtype="float16"))
 
