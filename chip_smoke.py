@@ -53,7 +53,16 @@ random weights:
 * the padded-capacity voxelizer entry (K1) at the serving shape;
 * the probes (P1-P4): ``python -m refid_tpu_torch.probes.band_conv``'s and
   ``python -m refid_tpu_torch.probes.poison``'s ``main`` at the serving
-  geometry, after P1-P4 are held against their plain versions.
+  geometry, after P1-P4 are held against their plain versions;
+* distribution and the process loader (K1, K2), last: the recipe's items
+  through ``prefetch_mode: process`` against the thread loader
+  (``mp_loader``), the recipe through the train CLI as one torchrun rank
+  over NCCL against a plain process (``ddp_train``), then two gloo ranks
+  spawned on the one card: the collectives the halo exchange needs, the
+  flagship at a toy width row-sharded against whole (forward, and two
+  steps at data 1 x spatial 2 and data 2 x spatial 1; ``spatial_parity``)
+  and 720p windows through ``BlurVFIPipeline(mesh=)`` (``spatial_serve``:
+  two ranks sharing one card time the exchange overhead, not scaling).
 
 Each phase prints one JSON line; the last two lines are the ``kernels``
 line and ``{"ok": true, "device": {...}}``.  Any failed phase exits
@@ -211,6 +220,20 @@ ABLATION_TRAIN = [("UNetRecurrent", "convlstm", {}), ("UNetPSDecoderRecurrent", 
                   ("FinalBidirectionAttenfusion", None, {"remat_policy": "stage_outputs"})]
 ABLATION_TRAIN_ITERS = 3
 ABLATION_FIXED_STEPS = 3           # timed steps on one batch after the CLI's
+# distribution: the recipe through cli.train as one torchrun rank over NCCL
+# and as a plain process; the spatial axis at 2 ranks sharing the one card
+# over gloo (a toy width for parity, full width for serving); the loaders
+DDP_ITERS = 3
+SPATIAL_RANKS = 2
+SPATIAL_TOY = {"base_num_channels": 8}          # num_encoders 3: blocks of 8 rows
+SPATIAL_TOY_SHAPE = (2, 5, 64, 96)              # batch, t, h, w
+SPATIAL_FORWARD_DB = 100.0
+SPATIAL_WINDOWS = 3                             # 1 warm-up, 2 timed
+# bf16 sharded against bf16 whole: each side rounds on its own (bf16 against
+# f32 reads ~60 dB); a row lost at a shard edge reads below 20
+SPATIAL_SERVE_MIN_DB = 40.0
+SPATIAL_TIMEOUT = 300
+LOADER_EPOCHS = 2
 # EVHINet's int8 sites at 1280x720 by distinct (Cin, Cout, H, W, kernel): stride
 # 1, padding kernel // 2, no fused activation (refid_tpu/serve/evhinet_fast.py)
 EVHINET_INT8_SHAPES = {
@@ -2223,6 +2246,342 @@ def phase_ablation_train(data_root, work):
     return grid_launches
 
 
+def ddp_options(data_root, work, name):
+    """The recipe as ``phase_train`` runs it (``recipe_overrides``, bf16) with
+    no validation dataset, written to ``{work}/{name}.yml``: (path, the
+    parsed options)."""
+    import yaml
+
+    from refid_tpu_torch.core.config import parse_options
+
+    with open(RECIPE) as f:
+        opt = recipe_overrides(yaml.safe_load(f), data_root, name, "bf16")
+    del opt["datasets"]["val"]
+    path = os.path.join(work, f"{name}.yml")
+    with open(path, "w") as f:
+        yaml.safe_dump(opt, f)
+    return path, parse_options(path, is_train=True, root=work)
+
+
+def phase_ddp_train(data_root, work):
+    """The recipe (full width, its crop, bf16) through ``cli.train``'s
+    ``main`` for DDP_ITERS iterations twice: as a plain process, and launched
+    as torchrun launches a world of one (``RANK`` / ``WORLD_SIZE`` /
+    ``LOCAL_RANK`` / ``MASTER_*`` in the environment: NCCL, the state
+    broadcast from rank 0, the gradients all-reduced).  The trained
+    parameters must be bit-equal or agree at PARITY_DB on the update.
+    Returns K2's launches."""
+    t_phase = time.perf_counter()
+    runs, launches = {}, 0
+    for launch in ("plain", "torchrun"):
+        env = {"RANK": "0", "LOCAL_RANK": "0", "WORLD_SIZE": "1",
+               "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(free_port())}
+        path, _ = ddp_options(data_root, work, f"ddp_{launch}")
+        voxel_cuda.reset_grid_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if launch == "torchrun":
+            os.environ.update(env)
+        try:
+            task = train_cli.main(["-opt", path, "--root", work, "--max-iters", str(DDP_ITERS)])
+            backend = (torch.distributed.get_backend() if torch.distributed.is_initialized()
+                       else None)
+        finally:
+            if launch == "torchrun":
+                for key in env:
+                    del os.environ[key]
+                if torch.distributed.is_initialized():
+                    torch.distributed.destroy_process_group()
+        seconds = time.perf_counter() - t0
+        check(backend == ("nccl" if launch == "torchrun" else None),
+              f"ddp_train {launch}: process group backend {backend}")
+        steps = [h for h in task.history if "loss" in h]
+        items = task.train_loader.dataset.timing["items"]
+        check(len(steps) == DDP_ITERS and all(math.isfinite(h["loss"]) for h in steps),
+              f"ddp_train {launch}: {steps}")
+        check(items > 0 and voxel_cuda.GRID_LAUNCHES == items,
+              f"ddp_train {launch}: K2 launched {voxel_cuda.GRID_LAUNCHES} times for {items}")
+        launches += voxel_cuda.GRID_LAUNCHES
+        runs[launch] = {"params": {k: v.detach().float().cpu()
+                                   for k, v in task.net.state_dict().items()},
+                        "step_ms": [h["time"] * 1e3 for h in steps], "seconds": seconds,
+                        "device": str(task.device)}
+        del task
+        torch.cuda.empty_cache()
+    _, opt = ddp_options(data_root, work, "ddp_init")
+    init = build_task(opt, "cpu")
+    init.init_params(opt.get("manual_seed", 0) or 0)
+    start = {k: v.float() for k, v in init.net.state_dict().items()}
+    plain, ddp = runs["plain"]["params"], runs["torchrun"]["params"]
+    bit_equal = all(torch.equal(plain[k], ddp[k]) for k in plain)
+    update = {name: torch.cat([(run[k] - start[k]).flatten() for k in sorted(start)])
+              for name, run in (("plain", plain), ("torchrun", ddp))}
+    update_db = parity_db(update["plain"], update["torchrun"])
+    emit("ddp_train", dtype="bf16", iters=DDP_ITERS, world_size=1, backend="nccl",
+         bit_equal=bit_equal, update_db=update_db, min_db=PARITY_DB,
+         ms_per_iteration={k: v["step_ms"] for k, v in runs.items()},
+         mean_ms_after_first={k: sum(v["step_ms"][1:]) / len(v["step_ms"][1:])
+                              for k, v in runs.items()},
+         devices={k: v["device"] for k, v in runs.items()}, voxel_grid_launches=launches,
+         seconds=time.perf_counter() - t_phase)
+    check(bit_equal or update_db >= PARITY_DB,
+          f"ddp_train: the torchrun rank's update {update_db:.1f} dB < {PARITY_DB} from the plain run")
+    return launches
+
+
+def free_port():
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def gloo_cuda_collectives():
+    """Whether gloo carries, for CUDA tensors, the two collectives the
+    spatial axis runs: ``all_reduce`` of bytes (the halos, the gathered
+    output) and of float32 (the SE pools, gradients, loss).  ``{op: True or
+    the error}``; ``tools/gloo_cuda_collectives.py`` tries the others."""
+    import torch.distributed as dist
+
+    x = torch.arange(8, dtype=torch.float32, device="cuda") + dist.get_rank()
+    want = sum(torch.arange(8, dtype=torch.float32) + r for r in range(dist.get_world_size()))
+    result = {}
+    for name, dtype in (("all_reduce_uint8", torch.uint8), ("all_reduce_float32", torch.float32)):
+        try:
+            y = x.to(dtype)
+            dist.all_reduce(y)
+            result[name] = torch.equal(y.float().cpu(), want) or "wrong sum"
+        except (RuntimeError, ValueError) as e:
+            result[name] = str(e).splitlines()[0][:160]
+        dist.barrier()
+    return result
+
+
+def spatial_rank(rank, world, port, work):
+    """One rank of the spatial phases (spawned; one card shared by the
+    ranks, gloo): the collectives gloo carries, then parity at a toy width
+    (forward, and two training steps at data 1 x spatial 2 and at data 2 x
+    spatial 1, each against the single-process computation in this rank),
+    then 720p serving at full width through ``BlurVFIPipeline(mesh=)``.
+    Writes ``{work}/spatial_{rank}.json``."""
+    import torch.distributed as dist
+
+    from refid_tpu_torch.parallel import make_mesh
+    from refid_tpu_torch.parallel.spatial import SpatialPlan, spatial_scope
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=world, rank=rank)
+    try:
+        out = {"rank": rank, "collectives": gloo_cuda_collectives()}
+        if world > 1 and not (out["collectives"]["all_reduce_uint8"] is True
+                              and out["collectives"]["all_reduce_float32"] is True):
+            with open(os.path.join(work, f"spatial_{rank}.json"), "w") as f:
+                json.dump(out, f)
+            return
+        set_tf32(False)
+        b, t, h, w = SPATIAL_TOY_SHAPE
+        cfg = RefidConfig(**SPATIAL_TOY)
+        model = FinalBidirectionAttenfusion(cfg)
+        fill_random(model, seed=5)
+        state = model.state_dict()
+        model = model.cuda()
+        gen = torch.Generator().manual_seed(6)
+        batches = [[torch.rand(b, cfg.img_chn, h, w, generator=gen),
+                    torch.randn(b, t, 2, h, w, generator=gen),
+                    torch.rand(b, t, 3, h, w, generator=gen)] for _ in range(2)]
+        batches = [[a.cuda() for a in batch] for batch in batches]
+        block = 2 ** cfg.num_encoders
+        spatial_mesh = make_mesh(data=1, spatial=world)
+        data_mesh = make_mesh(data=world, spatial=1)
+        with torch.no_grad():
+            want = model(*batches[0][:2])
+            plan = SpatialPlan(spatial_mesh, h, block)
+            with spatial_scope(plan):
+                got = plan.gather(model(plan.shard(batches[0][0]), plan.shard(batches[0][1])))
+        out["forward"] = {"db": parity_db(want, got), "max_abs_err": float((want - got).abs().max()),
+                          "exchanges": plan.exchanges, "reductions": plan.reductions}
+
+        def steps(mesh):
+            net = FinalBidirectionAttenfusion(cfg)
+            net.load_state_dict(state)
+            net = net.cuda()
+            trainer = Trainer(net, charbonnier_loss, recipe_train_opt(), 100,
+                              frozen=known_unused_keys(net), mesh=mesh)
+            losses = []
+            for lq, vox, gt in batches:
+                plan = None
+                if mesh is not None and mesh.spatial > 1:
+                    plan = SpatialPlan(mesh, h, block)
+                    lq, vox, gt = (plan.shard(a) for a in (lq, vox, gt))
+                elif mesh is not None and mesh.data > 1:
+                    lq, vox, gt = (a[mesh.data_index::mesh.data] for a in (lq, vox, gt))
+                losses.append(float(trainer.train_step(lq, vox, gt, plan)["loss"]))
+            return losses, torch.cat([(p.detach() - state[k].cuda()).flatten().float()
+                                      for k, p in trainer.named])
+
+        ref_losses, ref_update = steps(None)
+        out["steps"] = {}
+        for name, mesh in (("data1_spatial2", spatial_mesh), ("data2_spatial1", data_mesh)):
+            losses, update = steps(mesh)
+            out["steps"][name] = {"update_db": parity_db(ref_update, update), "losses": losses,
+                                  "single_process_losses": ref_losses}
+        del model, batches
+        torch.cuda.empty_cache()
+        out["serve"] = spatial_serve(rank, spatial_mesh)
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(work, f"spatial_{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def spatial_serve(rank, mesh):
+    """SPATIAL_WINDOWS 720p windows (2**20 events, bf16 autocast, full width)
+    through ``BlurVFIPipeline(mesh=)``, every rank making the same call;
+    then rank 0 serves the last window unsharded for the dB."""
+    import torch.distributed as dist
+
+    model = FinalBidirectionAttenfusion(RefidConfig())
+    fill_random(model, seed=0)
+    state = model.state_dict()
+    rng = np.random.RandomState(13)
+    requests = [(rng.rand(HEIGHT, WIDTH, 3).astype(np.float32),
+                 rng.rand(HEIGHT, WIDTH, 3).astype(np.float32),
+                 random_events(rng, FULL_EVENTS, WIDTH, HEIGHT)) for _ in range(SPATIAL_WINDOWS)]
+    pipe = BlurVFIPipeline(state, RefidConfig(), mesh=mesh, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    voxel_cuda.LAUNCHES = 0                      # this rank's spatial serving path starts here
+    times = []
+    for i, request in enumerate(requests):
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.autocast("cuda", dtype=torch.bfloat16):
+            got = pipe(*request)
+        torch.cuda.synchronize()
+        if i:
+            times.append((time.perf_counter() - t0) * 1e3)
+    launches = voxel_cuda.LAUNCHES               # ... and ends here
+    plan = pipe.last_plan                        # None on a single rank
+    result = {"ms_per_window": times, "mean_ms_per_window": sum(times) / len(times),
+              "rows": plan.rows if plan else [(0, HEIGHT)],
+              "exchanges_per_window": plan.exchanges if plan else 0,
+              "exchange_bytes_per_window": plan.exchange_bytes if plan else 0,
+              "allreduce_bytes_per_window": plan.allreduce_bytes if plan else 0,
+              "pooled_reductions_per_window": plan.reductions if plan else 0,
+              "max_memory_allocated": torch.cuda.max_memory_allocated(),
+              "voxelize_launches": launches, "finite": bool(torch.isfinite(got).all()),
+              "shape": list(got.shape)}
+    del pipe
+    if rank == 0:
+        single = BlurVFIPipeline(state, RefidConfig(), device="cuda")
+        with torch.autocast("cuda", dtype=torch.bfloat16):
+            want = single(*requests[-1])
+        result["db_vs_single_process"] = parity_db(want.float(), got.float())
+        del single
+    dist.barrier()
+    return result
+
+
+def phase_spatial(work):
+    """spatial_parity and spatial_serve: SPATIAL_RANKS gloo ranks on the one
+    card (spawned), or one rank where gloo does not carry the halo's
+    all_reduce for CUDA tensors.  Returns K1's launches."""
+    import torch.multiprocessing as mp
+
+    t_phase = time.perf_counter()
+    world = SPATIAL_RANKS
+    for attempt in range(2):
+        ctx = mp.start_processes(spatial_rank, args=(world, free_port(), work), nprocs=world,
+                                 join=False, start_method="spawn")
+        deadline = time.monotonic() + SPATIAL_TIMEOUT
+        while not ctx.join(timeout=5):
+            if time.monotonic() > deadline:
+                for proc in ctx.processes:
+                    proc.kill()
+                raise SystemExit(f"chip_smoke: FAILED: spatial ranks ran past {SPATIAL_TIMEOUT} s")
+        ranks = []
+        for rank in range(world):
+            with open(os.path.join(work, f"spatial_{rank}.json")) as f:
+                ranks.append(json.load(f))
+        carried = ranks[0]["collectives"]
+        if "serve" in ranks[0]:
+            break
+        world = 1                                # the halo's collective is missing: one rank
+    emit("gloo_cuda_collectives", world=world, results=carried)
+    forward = ranks[0]["forward"]
+    emit("spatial_parity", ranks=world, config=SPATIAL_TOY, shape=SPATIAL_TOY_SHAPE,
+         dtype="f32", tf32=False, forward=forward, forward_min_db=SPATIAL_FORWARD_DB,
+         steps=ranks[0]["steps"], steps_min_db=PARITY_DB)
+    check(forward["db"] >= SPATIAL_FORWARD_DB,
+          f"spatial_parity forward {forward['db']:.1f} dB < {SPATIAL_FORWARD_DB}")
+    for name, row in ranks[0]["steps"].items():
+        check(row["update_db"] >= PARITY_DB,
+              f"spatial_parity {name}: update {row['update_db']:.1f} dB < {PARITY_DB}")
+    serve = [r["serve"] for r in ranks]
+    emit("spatial_serve", ranks=world, frame=[HEIGHT, WIDTH], events=FULL_EVENTS,
+         dtype="bf16", windows_timed=SPATIAL_WINDOWS - 1,
+         note="ranks sharing one card: exchange overhead, not scaling",
+         db_vs_single_process=serve[0]["db_vs_single_process"], per_rank=serve,
+         seconds=time.perf_counter() - t_phase)
+    check(all(r["finite"] and r["shape"] == [23, HEIGHT, WIDTH, 3] for r in serve),
+          f"spatial_serve outputs {[(r['shape'], r['finite']) for r in serve]}")
+    check(serve[0]["db_vs_single_process"] >= SPATIAL_SERVE_MIN_DB,
+          f"spatial_serve {serve[0]['db_vs_single_process']:.1f} dB < {SPATIAL_SERVE_MIN_DB} "
+          "vs one process")
+    launches = sum(r["voxelize_launches"] for r in serve)
+    check(launches == world * SPATIAL_WINDOWS,
+          f"spatial_serve launched K1 {launches} times for {world} x {SPATIAL_WINDOWS} windows")
+    return launches
+
+
+def phase_mp_loader(data_root, work):
+    """The recipe's train items (its crop, flips, reversal; items voxelized by
+    K2 on the card) through the process loader and the thread loader for
+    LOADER_EPOCHS epochs: equal batches, items/s each.  The process loader's
+    workers read and decode only: every voxelization is K2 in this process,
+    one for each item.  Returns K2's launches."""
+    from refid_tpu_torch.data.loader import PrefetchLoader, build_loader
+    from refid_tpu_torch.data.mp_loader import ProcessPrefetchLoader
+
+    opt = ddp_options(data_root, work, "mp_loader")[1]["datasets"]["train"]
+    opt.update(prefetch_mode="process", seed=3, dataset_enlarge_ratio=1)
+    result, batches, launches = {}, {}, 0
+    for name in ("process", "thread"):
+        dataset = build_dataset(dict(opt), "cuda")
+        process = build_loader(dataset, opt, is_train=True, seed=7)
+        check(isinstance(process, ProcessPrefetchLoader), "prefetch_mode: process built no pool")
+        loader = process if name == "process" else PrefetchLoader(
+            dataset, process.batch_size, process.sampler, process.num_workers,
+            process.prefetch_batches)
+        voxel_cuda.reset_grid_stats()
+        t0 = time.perf_counter()
+        try:
+            batches[name] = []
+            for epoch in range(LOADER_EPOCHS):
+                loader.set_epoch(epoch)
+                batches[name] += list(loader)
+        finally:
+            process.close()
+        seconds = time.perf_counter() - t0
+        items = sum(len(b["seq"]) for b in batches[name])
+        check(voxel_cuda.GRID_LAUNCHES == items == dataset.timing["items"],
+              f"mp_loader {name}: K2 launched {voxel_cuda.GRID_LAUNCHES} times for {items} items")
+        launches += voxel_cuda.GRID_LAUNCHES
+        result[name] = {"items": items, "seconds": seconds, "items_per_s": items / seconds,
+                        "workers": loader.num_workers,
+                        "data_ms_per_item": {k: v / items for k, v in dataset.timing.items()
+                                             if k != "items"}}
+    equal = len(batches["process"]) == len(batches["thread"]) and all(
+        a["seq"] == b["seq"] and all(np.array_equal(a[k], b[k]) for k in ("lq", "gt", "voxel"))
+        for a, b in zip(batches["process"], batches["thread"]))
+    emit("mp_loader", epochs=LOADER_EPOCHS, crop=opt["gt_size"], batches_equal=equal,
+         voxel_grid_launches=launches, **result)
+    check(equal, "mp_loader: the process loader's batches differ from the thread loader's")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -2351,6 +2710,14 @@ def main():
         torch.backends.cuda.matmul.allow_tf32 = False
         grid_launches += phase_ablation_train(data_root, work)   # K2, each item
         emit("ablation_path", seconds=time.perf_counter() - t0)
+
+        t0 = time.perf_counter()                   # distribution and the process loader
+        torch.backends.cudnn.allow_tf32 = True       # PyTorch's defaults
+        torch.backends.cuda.matmul.allow_tf32 = False
+        grid_launches += phase_mp_loader(data_root, work)  # K2, each item, in this process
+        grid_launches += phase_ddp_train(data_root, work)  # K2, each item
+        launches += phase_spatial(work)              # K1, each rank's windows
+        emit("distribution_path", seconds=time.perf_counter() - t0)
 
     def rate_entry(variant, plain_ms, library, kernel):
         r = rates[variant]

@@ -1,9 +1,21 @@
 """Training CLI: ``python -m refid_tpu_torch.cli.train -opt <yml>``
 (mirrors ``refid_tpu/cli/train.py``).
 
-One process on one card (``--device``, default ``cuda``; ``cpu`` runs the
+One process a card (``--device``, default ``cuda``; ``cpu`` runs the
 plain versions).  Reads the reference's option files through the port's
 own ``parse_options``; ``--max-iters`` overrides ``train.total_iter``.
+
+Several processes train one model as the JAX CLI's do, with
+``--coordinator host:port --num-processes N --process-id K`` (each process
+then takes ``cuda:K``, or ``cuda:$LOCAL_RANK``), or under torchrun
+(``torchrun --nproc-per-node N -m refid_tpu_torch.cli.train -opt <yml>``):
+NCCL between cards, gloo with ``--device cpu``.  The ranks form the
+``(data, spatial)`` mesh of ``opt['mesh']['spatial']`` (``parallel/mesh.py``);
+a process with no card of its own raises.  Each seed is ``manual_seed`` plus
+the rank's data index, so the ranks of a spatial group load the same items
+with the same crops; the sampler's permutation is the same on every rank.
+Only rank 0 logs to file, writes TensorBoard and wandb and saves
+checkpoints; every rank resumes and validates.
 Each ``val*`` dataset is validated every ``val.val_freq`` iterations and
 once when training ends (not twice when the last iteration was a
 validation's), its items voxelized on the training device by the val
@@ -26,6 +38,7 @@ syncing it when ``logger.wandb.project`` is set.
 from __future__ import annotations
 
 import argparse
+import logging
 import os
 import random
 import time
@@ -37,6 +50,7 @@ from refid_tpu_torch.core.config import dict2str, parse_options
 from refid_tpu_torch.core.device import resolve_device
 from refid_tpu_torch.core.logging_util import MessageLogger, get_root_logger, init_tb_logger
 from refid_tpu_torch.data.loader import build_dataset, build_loader
+from refid_tpu_torch.parallel.mesh import init_distributed, local_rank, make_mesh, rank, world_size
 from refid_tpu_torch.tasks import build_task
 
 __all__ = ["main", "parse_args", "train"]
@@ -52,11 +66,17 @@ def parse_args(argv=None):
     p.add_argument("--device", default="cuda",
                    help="Device to train on (default: cuda; cpu runs the "
                         "plain versions of the kernels).")
+    p.add_argument("--coordinator", default=None,
+                   help="host:port of process 0 (with --num-processes > 1).")
+    p.add_argument("--num-processes", type=int, default=None)
+    p.add_argument("--process-id", type=int, default=None)
     return p.parse_args(argv)
 
 
 def main(argv=None):
     args = parse_args(argv)
+    init_distributed(args.coordinator, args.num_processes, args.process_id,
+                     backend="gloo" if torch.device(args.device).type == "cpu" else None)
     opt = parse_options(args.opt, is_train=True, root=args.root)
     if args.max_iters:
         opt["train"]["total_iter"] = args.max_iters
@@ -66,7 +86,7 @@ def main(argv=None):
 def _validate(task, current_iter, tb_logger, logger):
     """Each val loader once: results to the log, ``task.history`` and the
     TensorBoard file (``metrics/<dataset>/<name>``)."""
-    save_img = (task.opt.get("val") or {}).get("save_img", False)
+    save_img = (task.opt.get("val") or {}).get("save_img", False) and rank() == 0
     for dataset_opt, loader in task.val_loaders:
         name = dataset_opt.get("name", "val")
         t0 = time.perf_counter()
@@ -80,27 +100,48 @@ def _validate(task, current_iter, tb_logger, logger):
                                   current_iter)
 
 
-def train(opt: dict, device="cuda"):
+def _rank_device(device) -> torch.device:
+    """The device of this rank: ``cuda`` is ``cuda:LOCAL_RANK`` when the
+    process group has more than one rank or came from torchrun."""
     device = resolve_device(device)
+    if device.type != "cuda" or device.index is not None or not torch.distributed.is_initialized():
+        return device
+    index = local_rank()
+    if index >= torch.cuda.device_count():
+        raise RuntimeError(f"local rank {index} has no card: {torch.cuda.device_count()} "
+                           "visible; start one process a card")
+    torch.cuda.set_device(index)
+    return torch.device("cuda", index)
+
+
+def train(opt: dict, device="cuda"):
+    device = _rank_device(device)
+    mesh = make_mesh(data=-1, spatial=(opt.get("mesh") or {}).get("spatial", 1))
 
     seed = opt.get("manual_seed", 0) or 0
-    random.seed(seed)
-    np.random.seed(seed)
-    torch.manual_seed(seed)
+    rank_seed = seed + mesh.data_index
+    random.seed(rank_seed)
+    np.random.seed(rank_seed)
+    torch.manual_seed(rank_seed)
 
     os.makedirs(opt["path"]["experiments_root"], exist_ok=True)
+    lead = rank() == 0
     logger = get_root_logger(
-        log_file=f"{opt['path']['log']}/train_{opt['name']}.log")
+        log_file=f"{opt['path']['log']}/train_{opt['name']}.log" if lead else None)
+    if not lead:
+        logger.setLevel(logging.WARNING)
     logger.info(f"device: {device}" + (f" ({torch.cuda.get_device_name(device)})"
-                                       if device.type == "cuda" else ""))
+                                       if device.type == "cuda" else "")
+                + f"; mesh: data {mesh.data} x spatial {mesh.spatial} of {world_size()} ranks")
     logger.info(dict2str(opt))
 
     dataset_opt = opt["datasets"].get("train")
     if dataset_opt is None:
         raise ValueError("no train dataset in options")
     dataset_opt.setdefault("seed", seed)
-    train_set = build_dataset(dataset_opt, device)
-    train_loader = build_loader(train_set, dataset_opt, True, seed)
+    train_set = build_dataset(dict(dataset_opt, seed=dataset_opt["seed"] + mesh.data_index),
+                              device)
+    train_loader = build_loader(train_set, dataset_opt, True, seed, mesh)
     logger.info(f"train dataset: {len(train_set)} items, "
                 f"{len(train_loader)} batches/epoch")
     val_loaders = []
@@ -114,7 +155,7 @@ def train(opt: dict, device="cuda"):
             "train loader is empty: batch_size_per_gpu exceeds the enlarged "
             "dataset; raise dataset_enlarge_ratio or lower batch_size_per_gpu")
 
-    task = build_task(opt, device)
+    task = build_task(opt, device, mesh)
     task.train_loader, task.val_loaders = train_loader, val_loaders
     pretrain = opt["path"].get("pretrain_network_g")
     if pretrain:
@@ -126,7 +167,7 @@ def train(opt: dict, device="cuda"):
     if task.auto_resume():
         logger.info(f"auto-resumed from iter {task.start_iter}")
 
-    tb_logger = init_tb_logger(opt)
+    tb_logger = init_tb_logger(opt) if lead else None
     try:
         _train_loop(task, opt, tb_logger, logger)
     finally:

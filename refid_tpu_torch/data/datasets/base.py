@@ -25,6 +25,17 @@ reference's normalization loop rebinds a local without writing back, so
 released checkpoints were trained on unnormalized voxels.
 ``apply_voxel_norm: true`` normalizes (a fix, not parity).
 
+An item is three parts, so that worker processes can load it while the
+voxelizer stays on the card (``data/mp_loader.py``): :meth:`draw` takes
+its random decisions from the dataset's seeded ``random.Random`` (in the
+JAX dataset's order, before any decode: the crop reads the frame size
+from the PNG header), :meth:`load` reads its frames and events on the
+host, and :meth:`finish` voxelizes, crops, flips and packs.
+``ds[i]`` is ``finish(load(i, draw(i)))``.  The loaders draw in sampler
+order before they hand the rest to their workers, so a seed gives the
+same batches whatever the number of workers, and the ranks of a spatial
+group (seeded alike) the same crops.
+
 ``timing`` sums, over the items loaded, host milliseconds spent reading
 images and events (``load_ms``), voxelizing (``voxelize_ms``) and
 cropping, flipping and packing (``crop_ms``).
@@ -40,8 +51,10 @@ from typing import List
 
 import numpy as np
 
-from refid_tpu_torch.data.img_util import imread
-from refid_tpu_torch.data.transforms import augment, triple_random_crop
+from refid_tpu_torch.data.img_util import imread, png_size, unit_float
+from refid_tpu_torch.data.transforms import (
+    apply_flips, draw_crop, draw_flips, triple_random_crop,
+)
 from refid_tpu_torch.events.voxel import (
     event_reverse, events_to_voxel_grid, voxel_norm_np,
 )
@@ -132,6 +145,15 @@ class RecurrentEventDataset:
         for video in self._video_list():
             self._index_video(video)
 
+    def __getstate__(self):        # a worker process's copy (data/mp_loader.py)
+        state = dict(self.__dict__)
+        del state["_timing_lock"]
+        return state
+
+    def __setstate__(self, state):
+        self.__dict__.update(state)
+        self._timing_lock = threading.Lock()
+
     # --- layout hooks ------------------------------------------------------
 
     def _video_list(self) -> List[str]:
@@ -203,7 +225,22 @@ class RecurrentEventDataset:
         return events_to_voxel_grid(events, bins, width, height, "HWC",
                                     device=self.device)
 
-    def __getitem__(self, index: int) -> dict:
+    def draw(self, index: int) -> dict:
+        """The item's random decisions, drawn from the dataset's ``rng`` in
+        the order the JAX dataset draws them: the reversal, the crop (from
+        the lq frame's size in its PNG header) and the flips."""
+        draws = {"reverse": bool(self.random_reverse and self.rng.random() < 0.5)}
+        if self.gt_size is not None:
+            h, w = png_size(self.lq_paths[index][0])
+            draws["crop"] = draw_crop(h, w, self.gt_size, self.scale, self.rng)
+        draws["flips"] = draw_flips(self.opt.get("use_hflip", False),
+                                    self.opt.get("use_rot", False), self.rng)
+        return draws
+
+    def load(self, index: int, draws: dict) -> dict:
+        """The host part of an item: its paths, its frames decoded (uint8)
+        and its event arrays.  Needs no device: worker processes run it
+        (``data/mp_loader.py``)."""
         image_paths = list(self.lq_paths[index])
         gt_paths = list(self.gt_paths[index])
         event_paths = self.event_paths[index]
@@ -211,18 +248,29 @@ class RecurrentEventDataset:
             raise ValueError(f"item {index}: {len(gt_paths)} gts != {self._expected_gts()}")
         if len(event_paths) != self.num_bins:
             raise ValueError(f"item {index}: {len(event_paths)} events != {self.num_bins}")
-
-        if self.random_reverse and self.rng.random() < 0.5:
+        if draws["reverse"]:
             image_paths.reverse()
             gt_paths.reverse()
-
         t0 = time.perf_counter()
-        img_lqs = [imread(p) for p in image_paths]
-        img_gts = [imread(p) for p in gt_paths]
-        h_lq, w_lq = img_lqs[0].shape[:2]
-        quads = [load_event_quad(p, self._swap_xy) for p in event_paths]
+        return {"image_paths": image_paths, "draws": draws,
+                "lqs": [imread(p, float32=False) for p in image_paths],
+                "gts": [imread(p, float32=False) for p in gt_paths],
+                "quads": [load_event_quad(p, self._swap_xy) for p in event_paths],
+                "load_ms": (time.perf_counter() - t0) * 1e3}
 
+    def __getitem__(self, index: int) -> dict:
+        return self.finish(self.load(index, self.draw(index)))
+
+    def finish(self, host: dict) -> dict:
+        """The device part of an item: the voxel grids (K2 on a CUDA device),
+        then the crop and flips applied to frames and grids, and the
+        packing."""
+        image_paths, draws, quads = host["image_paths"], host["draws"], host["quads"]
+        t0 = time.perf_counter()
+        img_lqs = [unit_float(img) for img in host["lqs"]]
+        img_gts = [unit_float(img) for img in host["gts"]]
         t1 = time.perf_counter()
+        h_lq, w_lq = img_lqs[0].shape[:2]
         voxels = []
         if self.one_voxel_flg:
             all_quad = np.concatenate(quads, axis=0)
@@ -238,11 +286,9 @@ class RecurrentEventDataset:
         t2 = time.perf_counter()
         if self.gt_size is not None:
             img_gts, img_lqs, voxels = triple_random_crop(
-                img_gts, img_lqs, voxels, self.gt_size, self.scale, self.rng)
+                img_gts, img_lqs, voxels, self.gt_size, self.scale, top_left=draws["crop"])
 
-        group = list(img_lqs) + list(img_gts) + list(voxels)
-        group = augment(group, self.opt.get("use_hflip", False),
-                        self.opt.get("use_rot", False), self.rng)
+        group = apply_flips(list(img_lqs) + list(img_gts) + list(voxels), draws["flips"])
         n_lq, n_gt = len(img_lqs), len(img_gts)
         img_lqs = group[:n_lq]
         img_gts = group[n_lq:n_lq + n_gt]
@@ -284,7 +330,7 @@ class RecurrentEventDataset:
         t3 = time.perf_counter()
         with self._timing_lock:
             self.timing["items"] += 1
-            self.timing["load_ms"] += (t1 - t0) * 1e3
+            self.timing["load_ms"] += host["load_ms"] + (t1 - t0) * 1e3
             self.timing["voxelize_ms"] += (t2 - t1) * 1e3
             self.timing["crop_ms"] += (t3 - t2) * 1e3
         return item

@@ -13,9 +13,11 @@ An item voxelizes its events ``HWC`` on the dataset's ``device``: the CUDA
 kernel K2 on a CUDA device, its plain version on the CPU.  Unlike the
 recurrent datasets, ``voxel_norm`` is applied, unconditionally, after the
 crop and flips (upstream calls it directly on the sample).  The train phase
-crops ``gt_size`` with ``triple_random_crop`` and flips with ``augment``, both
-from the dataset's seeded ``random.Random``.  Items are HWC numpy:
-``lq`` and ``gt`` ``(h, w, 3)``, ``voxel`` ``(h, w, num_bins)``.
+crops ``gt_size`` and flips as ``triple_random_crop`` and ``augment`` do,
+drawn from the dataset's seeded ``random.Random`` in their order.  Items are
+HWC numpy: ``lq`` and ``gt`` ``(h, w, 3)``, ``voxel`` ``(h, w, num_bins)``.
+An item is :meth:`draw`, :meth:`load` (host) and :meth:`finish` (device),
+as in ``base.py``.
 
 ``timing`` sums, over the items loaded, host milliseconds spent reading
 (``load_ms``), voxelizing (``voxelize_ms``) and cropping, flipping and
@@ -34,8 +36,10 @@ import numpy as np
 
 from refid_tpu_torch.core.registry import DATASETS
 from refid_tpu_torch.data.datasets.base import load_event_quad, recursive_glob
-from refid_tpu_torch.data.img_util import imread
-from refid_tpu_torch.data.transforms import augment, triple_random_crop
+from refid_tpu_torch.data.img_util import imread, png_size, unit_float
+from refid_tpu_torch.data.transforms import (
+    apply_flips, draw_crop, draw_flips, triple_random_crop,
+)
 from refid_tpu_torch.events.voxel import events_to_voxel_grid, voxel_norm_np
 
 __all__ = ["GoProSingleImageEventDataset", "RuisiSingleImageEventDataset"]
@@ -77,31 +81,63 @@ class _SingleImageEventDataset:
             self.event_seqs.append([os.path.join(ev_dir, "%.6d.npz" % i)
                                     for i in range(idx + self.window[0], idx + self.window[1])])
 
+    def __getstate__(self):        # a worker process's copy (data/mp_loader.py)
+        state = dict(self.__dict__)
+        del state["_timing_lock"]
+        return state
+
+    def __setstate__(self, state):
+        self.__dict__.update(state)
+        self._timing_lock = threading.Lock()
+
     def __len__(self):
         return len(self.blur_paths)
 
-    def __getitem__(self, index: int) -> dict:
+    def draw(self, index: int) -> dict:
+        """The item's crop (from the frame size in the PNG header) and flips,
+        drawn from the dataset's ``rng`` in the JAX dataset's order."""
+        draws = {}
+        if self.gt_size is not None:
+            h, w = png_size(self.blur_paths[index])
+            draws["crop"] = draw_crop(h, w, self.gt_size, self.scale, self.rng)
+        draws["flips"] = draw_flips(self.opt.get("use_hflip", False),
+                                    self.opt.get("use_rot", False), self.rng)
+        return draws
+
+    def load(self, index: int, draws: dict) -> dict:
+        """The host part: the two frames (uint8) and the event arrays."""
         t0 = time.perf_counter()
-        img_lq = imread(self.blur_paths[index])
-        img_gt = imread(self.sharp_paths[index])
-        h, w = img_lq.shape[:2]
         quads = [load_event_quad(p, self.layout == "highrev")
                  for p in self.event_seqs[index] if os.path.exists(p)]
-        all_quad = np.concatenate(quads, 0) if quads else np.zeros((0, 4), np.float32)
+        return {"index": index, "draws": draws,
+                "lq": imread(self.blur_paths[index], float32=False),
+                "gt": imread(self.sharp_paths[index], float32=False),
+                "events": np.concatenate(quads, 0) if quads else np.zeros((0, 4), np.float32),
+                "load_ms": (time.perf_counter() - t0) * 1e3}
+
+    def __getitem__(self, index: int) -> dict:
+        return self.finish(self.load(index, self.draw(index)))
+
+    def finish(self, host: dict) -> dict:
+        """The device part: the voxel grid (K2 on a CUDA device), the crop,
+        the flips and ``voxel_norm``."""
+        draws = host["draws"]
+        t0 = time.perf_counter()
+        img_lq, img_gt = unit_float(host["lq"]), unit_float(host["gt"])
+        h, w = img_lq.shape[:2]
 
         t1 = time.perf_counter()
-        voxel = events_to_voxel_grid(all_quad, self.num_bins, w, h, "HWC", device=self.device)
+        voxel = events_to_voxel_grid(host["events"], self.num_bins, w, h, "HWC",
+                                     device=self.device)
 
         t2 = time.perf_counter()
         if self.gt_size is not None:
             img_gt, img_lq, voxel = triple_random_crop(img_gt, img_lq, voxel, self.gt_size,
-                                                       self.scale, self.rng)
-        img_gt, img_lq, voxel = augment([img_gt, img_lq, voxel],
-                                        self.opt.get("use_hflip", False),
-                                        self.opt.get("use_rot", False), self.rng)
+                                                       self.scale, top_left=draws["crop"])
+        img_gt, img_lq, voxel = apply_flips([img_gt, img_lq, voxel], draws["flips"])
         voxel = voxel_norm_np(voxel)
 
-        blur_path = self.blur_paths[index]
+        blur_path = self.blur_paths[host["index"]]
         item = {"lq": img_lq.astype(np.float32), "gt": img_gt.astype(np.float32),
                 "voxel": voxel.astype(np.float32),
                 "seq": blur_path.split(f"{self.split}/")[1].split("/")[0],
@@ -109,7 +145,7 @@ class _SingleImageEventDataset:
         t3 = time.perf_counter()
         with self._timing_lock:
             self.timing["items"] += 1
-            self.timing["load_ms"] += (t1 - t0) * 1e3
+            self.timing["load_ms"] += host["load_ms"] + (t1 - t0) * 1e3
             self.timing["voxelize_ms"] += (t2 - t1) * 1e3
             self.timing["crop_ms"] += (t3 - t2) * 1e3
         return item

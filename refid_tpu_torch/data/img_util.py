@@ -39,7 +39,7 @@ import torch
 
 __all__ = ["imfrombytes", "imread", "imwrite", "imencode_png", "png_order", "tensor2img",
            "padding", "png_decode", "png_encode", "png_scanlines", "png_deflate", "png_chunks",
-           "unfilter"]
+           "unfilter", "png_size", "unit_float"]
 
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}   # PNG colour type -> samples per pixel
@@ -358,6 +358,23 @@ def imfrombytes(content: bytes, flag: str = "color", float32: bool = False,
 def png_decode(data: bytes) -> np.ndarray:
     """PNG bytes -> ``(h, w, 3)`` uint8 RGB: the colour read, in RGB."""
     return imfrombytes(data, "color", rgb=True)
+
+
+def png_size(path: str):
+    """``(height, width)`` of a PNG file, from its header alone."""
+    with open(path, "rb") as f:
+        head = f.read(24)
+    if head[:8] != b"\x89PNG\r\n\x1a\n" or head[12:16] != b"IHDR":
+        raise ValueError(f"{path}: not a PNG file")
+    width, height = struct.unpack(">II", head[16:24])
+    return height, width
+
+
+def unit_float(img: np.ndarray) -> np.ndarray:
+    """uint8 -> float32 in [0, 1], as ``imread(..., float32=True)`` does."""
+    out = img.astype(np.float32)
+    out /= np.float32(255.0)
+    return out
 
 
 def imread(path: str, float32: bool = True, rgb: bool = True) -> np.ndarray:

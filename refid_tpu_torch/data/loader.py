@@ -2,14 +2,21 @@
 (mirrors ``refid_tpu/data/loader.py``).
 
   * ``EnlargedIndexSampler`` — epoch-seeded permutation over a ``ratio``-fold
-    enlarged dataset, sliced by shard (one process here: one shard).
+    enlarged dataset, sliced by shard: by default the data axis of the
+    mesh (``parallel/mesh.py``), so the S ranks of a spatial group draw the
+    same items.
   * ``PrefetchLoader`` — a pool of threads loads samples ahead of the
     training loop and collates numpy batches; the task moves them to the
-    card.  Threads, not processes: they share the CUDA context, so the
-    voxelizer kernel runs from them (a worker process forked after CUDA is
-    initialised cannot use the card).  For a dataset on a CUDA device each
-    loader thread works on a stream of its own, so its kernel and copies do
-    not queue behind the training step's work on the default stream.
+    card.  The threads share the CUDA context, so the voxelizer kernel runs
+    from them; for a dataset on a CUDA device each loader thread works on a
+    stream of its own, so its kernel and copies do not queue behind the
+    training step's work on the default stream.  Each item's random
+    decisions are drawn in sampler order (``dataset.draw``) before a thread
+    loads it, so the batches do not depend on the number of threads.
+  * ``prefetch_mode: process`` selects ``data/mp_loader.py``'s
+    ``ProcessPrefetchLoader``: worker processes read the frames and events
+    (``dataset.load``) and this process's loader thread voxelizes on the
+    card (``dataset.finish``).
 """
 
 from __future__ import annotations
@@ -24,6 +31,7 @@ import numpy as np
 import torch
 
 from refid_tpu_torch.core.registry import DATASETS
+from refid_tpu_torch.parallel.mesh import rank, world_size
 
 __all__ = ["build_dataset", "build_loader", "EnlargedIndexSampler",
            "PrefetchLoader", "collate"]
@@ -40,15 +48,21 @@ def build_dataset(dataset_opt: dict, device="cuda"):
 class EnlargedIndexSampler:
     """Epoch-seeded shuffled indices over the dataset enlarged
     ``ratio``-fold; shard ``k`` of ``num_shards`` takes every
-    ``num_shards``-th index, as the reference's sampler does."""
+    ``num_shards``-th index, as the reference's sampler does.  The shards
+    default to ``mesh``'s data axis (``D`` shards, index ``rank // S``), and
+    without a mesh to the process group's ranks (the data axis of a mesh
+    with ``spatial=1``)."""
 
     def __init__(self, num_samples: int, ratio: int = 1, shuffle: bool = True,
-                 num_shards: int = 1, shard_index: int = 0, seed: int = 0):
+                 num_shards: Optional[int] = None, shard_index: Optional[int] = None,
+                 seed: int = 0, mesh=None):
         self.num_samples = num_samples
         self.total = int(num_samples * max(ratio, 1))
         self.shuffle = shuffle
-        self.num_shards = num_shards
-        self.shard_index = shard_index
+        shards, index = (mesh.data, mesh.data_index) if mesh is not None \
+            else (world_size(), rank())
+        self.num_shards = num_shards or shards
+        self.shard_index = shard_index if shard_index is not None else index
         self.seed = seed
 
     def epoch_indices(self, epoch: int) -> np.ndarray:
@@ -86,8 +100,8 @@ class PrefetchLoader:
                  drop_last: bool = True):
         self.dataset = dataset
         self.batch_size = batch_size
-        self.sampler = sampler or EnlargedIndexSampler(len(dataset), 1,
-                                                       shuffle=False)
+        self.sampler = sampler or EnlargedIndexSampler(len(dataset), 1, shuffle=False,
+                                                       num_shards=1, shard_index=0)
         self.num_workers = max(1, num_workers)
         self.prefetch_batches = max(1, prefetch_batches)
         self.drop_last = drop_last
@@ -106,6 +120,20 @@ class PrefetchLoader:
         if self.device.type == "cuda":
             torch.cuda.set_stream(torch.cuda.Stream(self.device))
 
+    def _executor(self):
+        return ThreadPoolExecutor(self.num_workers, initializer=self._init_worker)
+
+    def _submit(self, pool, index: int):
+        """Start item ``index``, its decisions drawn here, in sampler order."""
+        ds = self.dataset
+        if not hasattr(ds, "draw"):
+            return pool.submit(ds.__getitem__, index)
+        draws = ds.draw(index)
+        return pool.submit(lambda: ds.finish(ds.load(index, draws)))
+
+    def _result(self, pending):
+        return pending.result()
+
     def __iter__(self) -> Iterator[dict]:
         indices = self.sampler.epoch_indices(self.epoch)
         batches = [indices[i * self.batch_size:(i + 1) * self.batch_size]
@@ -117,18 +145,16 @@ class PrefetchLoader:
 
         def produce():
             try:
-                with ThreadPoolExecutor(self.num_workers,
-                                        initializer=self._init_worker) as pool:
+                with self._executor() as pool:
                     pending = collections.deque()
                     for batch_idx in batches:
                         if stop.is_set():
                             return
-                        pending.append([pool.submit(self.dataset.__getitem__, int(i))
-                                        for i in batch_idx])
+                        pending.append([self._submit(pool, int(i)) for i in batch_idx])
                         if len(pending) > self.prefetch_batches:
-                            q.put(collate([f.result() for f in pending.popleft()]))
+                            q.put(collate([self._result(f) for f in pending.popleft()]))
                     while pending and not stop.is_set():
-                        q.put(collate([f.result() for f in pending.popleft()]))
+                        q.put(collate([self._result(f) for f in pending.popleft()]))
             except Exception as exc:   # surfaced in the consumer
                 failure.append(exc)
             finally:
@@ -154,23 +180,27 @@ class PrefetchLoader:
 
 
 def build_loader(dataset, dataset_opt: dict, is_train: bool,
-                 seed: int = 0) -> PrefetchLoader:
-    """Build from a reference-style dataset option dict: train uses
-    ``batch_size_per_gpu`` (one card), an enlarged shuffled sampler and
-    ``num_worker_per_gpu`` threads; val / test use batch 1 in order."""
+                 seed: int = 0, mesh=None) -> PrefetchLoader:
+    """Build from a reference-style dataset option dict: train uses an
+    enlarged shuffled sampler over ``mesh``'s data axis, batches of
+    ``batch_size_per_gpu x S`` items (the S ranks of a spatial group share
+    them, each taking its rows; the global batch is ``batch_size_per_gpu x
+    world size``) and ``num_worker_per_gpu`` threads, or worker processes
+    with ``prefetch_mode: process``; val / test use batch 1 in order."""
     if is_train:
-        if dataset_opt.get("prefetch_mode") == "process":
-            raise NotImplementedError(
-                "prefetch_mode: process (worker processes, refid_tpu/data/"
-                "mp_loader.py) is not ported yet; the thread loader serves")
+        spatial = mesh.spatial if mesh is not None else 1
         sampler = EnlargedIndexSampler(
             len(dataset), dataset_opt.get("dataset_enlarge_ratio", 1),
-            shuffle=dataset_opt.get("use_shuffle", True), seed=seed)
-        return PrefetchLoader(
-            dataset, dataset_opt.get("batch_size_per_gpu", 1), sampler,
-            dataset_opt.get("num_worker_per_gpu", 2),
-            prefetch_batches=dataset_opt.get("num_prefetch_queue", 2),
-            drop_last=True)
-    sampler = EnlargedIndexSampler(len(dataset), 1, shuffle=False)
+            shuffle=dataset_opt.get("use_shuffle", True), seed=seed, mesh=mesh)
+        cls = PrefetchLoader
+        if dataset_opt.get("prefetch_mode") == "process":
+            from refid_tpu_torch.data.mp_loader import ProcessPrefetchLoader
+            cls = ProcessPrefetchLoader
+        return cls(dataset, dataset_opt.get("batch_size_per_gpu", 1) * spatial, sampler,
+                   dataset_opt.get("num_worker_per_gpu", 2),
+                   prefetch_batches=dataset_opt.get("num_prefetch_queue", 2),
+                   drop_last=True)
+    sampler = EnlargedIndexSampler(len(dataset), 1, shuffle=False, num_shards=1,
+                                   shard_index=0)
     return PrefetchLoader(dataset, 1, sampler, num_workers=1,
                           prefetch_batches=1, drop_last=False)

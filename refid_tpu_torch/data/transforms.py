@@ -1,7 +1,12 @@
 """Aligned spatial transforms on HWC numpy arrays (mirrors
 ``refid_tpu/data/transforms.py``): one random draw is applied identically
 to every array of a group (images, gts, voxels).  The ``rng`` calls come in
-the JAX package's order, so a seed gives its crops and flips."""
+the JAX package's order, so a seed gives its crops and flips.
+
+Each random transform is also two halves, a draw (:func:`draw_crop`,
+:func:`draw_flips`) and its application (``triple_random_crop(...,
+top_left=)``, :func:`apply_flips`), so that a dataset can draw an item's decisions
+before its frames are decoded (``data/datasets/base.py``)."""
 
 from __future__ import annotations
 
@@ -9,7 +14,8 @@ import random
 
 import numpy as np
 
-__all__ = ["augment", "paired_random_crop", "triple_random_crop", "mod_crop"]
+__all__ = ["augment", "paired_random_crop", "triple_random_crop", "mod_crop",
+           "draw_crop", "draw_flips", "apply_flips"]
 
 
 def mod_crop(img: np.ndarray, scale: int) -> np.ndarray:
@@ -17,15 +23,26 @@ def mod_crop(img: np.ndarray, scale: int) -> np.ndarray:
     return img[: h - h % scale, : w - w % scale, ...]
 
 
-def augment(imgs, hflip=True, rotation=True, rng: random.Random = random):
-    """hflip / vflip / 90-degree rotation as a transpose, one draw for all
-    arrays."""
-    single = not isinstance(imgs, list)
-    if single:
-        imgs = [imgs]
+def draw_flips(hflip=True, rotation=True, rng: random.Random = random):
+    """``(hflip, vflip, rot90)``, drawn as :func:`augment` draws them."""
     do_hflip = hflip and rng.random() < 0.5
     do_vflip = rotation and rng.random() < 0.5
     do_rot90 = rotation and rng.random() < 0.5
+    return do_hflip, do_vflip, do_rot90
+
+
+def augment(imgs, hflip=True, rotation=True, rng: random.Random = random):
+    """hflip / vflip / 90-degree rotation as a transpose, one draw for all
+    arrays."""
+    return apply_flips(imgs, draw_flips(hflip, rotation, rng))
+
+
+def apply_flips(imgs, flips):
+    """:func:`augment` with its draw given."""
+    single = not isinstance(imgs, list)
+    if single:
+        imgs = [imgs]
+    do_hflip, do_vflip, do_rot90 = flips
 
     def _aug(img):
         img = np.ascontiguousarray(img, dtype=np.float32)
@@ -74,9 +91,19 @@ def paired_random_crop(img_gts, img_lqs, gt_patch_size, scale,
     return img_gts, img_lqs
 
 
+def draw_crop(h_lq, w_lq, gt_patch_size, scale, rng: random.Random = random):
+    """The ``(top, left)`` of :func:`triple_random_crop`'s draw on an lq frame
+    of ``h_lq x w_lq``."""
+    lq_patch = gt_patch_size // scale
+    if h_lq < lq_patch or w_lq < lq_patch:
+        raise ValueError(f"LQ ({h_lq},{w_lq}) smaller than patch {lq_patch}")
+    return rng.randint(0, h_lq - lq_patch), rng.randint(0, w_lq - lq_patch)
+
+
 def triple_random_crop(img_gts, img_lqs, voxels, gt_patch_size, scale,
-                       rng: random.Random = random):
-    """Aligned random crop of gt / lq / voxel groups."""
+                       rng: random.Random = random, top_left=None):
+    """Aligned random crop of gt / lq / voxel groups, at ``top_left`` when
+    it is given (a :func:`draw_crop`), else drawn from ``rng``."""
     def aslist(x):
         return x if isinstance(x, list) else [x]
 
@@ -89,11 +116,11 @@ def triple_random_crop(img_gts, img_lqs, voxels, gt_patch_size, scale,
     lq_patch = gt_patch_size // scale
     if h_gt != h_lq * scale or w_gt != w_lq * scale:
         raise ValueError("Scale mismatch")
-    if h_lq < lq_patch or w_lq < lq_patch:
+    if top_left is None:
+        top_left = draw_crop(h_lq, w_lq, gt_patch_size, scale, rng)
+    elif h_lq < lq_patch or w_lq < lq_patch:
         raise ValueError(f"LQ ({h_lq},{w_lq}) smaller than patch {lq_patch}")
-
-    top = rng.randint(0, h_lq - lq_patch)
-    left = rng.randint(0, w_lq - lq_patch)
+    top, left = top_left
     lqs = [v[top:top + lq_patch, left:left + lq_patch, ...] for v in lqs]
     vox = [v[top:top + lq_patch, left:left + lq_patch, ...] for v in vox]
     tg, lg = top * scale, left * scale

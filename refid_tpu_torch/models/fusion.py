@@ -17,6 +17,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from refid_tpu_torch.models.layers import LayerNorm2d, SELayer
+from refid_tpu_torch.parallel.spatial import HaloConv2d
 
 __all__ = ["CrossmodalAtten", "ImgEvFusion"]
 
@@ -29,9 +30,9 @@ class CrossmodalAtten(nn.Module):
         self.norm1 = LayerNorm2d(c)
         self.norm1_e = LayerNorm2d(c)
         self.conv1 = nn.Conv2d(c, c, 1)
-        self.conv2 = nn.Conv2d(c, c, 3, 1, 1, groups=c)
+        self.conv2 = HaloConv2d(c, c, 3, 1, 1, groups=c)
         self.conv1_e = nn.Conv2d(c, c, 1)
-        self.conv2_e = nn.Conv2d(c, c, 3, 1, 1, groups=c)
+        self.conv2_e = HaloConv2d(c, c, 3, 1, 1, groups=c)
         self.se_1 = SELayer(c, c // 2, c)
         self.se_2 = SELayer(c, c // 2, c)    # unused, as upstream
         self.conv3 = nn.Conv2d(2 * c, c, 1)

@@ -18,6 +18,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from refid_tpu_torch.parallel.spatial import HaloConv2d, SpatialAvgPool
+
 __all__ = [
     "ConvLayer", "ImageEncoderConvBlock", "ResidualBlock", "ResidualBlockNoBN",
     "ConvResidualBlocks", "LayerNorm2d", "SELayer", "conv_transpose_up",
@@ -31,7 +33,7 @@ class ConvLayer(nn.Module):
                  stride: int = 1, padding: int = 0,
                  relu_slope: Optional[float] = 0.2):
         super().__init__()
-        self.conv2d = nn.Conv2d(in_ch, out_ch, kernel_size, stride, padding)
+        self.conv2d = HaloConv2d(in_ch, out_ch, kernel_size, stride, padding)
         self.relu_slope = relu_slope
 
     def forward(self, x):
@@ -47,10 +49,10 @@ class ImageEncoderConvBlock(nn.Module):
 
     def __init__(self, in_ch: int, out_ch: int):
         super().__init__()
-        self.conv_1 = nn.Conv2d(in_ch, out_ch, 3, 1, 1)
-        self.conv_2 = nn.Conv2d(out_ch, out_ch, 3, 1, 1)
+        self.conv_1 = HaloConv2d(in_ch, out_ch, 3, 1, 1)
+        self.conv_2 = HaloConv2d(out_ch, out_ch, 3, 1, 1)
         self.identity = nn.Conv2d(in_ch, out_ch, 1, 1, 0)
-        self.down = nn.Conv2d(out_ch, out_ch, 4, 2, 1, bias=False)
+        self.down = HaloConv2d(out_ch, out_ch, 4, 2, 1, bias=False)
 
     def forward(self, x):
         out = F.leaky_relu(self.conv_1(x), 0.2)
@@ -63,8 +65,8 @@ class ResidualBlock(nn.Module):
 
     def __init__(self, features: int):
         super().__init__()
-        self.conv1 = nn.Conv2d(features, features, 3, 1, 1)
-        self.conv2 = nn.Conv2d(features, features, 3, 1, 1)
+        self.conv1 = HaloConv2d(features, features, 3, 1, 1)
+        self.conv2 = HaloConv2d(features, features, 3, 1, 1)
 
     def forward(self, x, q=None):
         if q is None:
@@ -80,8 +82,8 @@ class ResidualBlockNoBN(nn.Module):
 
     def __init__(self, features: int):
         super().__init__()
-        self.conv1 = nn.Conv2d(features, features, 3, 1, 1)
-        self.conv2 = nn.Conv2d(features, features, 3, 1, 1)
+        self.conv1 = HaloConv2d(features, features, 3, 1, 1)
+        self.conv2 = HaloConv2d(features, features, 3, 1, 1)
         with torch.no_grad():
             for conv in (self.conv1, self.conv2):
                 nn.init.kaiming_normal_(conv.weight, a=0, mode="fan_in")
@@ -98,7 +100,7 @@ class ConvResidualBlocks(nn.Module):
     def __init__(self, in_ch: int, features: int, num_block: int = 1):
         super().__init__()
         self.main = nn.Sequential(
-            nn.Conv2d(in_ch, features, 3, 1, 1),
+            HaloConv2d(in_ch, features, 3, 1, 1),
             nn.LeakyReLU(0.1),
             nn.Sequential(*[ResidualBlockNoBN(features)
                             for _ in range(num_block)]))
@@ -133,7 +135,7 @@ class SELayer(nn.Sequential):
     two convs are children ``1`` and ``3``, as in upstream's Sequential."""
 
     def __init__(self, in_ch: int, mid: int, out: int):
-        super().__init__(nn.AdaptiveAvgPool2d(1), nn.Conv2d(in_ch, mid, 1),
+        super().__init__(SpatialAvgPool(), nn.Conv2d(in_ch, mid, 1),
                          nn.ReLU(), nn.Conv2d(mid, out, 1), nn.Sigmoid())
 
 

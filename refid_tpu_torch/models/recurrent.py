@@ -29,6 +29,7 @@ from refid_tpu_torch.models.layers import (
     ConvLayer, ConvResidualBlocks, conv_transpose_up,
 )
 from refid_tpu_torch.ops.deform_conv import ModulatedDeformConvPack
+from refid_tpu_torch.parallel.spatial import HaloConv2d
 
 __all__ = [
     "SimpleRecurrentConv", "ConvGRU", "ConvLSTM", "RecurrentEncoderStage",
@@ -152,7 +153,7 @@ class RecurrentEncoderStage(nn.Module):
         if fuse_two_direction:
             self.fuse_two_dir = ConvLayer(2 * out_ch, out_ch, 1, 1, 0, 0.2)
         if stage_type == "then_down":
-            self.down = nn.Conv2d(out_ch, out_ch, 4, 2, 1, bias=False)
+            self.down = HaloConv2d(out_ch, out_ch, 4, 2, 1, bias=False)
 
     def _first_conv(self, x, q):
         if q is None:

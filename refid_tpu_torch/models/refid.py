@@ -47,6 +47,12 @@ what enters them (the stage and decoder outputs, as the JAX policy
 rest.  ``dtype=torch.bfloat16`` runs the network under bf16 autocast with
 float32 parameters and returns float32.
 
+Spatial sharding (``parallel/spatial.py``): under an active plan the
+inputs are a rank's rows of the frame; the convs with a halo
+(``HaloConv2d``) and the SE pools (``SpatialAvgPool``) exchange with the
+neighbouring shards, and :func:`spatial_applicable` names the lineage that
+runs so (the flagship's; others raise ``ValueError``).
+
 int8 serving (``serve/quant.py``): ``forward(x, event, q)`` with a
 ``QuantState`` runs the convs that ``refid_tpu/serve/fast_forward.py`` routes
 through ``conv_int8``, in its call order (backward scan k = t-1 .. 0, then
@@ -78,8 +84,10 @@ from refid_tpu_torch.models.recurrent import (
     PixelShuffleRecurrentConvLayer, RecurrentEncoderStage,
     TransposeRecurrentConvLayer, UpsampleConvLayer,
 )
+from refid_tpu_torch.parallel import spatial
 
-__all__ = ["RefidConfig", "FinalBidirectionAttenfusion", "int8_applicable", "INT8_NEEDS"]
+__all__ = ["RefidConfig", "FinalBidirectionAttenfusion", "int8_applicable", "INT8_NEEDS",
+           "spatial_applicable", "SPATIAL_NEEDS"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -178,6 +186,23 @@ INT8_NEEDS = ("the production architecture that the JAX serving forward replays:
               "decoder, no siamese fusion")
 
 
+def spatial_applicable(cfg: Optional[RefidConfig]) -> bool:
+    """True iff the network runs on row shards (``parallel/spatial.py``):
+    the flagship's lineage, whose every op is a conv with a halo, a pooled
+    SE gate or local.  The ConvGRU / ConvLSTM cells, the k5/s2 stages, the
+    pixel-shuffle and bilinear decoders, the DCN and the siamese fusion
+    would each need their own halo or gather."""
+    return (cfg is not None and cfg.recurrent_cell == "simpleconv"
+            and cfg.encoder_stage == "then_down"
+            and cfg.decoder_type == "transpose_recurrent"
+            and not cfg.use_first_dcn and cfg.siamese_fusion is None)
+
+
+SPATIAL_NEEDS = ("the flagship FinalBidirectionAttenfusion lineage (then_down stages with "
+                 "simpleconv cells, the transposed-conv decoder, no DCN, no siamese fusion) "
+                 "in float")
+
+
 class FinalBidirectionAttenfusion(nn.Module):
     """Event-recurrent UNet for blurry VFI, bidirectional in the flagship.
 
@@ -185,6 +210,10 @@ class FinalBidirectionAttenfusion(nn.Module):
     concatenated along channels; ``event`` ``(b, t, ev_chn, h, w)`` adjacent
     voxel-bin pairs.  Output ``(b, t, out_chn, h, w)``.  ``h`` and ``w`` must
     be multiples of ``2**num_encoders``.
+
+    Under an active spatial plan (``parallel/spatial.py::spatial_scope``)
+    ``x`` and ``event`` are this rank's rows of the frame and so is the
+    output; only :func:`spatial_applicable` configurations run so, in float.
     """
 
     def __init__(self, cfg: RefidConfig = RefidConfig()):
@@ -380,6 +409,12 @@ class FinalBidirectionAttenfusion(nn.Module):
     def forward(self, x, event, q=None):
         if q is not None and not int8_applicable(self.cfg):
             raise ValueError(f"int8 serving needs {INT8_NEEDS}; got {self.cfg}")
+        plan = spatial.active()
+        if plan is not None:
+            if q is not None or not spatial_applicable(self.cfg):
+                raise ValueError(f"spatial sharding needs {SPATIAL_NEEDS}; got "
+                                 f"{self.cfg}{' with int8' if q is not None else ''}")
+            plan.check_rows(x.shape[-2])
         if self.cfg.dtype != torch.bfloat16:
             return self._forward(x, event, q)
         with torch.autocast(x.device.type, dtype=torch.bfloat16):

@@ -17,6 +17,16 @@ needs :meth:`BlurVFIPipeline.calibrate` or :meth:`load_calibration` first.
 Calibration files are the JAX package's JSON (``amax``, ``rms``,
 ``exclude``), so one calibration serves both packages.  Each weight is
 quantized once, on the first request, and kept on the pipeline.
+
+Spatial serving (``mesh=``, ``parallel/mesh.py::make_mesh(data=1,
+spatial=S)``): one stream split by image height over the S ranks of the
+spatial group, as the JAX pipeline splits it over chips.  Every rank
+voxelizes the whole frame (K1 takes ~0.07 ms at 720p on the card), keeps
+its rows of the packed input, runs them through the network with the halo
+exchanges of ``parallel/spatial.py``, and gathers the full ``(t, h, w, 3)``
+output on every rank.  Every rank makes the same call with the same
+request.  It serves the flagship lineage in float; int8 with a mesh
+raises.
 """
 
 from __future__ import annotations
@@ -34,8 +44,10 @@ from refid_tpu_torch.events.voxel import (
 )
 from refid_tpu_torch.models.convert import load_state
 from refid_tpu_torch.models.refid import (
-    INT8_NEEDS, FinalBidirectionAttenfusion, RefidConfig, int8_applicable,
+    INT8_NEEDS, SPATIAL_NEEDS, FinalBidirectionAttenfusion, RefidConfig, int8_applicable,
+    spatial_applicable,
 )
+from refid_tpu_torch.parallel.spatial import SpatialPlan, spatial_scope
 from refid_tpu_torch.serve.quant import (
     INT8_MODES, QuantState, WeightCache, calibration_stats,
 )
@@ -55,15 +67,18 @@ class BlurVFIPipeline:
     ``"scale0"`` or ``"static"`` (module docstring); its convs run the CUDA
     kernels of ``csrc/conv_int8.cu`` on a CUDA device, their plain versions
     on the CPU.  The JAX package's ``fast`` and ``scan`` (TPU
-    re-expressions of the same forward) and ``mesh`` are not accepted:
-    spatial sharding comes with its own slice of the port.  ``device``
-    defaults to ``'cuda'`` and raises when no CUDA device is present.
+    re-expressions of the same forward) are not accepted.  ``mesh`` (a
+    ``parallel.mesh.Mesh``) splits each window by height over its spatial
+    group (module docstring); ``last_plan`` then holds the last window's
+    :class:`~refid_tpu_torch.parallel.spatial.SpatialPlan` and its exchange
+    counts.  ``device`` defaults to ``'cuda'`` and raises when no CUDA
+    device is present.
     """
 
     def __init__(self, model_or_state: Union[nn.Module, Mapping[str, torch.Tensor]],
                  cfg: RefidConfig = RefidConfig(), m: int = 11, n: int = 1,
                  norm_voxel: bool = False, voxelizer: str = "scatter",
-                 int8: Union[bool, str] = False,
+                 int8: Union[bool, str] = False, mesh=None,
                  device: Union[str, torch.device] = "cuda"):
         if voxelizer not in ("scatter", "pallas"):
             raise ValueError(f"voxelizer must be 'scatter' or 'pallas'; "
@@ -73,6 +88,11 @@ class BlurVFIPipeline:
                              f"got {int8!r}")
         if int8 and not int8_applicable(cfg):
             raise ValueError(f"int8 serving needs {INT8_NEEDS}")
+        if mesh is not None and mesh.spatial > 1 and (int8 or not spatial_applicable(cfg)):
+            raise ValueError(f"spatial serving (mesh=) needs {SPATIAL_NEEDS}; int8 "
+                             "needs halos in the int8 conv and a max-reduce of the amax")
+        self.mesh = mesh
+        self.last_plan = None
         self.int8 = int8
         self._int8_scales = None        # calibrated amaxes (headroom applied)
         self._int8_raw_amax = None
@@ -125,7 +145,12 @@ class BlurVFIPipeline:
             vox = voxel_norm(vox)
         lq = self._make_lq(vox, self._frame(blur0), self._frame(blur1))[None]
         pairs = torch.stack([vox[:-1], vox[1:]], 1)[None]     # (1, t, 2, h, w)
-        return self.model(lq, pairs, q)[0].permute(0, 2, 3, 1)
+        if self.mesh is None or self.mesh.spatial == 1:
+            return self.model(lq, pairs, q)[0].permute(0, 2, 3, 1)
+        plan = self.last_plan = SpatialPlan(self.mesh, h, 2 ** self.cfg.num_encoders)
+        with spatial_scope(plan):
+            out = self.model(plan.shard(lq), plan.shard(pairs), q)[0]
+        return plan.gather(out).permute(0, 2, 3, 1)
 
     def _quant_state(self) -> Optional[QuantState]:
         if not self.int8:
@@ -225,10 +250,10 @@ class SharpVFIPipeline(BlurVFIPipeline):
 
     def __init__(self, model_or_state, cfg: RefidConfig = RefidConfig(),
                  n: int = 7, norm_voxel: bool = False,
-                 voxelizer: str = "scatter", int8: Union[bool, str] = False,
+                 voxelizer: str = "scatter", int8: Union[bool, str] = False, mesh=None,
                  device: Union[str, torch.device] = "cuda"):
         super().__init__(model_or_state, cfg, m=1, n=n, norm_voxel=norm_voxel,
-                         voxelizer=voxelizer, int8=int8, device=device)
+                         voxelizer=voxelizer, int8=int8, mesh=mesh, device=device)
 
     def _derive_num_bins(self, m: int, n: int) -> int:
         return n + 1   # sharp stream: the window ends ARE the inputs

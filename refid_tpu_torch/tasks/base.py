@@ -24,6 +24,16 @@ as the JAX task does, on frames whose sides are multiples of the network's
 raises, since a task records no calibration; EVHINet: a truthy value means
 dynamic scales, as the JAX task's ``int8=bool(int8)``).  EVHINet's batches are
 ``lq (b, h, w, 3)`` and ``voxel (b, h, w, bins)``.
+
+Distribution: the task lays the process group's ranks out as ``(data,
+spatial)`` with ``spatial = opt['mesh']['spatial']`` (default 1), as the JAX
+task does (``refid_tpu/tasks/base.py``); :meth:`setup_train_state`
+broadcasts the state from rank 0, and only rank 0 saves checkpoints.  With
+``spatial > 1`` each training batch is cut to the rank's rows
+(``parallel.mesh.shard_batch``) and the step runs under a spatial plan;
+that needs the flagship FinalBidirectionAttenfusion in float with a mean
+loss (others raise ``ValueError``).  Prediction and validation run whole
+frames on every rank.
 """
 
 from __future__ import annotations
@@ -40,6 +50,9 @@ from refid_tpu_torch.core.registry import ARCHS, MODELS
 from refid_tpu_torch.eval import metrics as metric_module
 from refid_tpu_torch.models import archs as _archs  # noqa: F401 (registers archs)
 from refid_tpu_torch.models.convert import known_unused_keys, load_state
+from refid_tpu_torch.models.refid import SPATIAL_NEEDS, spatial_applicable
+from refid_tpu_torch.parallel.mesh import make_mesh, rank, replicate, shard_batch
+from refid_tpu_torch.parallel.spatial import SpatialPlan
 from refid_tpu_torch.serve.quant import QuantState, WeightCache
 from refid_tpu_torch.train.losses import build_loss
 from refid_tpu_torch.train.trainer import Trainer
@@ -48,11 +61,13 @@ __all__ = ["RestorationTaskBase", "build_task", "to_nchw", "compute_metric"]
 
 _DEFAULT_LOSS = {"type": "CharbonnierLoss", "loss_weight": 1.0,
                  "reduction": "mean"}
+_MEAN_LOSSES = ("CharbonnierLoss", "L1Loss", "MSELoss")   # a row-weighted sum of shard means
+_SPATIAL_AXES = {4: 1, 5: 2}      # the height axis of NHWC / NTHWC batch arrays
 
 
-def build_task(opt: dict, device="cuda"):
+def build_task(opt: dict, device="cuda", mesh=None):
     from refid_tpu_torch.tasks import recurrent, single  # noqa: F401 (registers tasks)
-    return MODELS.get(opt["model_type"])(opt, device)
+    return MODELS.get(opt["model_type"])(opt, device, mesh)
 
 
 def to_nchw(x: torch.Tensor) -> torch.Tensor:
@@ -68,9 +83,11 @@ def compute_metric(metric_opt: dict, sr_img, gt_img) -> float:
 
 
 class RestorationTaskBase:
-    """Common wiring of the restoration tasks."""
+    """Common wiring of the restoration tasks.  ``mesh`` is the process
+    group's layout (``parallel.mesh.make_mesh``); None lays it out from
+    ``opt['mesh']``."""
 
-    def __init__(self, opt: dict, device="cuda"):
+    def __init__(self, opt: dict, device="cuda", mesh=None):
         self.opt = opt
         val = opt.get("val") or {}
         self.device = resolve_device(device)
@@ -83,6 +100,9 @@ class RestorationTaskBase:
             raise ValueError("val.int8 requires the folded predict path "
                              "(val.folded_predict: false given)")
         self._int8_weights = WeightCache()
+        self.mesh = mesh or make_mesh(data=-1, spatial=(opt.get("mesh") or {}).get("spatial", 1))
+        if self.mesh.spatial > 1:
+            self._check_spatial(opt)
         self.trainer: Optional[Trainer] = None
         self.start_iter = 0
         self.start_epoch = 0
@@ -100,6 +120,22 @@ class RestorationTaskBase:
 
     def _build_net(self):
         return ARCHS.get(self.opt["network_g"]["type"])(self.opt["network_g"])
+
+    def _check_spatial(self, opt: dict):
+        """The configurations that train on row shards (``ValueError``
+        otherwise): the flagship in float, with a mean loss."""
+        net_type = opt["network_g"]["type"]
+        if net_type != "FinalBidirectionAttenfusion" or not spatial_applicable(
+                getattr(self.net, "cfg", None)):
+            raise ValueError(f"mesh.spatial > 1 needs {SPATIAL_NEEDS}; got network_g.type "
+                             f"{net_type!r}")
+        if self.int8:
+            raise ValueError("mesh.spatial > 1 serves in float: val.int8 needs halos in "
+                             "the int8 conv and a max-reduce of the dynamic amax")
+        pixel = (opt.get("train") or {}).get("pixel_opt", _DEFAULT_LOSS)
+        if pixel["type"] not in _MEAN_LOSSES or pixel.get("reduction", "mean") != "mean":
+            raise ValueError(f"mesh.spatial > 1 needs a mean loss ({_MEAN_LOSSES}); got "
+                             f"{pixel}")
 
     # --- parameter lifecycle -------------------------------------------------
 
@@ -133,13 +169,14 @@ class RestorationTaskBase:
         t = self.opt["train"]
         self.trainer = Trainer(self.net, self.loss_fn, t, self.total_iter,
                                ema_decay=self.ema_decay,
-                               frozen=known_unused_keys(self.net))
+                               frozen=known_unused_keys(self.net), mesh=self.mesh)
+        replicate([self.net, self.trainer.optimizer.state_dict()["state"], self.trainer.ema])
         return self.trainer
 
     # --- checkpointing / resume ---------------------------------------------
 
     def save(self, current_iter: int, epoch: int = 0):
-        if self.ckpt is None:
+        if self.ckpt is None or rank() != 0:
             return
         tr = self.trainer
         self.ckpt.save(current_iter, self.net.state_dict(),
@@ -164,25 +201,34 @@ class RestorationTaskBase:
     # --- steps ----------------------------------------------------------------
 
     def _to_device(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
-        """The batch's arrays as NCHW tensors on the device.  On CUDA the
-        copies go from pinned memory, without blocking, on a side stream;
-        :meth:`_ready` makes the compute stream wait for them."""
-        arrays = {k: torch.from_numpy(np.ascontiguousarray(v))
-                  for k, v in batch.items() if isinstance(v, np.ndarray)}
+        """The batch's arrays as NCHW tensors on the device (on a spatial
+        mesh this rank's rows, with their plan under ``"plan"``).  On CUDA
+        the copies go from pinned memory, without blocking, on a side
+        stream; :meth:`_ready` makes the compute stream wait for them."""
+        arrays = {k: v for k, v in batch.items() if isinstance(v, np.ndarray)}
+        plan = None
+        if self.mesh.spatial > 1:
+            plan = SpatialPlan(self.mesh, arrays["lq"].shape[1],
+                               2 ** self.net.cfg.num_encoders)
+            arrays = shard_batch(arrays, self.mesh, _SPATIAL_AXES, 2 ** self.net.cfg.num_encoders)
+        arrays = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in arrays.items()}
         if self.device.type != "cuda":
-            return {k: to_nchw(v.to(self.device)) for k, v in arrays.items()}
-        if self._copy_stream is None:
-            self._copy_stream = torch.cuda.Stream(self.device)
-        with torch.cuda.stream(self._copy_stream):
-            return {k: to_nchw(v.pin_memory().to(self.device, non_blocking=True))
-                    for k, v in arrays.items()}
+            out = {k: to_nchw(v.to(self.device)) for k, v in arrays.items()}
+        else:
+            if self._copy_stream is None:
+                self._copy_stream = torch.cuda.Stream(self.device)
+            with torch.cuda.stream(self._copy_stream):
+                out = {k: to_nchw(v.pin_memory().to(self.device, non_blocking=True))
+                       for k, v in arrays.items()}
+        return dict(out, plan=plan)
 
     def _ready(self, dev_batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         if self._copy_stream is not None:
             compute = torch.cuda.current_stream(self.device)
             compute.wait_stream(self._copy_stream)
             for v in dev_batch.values():
-                v.record_stream(compute)
+                if isinstance(v, torch.Tensor):
+                    v.record_stream(compute)
         return dev_batch
 
     def train_step(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
@@ -190,7 +236,7 @@ class RestorationTaskBase:
 
     def train_step_device(self, dev_batch) -> Dict[str, torch.Tensor]:
         return self.trainer.train_step(dev_batch["lq"], dev_batch["voxel"],
-                                       dev_batch["gt"])
+                                       dev_batch["gt"], dev_batch.get("plan"))
 
     def device_prefetch(self, batch_iter: Iterable[dict]):
         """Yield device batches, the copy of batch k+1 issued before batch k

@@ -13,6 +13,20 @@ the norm before clipping, and ``dcn_lr_mult`` scales the whole update of
 the deformable-conv parameters (the top-level ``offsets`` / ``dcns``
 modules and any ``conv_offset``), which for these optimisers equals scaling
 their group's learning rate.
+
+On a ``(data, spatial)`` mesh (``parallel/mesh.py``) the step is the
+single-process step on the global batch: each rank's loss is its rows'
+mean weighted by its share of the frame's rows, the gradients are summed
+over the world and divided by the data axis (a sum over the spatial ranks,
+a mean over the data ranks), and the clip, the update and the EMA then run
+on the reduced gradient, the same on every rank.  The reduction is one
+``all_reduce`` of a flat buffer per dtype after the backward pass, not
+DDP: the zero gradient of a parameter the loss never reaches is filled
+before it (DDP would need ``find_unused_parameters`` and a traversal of the
+graph each step), the spatial sum and the data mean are one division, and
+no bucket's collective can interleave with the halo exchanges that the
+backward pass itself runs on the spatial group.  It does not overlap
+communication with the backward pass.
 """
 
 from __future__ import annotations
@@ -22,6 +36,8 @@ from typing import Callable, Dict, Iterable, Optional, Tuple
 import torch
 import torch.nn as nn
 
+from refid_tpu_torch.parallel.mesh import all_reduce_mean
+from refid_tpu_torch.parallel.spatial import spatial_scope
 from refid_tpu_torch.train.schedules import build_schedule
 
 __all__ = ["build_optimizer", "Trainer"]
@@ -76,12 +92,16 @@ class Trainer:
     Every other parameter is updated each step; one that the loss does not
     reach (the last backward stage's ``down`` conv) gets a zero gradient,
     so weight decay still applies to it as it does under optax.
+
+    ``mesh`` (a ``parallel.mesh.Mesh`` of more than one rank) reduces the
+    gradients and the logged loss over its ranks (module docstring).
     """
 
     def __init__(self, model: nn.Module, loss_fn: Callable, train_opt: dict,
                  total_iter: int, ema_decay: Optional[float] = None,
-                 frozen: Iterable[str] = ()):
+                 frozen: Iterable[str] = (), mesh=None):
         self.model = model
+        self.mesh = mesh if mesh is not None and mesh.world > 1 else None
         self.loss_fn = loss_fn
         frozen = set(frozen)
         self.named = [(k, p) for k, p in model.named_parameters() if k not in frozen]
@@ -98,14 +118,22 @@ class Trainer:
     def current_lr(self) -> float:
         return float(self.schedule(self.step))
 
-    def train_step(self, lq, voxel, gt) -> Dict[str, torch.Tensor]:
+    def train_step(self, lq, voxel, gt, plan=None) -> Dict[str, torch.Tensor]:
+        """One step; ``plan`` (``parallel.spatial.SpatialPlan``) when the
+        tensors are this rank's rows of the frame."""
         self.model.train()
         self.optimizer.zero_grad(set_to_none=True)
-        loss = self.loss_fn(self.model(lq, voxel), gt)
-        loss.backward()
+        with spatial_scope(plan):       # the backward pass recomputes under remat
+            loss = self.loss_fn(self.model(lq, voxel), gt)
+            if plan is not None:
+                loss = loss * plan.row_fraction
+            loss.backward()
         for p in self.params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+        if self.mesh is not None:
+            loss = loss.detach()
+            all_reduce_mean([p.grad for p in self.params] + [loss], self.mesh.data)
         max_norm = self.clip if self.clip and self.clip > 0 else float("inf")
         grad_norm = torch.nn.utils.clip_grad_norm_(self.params, max_norm)
         lr = self.schedule(self.step)

@@ -27,6 +27,7 @@ from refid_tpu_torch.data import img_util, transforms
 from refid_tpu_torch.data.loader import (
     EnlargedIndexSampler, PrefetchLoader, build_dataset, build_loader,
 )
+from refid_tpu_torch.data.mp_loader import ProcessPrefetchLoader
 from refid_tpu_torch.events import voxel
 from tests.synthetic_data import make_gopro_tree
 
@@ -364,8 +365,9 @@ def test_loader_batches_follow_the_sampler(gopro_root):
         for j in range(2):
             np.testing.assert_array_equal(batch["gt"][j], ds[int(order[2 * k + j])]["gt"])
     assert ds.timing["items"] == 16     # 8 from 3 threads, 8 here: no lost update
-    with pytest.raises(NotImplementedError):
-        build_loader(ds, dict(opt, prefetch_mode="process"), True)
+    process = build_loader(ds, dict(opt, prefetch_mode="process"), True)
+    assert isinstance(process, ProcessPrefetchLoader) and process._pool is None
+    process.close()
 
 
 def test_loader_surfaces_worker_errors():

@@ -1,8 +1,8 @@
 """refid_tpu_torch stands alone: it imports with jax, flax and refid_tpu blocked
 (and with cv2 and yaml blocked: the port reads PNG itself, and yaml is needed
 only when an option file is parsed), and no module of it (nor chip_smoke.py)
-names them in an import statement; lmdb, mc and wandb are imported only
-inside the functions that use them."""
+names them in an import statement; lmdb, mc, wandb, requests, dlib and tqdm
+are imported only inside the functions that use them."""
 
 import ast
 import os
@@ -41,8 +41,14 @@ IO_MODULES = {"refid_tpu_torch.data.file_client", "refid_tpu_torch.data.lmdb_uti
               "refid_tpu_torch.data.datasets.bsergb", "refid_tpu_torch.core.tb_writer"}
 # the ablation lineages' deformable conv and the arch utilities
 ABLATION_MODULES = {"refid_tpu_torch.ops.deform_conv", "refid_tpu_torch.models.arch_util"}
+# distribution, the process loader, the timers and the BasicSR utilities
+LAST_MODULES = {"refid_tpu_torch.parallel", "refid_tpu_torch.parallel.mesh",
+                "refid_tpu_torch.parallel.spatial", "refid_tpu_torch.data.mp_loader",
+                "refid_tpu_torch.core.timer", "refid_tpu_torch.utils",
+                "refid_tpu_torch.utils.flow_util", "refid_tpu_torch.utils.face_util",
+                "refid_tpu_torch.utils.download_util"}
 # client packages imported only inside the function that needs them
-LAZY = ("lmdb", "mc", "wandb")
+LAZY = ("lmdb", "mc", "wandb", "requests", "dlib", "tqdm")
 
 
 def test_every_module_imports_with_jax_and_refid_tpu_blocked():
@@ -52,7 +58,7 @@ def test_every_module_imports_with_jax_and_refid_tpu_blocked():
     assert out.returncode == 0, out.stderr
     names = set(out.stdout.split())
     assert len(names) >= 64      # the eval package, test CLI, single-image path and IO
-    assert SINGLE_IMAGE_MODULES | IO_MODULES | ABLATION_MODULES <= names
+    assert SINGLE_IMAGE_MODULES | IO_MODULES | ABLATION_MODULES | LAST_MODULES <= names
 
 
 def _imported_modules(path):
@@ -73,8 +79,9 @@ def test_no_import_names_the_jax_package(path):
 
 @pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")), ids=lambda p: str(p.relative_to(REPO)))
 def test_client_packages_are_imported_only_where_used(path):
-    """lmdb, mc and wandb are in no module-level import: a module imports
-    without them, and only a backend that is built needs its package."""
+    """lmdb, mc, wandb, requests, dlib and tqdm are in no module-level
+    import: a module imports without them, and only the function that uses
+    one needs its package."""
     tree = ast.parse(path.read_text(), str(path))
     top = [n for n in tree.body if isinstance(n, (ast.Import, ast.ImportFrom))]
     names = [a.name for n in top if isinstance(n, ast.Import) for a in n.names]

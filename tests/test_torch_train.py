@@ -300,8 +300,9 @@ def test_cli_refuses_validation_and_defaults_to_the_card(tmp_path, data_root):
         cli.train(dict(opt, datasets=dict(opt["datasets"], val={"type": "x"})),
                   device="cpu")
     assert cli.parse_args(["-opt", "x.yml"]).device == "cuda"
-    with pytest.raises(SystemExit):
-        cli.parse_args(["-opt", "x.yml", "--num-processes", "2"])
+    args = cli.parse_args(["-opt", "x.yml", "--num-processes", "2", "--process-id", "1",
+                           "--coordinator", "localhost:1234"])
+    assert (args.num_processes, args.process_id, args.coordinator) == (2, 1, "localhost:1234")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             cli.train(opt)
