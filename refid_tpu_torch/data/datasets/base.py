@@ -29,8 +29,9 @@ An item is three parts, so that worker processes can load it while the
 voxelizer stays on the card (``data/mp_loader.py``): :meth:`draw` takes
 its random decisions from the dataset's seeded ``random.Random`` (in the
 JAX dataset's order, before any decode: the crop reads the frame size
-from the PNG header), :meth:`load` reads its frames and events on the
-host, and :meth:`finish` voxelizes, crops, flips and packs.
+from the PNG header), :meth:`load` reads its frames (cut to the crop) and
+events on the host, and :meth:`finish` voxelizes the full frame, cuts the
+grids to the crop, flips and packs.
 ``ds[i]`` is ``finish(load(i, draw(i)))``.  The loaders draw in sampler
 order before they hand the rest to their workers, so a seed gives the
 same batches whatever the number of workers, and the ranks of a spatial
@@ -53,7 +54,7 @@ import numpy as np
 
 from refid_tpu_torch.data.img_util import imread, png_size, unit_float
 from refid_tpu_torch.data.transforms import (
-    apply_flips, draw_crop, draw_flips, triple_random_crop,
+    apply_flips, crop_lq, draw_crop, draw_flips, paired_random_crop,
 )
 from refid_tpu_torch.events.voxel import (
     event_reverse, events_to_voxel_grid, voxel_norm_np,
@@ -239,8 +240,8 @@ class RecurrentEventDataset:
 
     def load(self, index: int, draws: dict) -> dict:
         """The host part of an item: its paths, its frames decoded (uint8)
-        and its event arrays.  Needs no device: worker processes run it
-        (``data/mp_loader.py``)."""
+        and cut to the crop, the full frame's size and its event arrays.
+        Needs no device: worker processes run it (``data/mp_loader.py``)."""
         image_paths = list(self.lq_paths[index])
         gt_paths = list(self.gt_paths[index])
         event_paths = self.event_paths[index]
@@ -252,9 +253,14 @@ class RecurrentEventDataset:
             image_paths.reverse()
             gt_paths.reverse()
         t0 = time.perf_counter()
-        return {"image_paths": image_paths, "draws": draws,
-                "lqs": [imread(p, float32=False) for p in image_paths],
-                "gts": [imread(p, float32=False) for p in gt_paths],
+        lqs = [imread(p, float32=False) for p in image_paths]
+        gts = [imread(p, float32=False) for p in gt_paths]
+        size = lqs[0].shape[:2]
+        if self.gt_size is not None:
+            gts, lqs = paired_random_crop(gts, lqs, self.gt_size, self.scale,
+                                          top_left=draws["crop"])
+        return {"image_paths": image_paths, "draws": draws, "size": size,
+                "lqs": lqs, "gts": gts,
                 "quads": [load_event_quad(p, self._swap_xy) for p in event_paths],
                 "load_ms": (time.perf_counter() - t0) * 1e3}
 
@@ -262,15 +268,15 @@ class RecurrentEventDataset:
         return self.finish(self.load(index, self.draw(index)))
 
     def finish(self, host: dict) -> dict:
-        """The device part of an item: the voxel grids (K2 on a CUDA device),
-        then the crop and flips applied to frames and grids, and the
-        packing."""
+        """The device part of an item: the voxel grids of the full frame
+        (K2 on a CUDA device) cut to the crop, the flips applied to frames
+        and grids, and the packing."""
         image_paths, draws, quads = host["image_paths"], host["draws"], host["quads"]
         t0 = time.perf_counter()
         img_lqs = [unit_float(img) for img in host["lqs"]]
         img_gts = [unit_float(img) for img in host["gts"]]
         t1 = time.perf_counter()
-        h_lq, w_lq = img_lqs[0].shape[:2]
+        h_lq, w_lq = host["size"]
         voxels = []
         if self.one_voxel_flg:
             all_quad = np.concatenate(quads, axis=0)
@@ -285,8 +291,7 @@ class RecurrentEventDataset:
 
         t2 = time.perf_counter()
         if self.gt_size is not None:
-            img_gts, img_lqs, voxels = triple_random_crop(
-                img_gts, img_lqs, voxels, self.gt_size, self.scale, top_left=draws["crop"])
+            voxels = crop_lq(voxels, draws["crop"], self.gt_size, self.scale)
 
         group = apply_flips(list(img_lqs) + list(img_gts) + list(voxels), draws["flips"])
         n_lq, n_gt = len(img_lqs), len(img_gts)

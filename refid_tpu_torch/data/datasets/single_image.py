@@ -13,7 +13,8 @@ An item voxelizes its events ``HWC`` on the dataset's ``device``: the CUDA
 kernel K2 on a CUDA device, its plain version on the CPU.  Unlike the
 recurrent datasets, ``voxel_norm`` is applied, unconditionally, after the
 crop and flips (upstream calls it directly on the sample).  The train phase
-crops ``gt_size`` and flips as ``triple_random_crop`` and ``augment`` do,
+crops ``gt_size`` and flips as ``triple_random_crop`` and ``augment`` do
+(the frames in :meth:`load`, the grid in :meth:`finish`),
 drawn from the dataset's seeded ``random.Random`` in their order.  Items are
 HWC numpy: ``lq`` and ``gt`` ``(h, w, 3)``, ``voxel`` ``(h, w, num_bins)``.
 An item is :meth:`draw`, :meth:`load` (host) and :meth:`finish` (device),
@@ -38,7 +39,7 @@ from refid_tpu_torch.core.registry import DATASETS
 from refid_tpu_torch.data.datasets.base import load_event_quad, recursive_glob
 from refid_tpu_torch.data.img_util import imread, png_size, unit_float
 from refid_tpu_torch.data.transforms import (
-    apply_flips, draw_crop, draw_flips, triple_random_crop,
+    apply_flips, crop_lq, draw_crop, draw_flips, paired_random_crop,
 )
 from refid_tpu_torch.events.voxel import events_to_voxel_grid, voxel_norm_np
 
@@ -105,13 +106,18 @@ class _SingleImageEventDataset:
         return draws
 
     def load(self, index: int, draws: dict) -> dict:
-        """The host part: the two frames (uint8) and the event arrays."""
+        """The host part: the two frames (uint8, cut to the crop), the full
+        frame's size and the event arrays."""
         t0 = time.perf_counter()
         quads = [load_event_quad(p, self.layout == "highrev")
                  for p in self.event_seqs[index] if os.path.exists(p)]
-        return {"index": index, "draws": draws,
-                "lq": imread(self.blur_paths[index], float32=False),
-                "gt": imread(self.sharp_paths[index], float32=False),
+        lq = imread(self.blur_paths[index], float32=False)
+        gt = imread(self.sharp_paths[index], float32=False)
+        size = lq.shape[:2]
+        if self.gt_size is not None:
+            gt, lq = paired_random_crop(gt, lq, self.gt_size, self.scale,
+                                        top_left=draws["crop"])
+        return {"index": index, "draws": draws, "size": size, "lq": lq, "gt": gt,
                 "events": np.concatenate(quads, 0) if quads else np.zeros((0, 4), np.float32),
                 "load_ms": (time.perf_counter() - t0) * 1e3}
 
@@ -124,7 +130,7 @@ class _SingleImageEventDataset:
         draws = host["draws"]
         t0 = time.perf_counter()
         img_lq, img_gt = unit_float(host["lq"]), unit_float(host["gt"])
-        h, w = img_lq.shape[:2]
+        h, w = host["size"]
 
         t1 = time.perf_counter()
         voxel = events_to_voxel_grid(host["events"], self.num_bins, w, h, "HWC",
@@ -132,8 +138,7 @@ class _SingleImageEventDataset:
 
         t2 = time.perf_counter()
         if self.gt_size is not None:
-            img_gt, img_lq, voxel = triple_random_crop(img_gt, img_lq, voxel, self.gt_size,
-                                                       self.scale, top_left=draws["crop"])
+            voxel, = crop_lq([voxel], draws["crop"], self.gt_size, self.scale)
         img_gt, img_lq, voxel = apply_flips([img_gt, img_lq, voxel], draws["flips"])
         voxel = voxel_norm_np(voxel)
 

@@ -15,8 +15,8 @@
     loads it, so the batches do not depend on the number of threads.
   * ``prefetch_mode: process`` selects ``data/mp_loader.py``'s
     ``ProcessPrefetchLoader``: worker processes read the frames and events
-    (``dataset.load``) and this process's loader thread voxelizes on the
-    card (``dataset.finish``).
+    (``dataset.load``) and this process's threads voxelize on the card
+    (``dataset.finish``).
 """
 
 from __future__ import annotations
@@ -131,9 +131,6 @@ class PrefetchLoader:
         draws = ds.draw(index)
         return pool.submit(lambda: ds.finish(ds.load(index, draws)))
 
-    def _result(self, pending):
-        return pending.result()
-
     def __iter__(self) -> Iterator[dict]:
         indices = self.sampler.epoch_indices(self.epoch)
         batches = [indices[i * self.batch_size:(i + 1) * self.batch_size]
@@ -152,9 +149,9 @@ class PrefetchLoader:
                             return
                         pending.append([self._submit(pool, int(i)) for i in batch_idx])
                         if len(pending) > self.prefetch_batches:
-                            q.put(collate([self._result(f) for f in pending.popleft()]))
+                            q.put(collate([f.result() for f in pending.popleft()]))
                     while pending and not stop.is_set():
-                        q.put(collate([self._result(f) for f in pending.popleft()]))
+                        q.put(collate([f.result() for f in pending.popleft()]))
             except Exception as exc:   # surfaced in the consumer
                 failure.append(exc)
             finally:

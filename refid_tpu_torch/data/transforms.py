@@ -4,9 +4,11 @@ to every array of a group (images, gts, voxels).  The ``rng`` calls come in
 the JAX package's order, so a seed gives its crops and flips.
 
 Each random transform is also two halves, a draw (:func:`draw_crop`,
-:func:`draw_flips`) and its application (``triple_random_crop(...,
-top_left=)``, :func:`apply_flips`), so that a dataset can draw an item's decisions
-before its frames are decoded (``data/datasets/base.py``)."""
+:func:`draw_flips`) and its application (``paired_random_crop(...,
+top_left=)`` to the frames, :func:`crop_lq` to the voxel grids,
+:func:`apply_flips`), so that a dataset can draw an item's decisions before
+its frames are decoded and crop the frames where it reads them
+(``data/datasets/base.py``)."""
 
 from __future__ import annotations
 
@@ -15,7 +17,7 @@ import random
 import numpy as np
 
 __all__ = ["augment", "paired_random_crop", "triple_random_crop", "mod_crop",
-           "draw_crop", "draw_flips", "apply_flips"]
+           "draw_crop", "draw_flips", "apply_flips", "crop_lq"]
 
 
 def mod_crop(img: np.ndarray, scale: int) -> np.ndarray:
@@ -59,8 +61,9 @@ def apply_flips(imgs, flips):
 
 
 def paired_random_crop(img_gts, img_lqs, gt_patch_size, scale,
-                       rng: random.Random = random):
-    """Aligned random crop of gt (at scale) and lq lists."""
+                       rng: random.Random = random, top_left=None):
+    """Aligned random crop of gt (at scale) and lq lists, at ``top_left``
+    when it is given (a :func:`draw_crop`), else drawn from ``rng``."""
     single_gt = not isinstance(img_gts, list)
     single_lq = not isinstance(img_lqs, list)
     if single_gt:
@@ -77,8 +80,9 @@ def paired_random_crop(img_gts, img_lqs, gt_patch_size, scale,
     if h_lq < lq_patch or w_lq < lq_patch:
         raise ValueError(f"LQ ({h_lq},{w_lq}) smaller than patch {lq_patch}")
 
-    top = rng.randint(0, h_lq - lq_patch)
-    left = rng.randint(0, w_lq - lq_patch)
+    if top_left is None:
+        top_left = rng.randint(0, h_lq - lq_patch), rng.randint(0, w_lq - lq_patch)
+    top, left = top_left
     img_lqs = [v[top:top + lq_patch, left:left + lq_patch, ...]
                for v in img_lqs]
     tg, lg = top * scale, left * scale
@@ -92,7 +96,7 @@ def paired_random_crop(img_gts, img_lqs, gt_patch_size, scale,
 
 
 def draw_crop(h_lq, w_lq, gt_patch_size, scale, rng: random.Random = random):
-    """The ``(top, left)`` of :func:`triple_random_crop`'s draw on an lq frame
+    """The ``(top, left)`` of :func:`paired_random_crop`'s draw on an lq frame
     of ``h_lq x w_lq``."""
     lq_patch = gt_patch_size // scale
     if h_lq < lq_patch or w_lq < lq_patch:
@@ -100,10 +104,17 @@ def draw_crop(h_lq, w_lq, gt_patch_size, scale, rng: random.Random = random):
     return rng.randint(0, h_lq - lq_patch), rng.randint(0, w_lq - lq_patch)
 
 
+def crop_lq(imgs, top_left, gt_patch_size, scale):
+    """The lq-resolution arrays of a list (voxel grids) cut to a
+    :func:`draw_crop`'s patch."""
+    top, left = top_left
+    lq_patch = gt_patch_size // scale
+    return [v[top:top + lq_patch, left:left + lq_patch, ...] for v in imgs]
+
+
 def triple_random_crop(img_gts, img_lqs, voxels, gt_patch_size, scale,
-                       rng: random.Random = random, top_left=None):
-    """Aligned random crop of gt / lq / voxel groups, at ``top_left`` when
-    it is given (a :func:`draw_crop`), else drawn from ``rng``."""
+                       rng: random.Random = random):
+    """Aligned random crop of gt / lq / voxel groups."""
     def aslist(x):
         return x if isinstance(x, list) else [x]
 
@@ -116,11 +127,7 @@ def triple_random_crop(img_gts, img_lqs, voxels, gt_patch_size, scale,
     lq_patch = gt_patch_size // scale
     if h_gt != h_lq * scale or w_gt != w_lq * scale:
         raise ValueError("Scale mismatch")
-    if top_left is None:
-        top_left = draw_crop(h_lq, w_lq, gt_patch_size, scale, rng)
-    elif h_lq < lq_patch or w_lq < lq_patch:
-        raise ValueError(f"LQ ({h_lq},{w_lq}) smaller than patch {lq_patch}")
-    top, left = top_left
+    top, left = draw_crop(h_lq, w_lq, gt_patch_size, scale, rng)
     lqs = [v[top:top + lq_patch, left:left + lq_patch, ...] for v in lqs]
     vox = [v[top:top + lq_patch, left:left + lq_patch, ...] for v in vox]
     tg, lg = top * scale, left * scale

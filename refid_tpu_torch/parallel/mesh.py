@@ -100,10 +100,6 @@ class Mesh:
     data_group: Optional[object] = None
     spatial_group: Optional[object] = None
 
-    @property
-    def world(self) -> int:
-        return self.data * self.spatial
-
 
 def make_mesh(data: int = -1, spatial: int = 1) -> Mesh:
     """Lay the world's ranks out as ``(data, spatial)``.  Every rank must
@@ -158,8 +154,9 @@ def _flat_collective(tensors, collective) -> None:
 def replicate(tree):
     """Broadcast every tensor of ``tree`` (a tensor, a module's state, or
     dicts / lists of them, such as an optimiser's state) from global rank 0,
-    in place.  Every rank passes the same structure.  Returns ``tree``."""
-    if world_size() > 1:
+    in place, whenever a process group exists (a world of one included).
+    Every rank passes the same structure.  Returns ``tree``."""
+    if dist.is_initialized():
         _flat_collective(list(_tensors(tree)), lambda flat: dist.broadcast(flat, src=0))
     return tree
 

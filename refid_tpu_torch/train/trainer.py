@@ -34,6 +34,7 @@ from __future__ import annotations
 from typing import Callable, Dict, Iterable, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 
 from refid_tpu_torch.parallel.mesh import all_reduce_mean
@@ -93,15 +94,16 @@ class Trainer:
     reach (the last backward stage's ``down`` conv) gets a zero gradient,
     so weight decay still applies to it as it does under optax.
 
-    ``mesh`` (a ``parallel.mesh.Mesh`` of more than one rank) reduces the
-    gradients and the logged loss over its ranks (module docstring).
+    ``mesh`` (a ``parallel.mesh.Mesh``, with a process group: a world of one
+    included) reduces the gradients and the logged loss over its ranks
+    (module docstring).
     """
 
     def __init__(self, model: nn.Module, loss_fn: Callable, train_opt: dict,
                  total_iter: int, ema_decay: Optional[float] = None,
                  frozen: Iterable[str] = (), mesh=None):
         self.model = model
-        self.mesh = mesh if mesh is not None and mesh.world > 1 else None
+        self.mesh = mesh if mesh is not None and dist.is_initialized() else None
         self.loss_fn = loss_fn
         frozen = set(frozen)
         self.named = [(k, p) for k, p in model.named_parameters() if k not in frozen]

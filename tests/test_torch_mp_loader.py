@@ -11,6 +11,7 @@ import torch
 from refid_tpu.data import build_dataset as jax_build_dataset
 from refid_tpu.data.loader import build_loader as jax_build_loader
 from refid_tpu.data.mp_loader import ProcessPrefetchLoader as JaxProcessLoader
+from refid_tpu_torch.data.img_util import imread
 from refid_tpu_torch.data.loader import PrefetchLoader, build_dataset, build_loader
 from refid_tpu_torch.data.mp_loader import ProcessPrefetchLoader
 from tests.synthetic_data import make_gopro_tree
@@ -109,3 +110,35 @@ def test_worker_error_reaches_the_consumer(gopro_root, tmp_path):
             list(loader)
     finally:
         loader.close()
+
+
+def test_a_dataset_without_load_and_finish_is_refused():
+    class Whole:
+        device = "cpu"
+
+        def __len__(self):
+            return 2
+
+        def __getitem__(self, index):
+            return {"x": np.zeros(1)}
+
+    with pytest.raises(TypeError, match="draw / load / finish"):
+        ProcessPrefetchLoader(Whole(), batch_size=1)
+
+
+def test_workers_send_frames_cut_to_the_crop(gopro_root):
+    """``load`` (a worker's part) returns the frames cut to the drawn crop
+    and the full frame's size, so ``finish`` voxelizes the full frame; the
+    item equals ``ds[i]`` of a dataset seeded alike."""
+    opt = _opt(gopro_root, gt_size=16, use_hflip=True, use_rot=True, random_reverse=True)
+    ds, ref = build_dataset(opt, device="cpu"), build_dataset(opt, device="cpu")
+    for index in (0, 1, 0):
+        draws = ds.draw(index)
+        host = ds.load(index, draws)
+        full = ref.lq_paths[index][0]
+        assert host["size"] != (16, 16) and host["size"] == imread(full, float32=False).shape[:2]
+        assert {img.shape for img in host["lqs"] + host["gts"]} == {(16, 16, 3)}
+        got, want = ds.finish(host), ref[index]
+        assert got["seq"] == want["seq"]
+        for key in ("lq", "gt", "voxel"):
+            np.testing.assert_array_equal(got[key], want[key])

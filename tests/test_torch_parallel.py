@@ -103,6 +103,30 @@ def test_make_mesh_replicate_and_a_step_with_a_dead_parameter(tmp_path):
     assert not torch.equal(model.dead.weight, state["dead.weight"])   # decayed
 
 
+def test_a_world_of_one_runs_the_collectives(tmp_path):
+    """With a process group of one rank, replicate broadcasts and the
+    Trainer all-reduces its gradients and loss (one collective each a
+    dtype, as at any world size); the step is bit-equal to the plain one."""
+    torch.manual_seed(0)
+    model = torch_dist.DeadHead()
+    rng = np.random.RandomState(2)
+    x = torch.from_numpy(rng.randn(4, 4).astype(np.float32))
+    y = torch.from_numpy(rng.randn(4, 2).astype(np.float32))
+    state = {k: v.clone() for k, v in model.state_dict().items()}
+    torch.save({"state": state, "train_opt": TRAIN_OPT, "x": x, "y": y}, tmp_path / "dead.pt")
+    torch_dist.run_ranks(torch_dist.world_one_job, 1, str(tmp_path))
+    res = torch.load(tmp_path / "world_one.pt", weights_only=False)
+    assert res["reduces"] and res["calls"] == {"broadcast": 1, "all_reduce": 1}
+
+    trainer = Trainer(model, torch_dist.mse, TRAIN_OPT, 10)
+    assert trainer.mesh is None
+    metrics = trainer.train_step(x, None, y)
+    params, loss, norm = res["trained"]
+    for k, v in model.state_dict().items():
+        assert torch.equal(params[k], v)
+    assert (loss, norm) == (float(metrics["loss"]), float(metrics["grad_norm"]))
+
+
 # --- cli.train over several processes ----------------------------------------
 
 def _write_cfg(tmp_path, root, name, batch, spatial=1):

@@ -207,6 +207,33 @@ def mesh_job(rank, work):
         torch.save(res, os.path.join(work, "mesh.pt"))
 
 
+def world_one_job(rank, work):
+    """A world of one: ``replicate`` broadcasts and the Trainer all-reduces
+    (counted), and its step on the batch is the plain step's."""
+    from refid_tpu_torch.parallel import make_mesh, replicate
+    from refid_tpu_torch.train.trainer import Trainer
+    calls = {"broadcast": 0, "all_reduce": 0}
+
+    def counted(name, fn):
+        def wrapper(*args, **kwargs):
+            calls[name] += 1
+            return fn(*args, **kwargs)
+        return wrapper
+
+    dist.broadcast = counted("broadcast", dist.broadcast)
+    dist.all_reduce = counted("all_reduce", dist.all_reduce)
+    inp = torch.load(os.path.join(work, "dead.pt"), weights_only=False)
+    model = DeadHead()
+    model.load_state_dict(inp["state"])
+    trainer = Trainer(model, mse, inp["train_opt"], 10, mesh=make_mesh())
+    replicate([model, trainer.optimizer.state_dict()["state"]])
+    metrics = trainer.train_step(inp["x"], None, inp["y"])
+    torch.save({"calls": calls, "reduces": trainer.mesh is not None,
+                "trained": ({k: v.clone() for k, v in model.state_dict().items()},
+                            float(metrics["loss"]), float(metrics["grad_norm"]))},
+               os.path.join(work, "world_one.pt"))
+
+
 class DeadHead(torch.nn.Module):
     """``model(x, voxel)`` with a parameter the loss never reaches."""
 
