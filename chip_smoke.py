@@ -60,9 +60,17 @@ random weights:
   over NCCL against a plain process (``ddp_train``), then two gloo ranks
   spawned on the one card: the collectives the halo exchange needs, the
   flagship at a toy width row-sharded against whole (forward, and two
-  steps at data 1 x spatial 2 and data 2 x spatial 1; ``spatial_parity``)
-  and 720p windows through ``BlurVFIPipeline(mesh=)`` (``spatial_serve``:
-  two ranks sharing one card time the exchange overhead, not scaling).
+  steps at data 1 x spatial 2 and data 2 x spatial 1; ``spatial_parity``),
+  720p windows through ``BlurVFIPipeline(mesh=)`` (``spatial_serve``: two
+  ranks sharing one card time the exchange overhead, not scaling), then the
+  other configurations on the shards: 720p int8 windows in every mode
+  against the whole int8 window (``spatial_int8``), every ablation lineage
+  at its production widths on the toy geometry (``spatial_ablation``), two
+  lineages' 720p windows through ``BlurVFIPipeline(mesh=)``
+  (``spatial_lineage_serve``) and a 720p EVHINet image and step
+  (``spatial_evhinet``); ``spatial_int8_kernel_check`` holds both int8
+  kernels as a shard runs them (row padding 0, a device amax) after
+  ``int8_kernel_check``.
 
 Each phase prints one JSON line; the last two lines are the ``kernels``
 line and ``{"ok": true, "device": {...}}``.  Any failed phase exits
@@ -108,6 +116,7 @@ from refid_tpu_torch.models.convert import known_unused_keys, load_state
 from refid_tpu_torch.models.evhinet import EVHINet
 from refid_tpu_torch.models.refid import FinalBidirectionAttenfusion
 from refid_tpu_torch.ops import build, int8_cuda, probe_cuda
+from refid_tpu_torch.parallel.spatial import SpatialPlan, spatial_scope
 from refid_tpu_torch.probes import band_conv as probe_bc
 from refid_tpu_torch.probes import poison as probe_poison
 from refid_tpu_torch.serve import quant
@@ -232,7 +241,20 @@ SPATIAL_WINDOWS = 3                             # 1 warm-up, 2 timed
 # bf16 sharded against bf16 whole: each side rounds on its own (bf16 against
 # f32 reads ~60 dB); a row lost at a shard edge reads below 20
 SPATIAL_SERVE_MIN_DB = 40.0
-SPATIAL_TIMEOUT = 300
+SPATIAL_TIMEOUT = 600
+# the spatial phases of the other configurations: 720p int8 windows a
+# mode (static calibrated on another window first; 1 warm-up, 1 timed), the
+# ablation lineages at their production widths on SPATIAL_TOY_SHAPE's
+# geometry, two of them also served at 720p through BlurVFIPipeline(mesh=)
+# (the bilinear decoder's edge halos and ConvLSTM gates; the DCN's gather),
+# a 720p EVHINet image and one EVHINet step at (batch, crop); a sharded
+# step's loss and gradient norm within SPATIAL_STEP_RTOL of the whole step's
+SPATIAL_INT8_WINDOWS = 2
+SPATIAL_LINEAGES_SERVED = [("UNetRecurrent", "convlstm", False),
+                           ("UNetDecoderRecurrent", "simpleconv", True)]
+SPATIAL_LINEAGE_WINDOWS = 2                     # 1 warm-up, 1 timed
+SPATIAL_EVHINET_STEP = (2, 64)
+SPATIAL_STEP_RTOL = 1e-4
 LOADER_EPOCHS = 2
 # EVHINet's int8 sites at 1280x720 by distinct (Cin, Cout, H, W, kernel): stride
 # 1, padding kernel // 2, no fused activation (refid_tpu/serve/evhinet_fast.py)
@@ -701,6 +723,78 @@ def phase_int8_kernel_check():
                  got, quant.conv_int8_reference(*args))
     emit("int8_kernel_check", shapes={k: list(v) for k, v in INT8_CONV_SHAPES.items()},
          edge_shapes=INT8_EDGE_SHAPES, max_abs_err=errs, tol="bit-exact")
+    return {k: max(v.values()) for k, v in errs.items()}
+
+
+def shard_site_shapes():
+    """The int8 sites of a row shard: the 360-row half of a 720p frame at
+    every INT8_CONV_SHAPES site and EVHINET_INT8_SHAPES site, each with its
+    halo rows (padding above, kernel - stride - padding below) in the tensor:
+    ``{name: (cin, cout, input rows, input width, kernel, stride)}``."""
+    shapes = {}
+    for name, (cin, cout, h, w, k, stride) in INT8_CONV_SHAPES.items():
+        shapes[name] = (cin, cout, h * stride // 2 + k - stride, w * stride, k, stride)
+    for name, (cin, cout, h, w, k) in EVHINET_INT8_SHAPES.items():
+        shapes["evhinet_" + name] = (cin, cout, h // 2 + k - 1, w, k, 1)
+    return shapes
+
+
+def phase_spatial_int8_kernel_check():
+    """The two int8 kernels as a row shard runs them: ``conv_int8`` with its
+    halo rows in the tensor, row padding 0 and column padding 1 (k // 2 for
+    EVHINet's), and ``quantize_int8`` in device-amax mode (the amax pass
+    alone, then the quantization from an amax in device memory: the shard's
+    own and a larger one, as the group's max may be), each bit for bit
+    against its plain version at every shard_site_shapes() site; then the
+    INT8_TIMED sites' shard times (CUDA events) beside their bounds.
+    Returns the largest max |diff| of each kernel."""
+    t_phase = time.perf_counter()
+    errs = {"quantize_int8": {}, "conv_int8": {}}
+
+    def held(kernel, name, got, want):
+        errs[kernel][name] = float((got.float() - want.float()).abs().max())
+        check(got.dtype == want.dtype and got.shape == want.shape and torch.equal(got, want),
+              f"{kernel} {name} at a shard: max|diff| {errs[kernel][name]} against its "
+              "plain version")
+
+    timing = {}
+    for i, (name, (cin, cout, h, w, k, stride)) in enumerate(shard_site_shapes().items()):
+        gen = torch.Generator().manual_seed(80 + i)
+        x = torch.randn(1, cin, h, w, generator=gen)
+        x = torch.maximum(x, 0.1 * x).to(CUDA, torch.bfloat16)
+        weight = (torch.randn(cout, cin, k, k, generator=gen) / math.sqrt(cin * k * k)).to(CUDA)
+        bias = (0.1 * torch.randn(cout, generator=gen)).to(CUDA)
+        own = quant.amax_int8(x)
+        held("quantize_int8", name + "_amax", own, x.float().abs().amax().reshape(1))
+        for tag, amax in (("", own), ("_group", own * 1.5)):
+            got = quant.quantize_int8(x, amax=amax)
+            want = quant.quantize_int8_reference(x, amax=amax)
+            held("quantize_int8", name + tag, got[1], want[1])
+            held("quantize_int8", name + tag, got[0], want[0])
+        wp, wscale, b = quant.WeightCache().packed(weight, bias)
+        xq, xs = want
+        pad = (0, 1 if k == 4 else k // 2)
+        args = (xq, wp, wscale, xs, b, stride, pad, 0.1, False, torch.bfloat16)
+        got = quant.conv_int8_packed(*args)
+        torch.cuda.synchronize()
+        held("conv_int8", name, got, quant.conv_int8_reference(*args))
+        if name in INT8_TIMED:
+            ho, wo = got.shape[2:]
+            q_bytes = x.numel() * x.element_size() + xq.numel()
+            c_ops = 2 * ho * wo * cout * cin * k * k
+            c_bytes = xq.numel() + wp.numel() + ho * wo * cout * 2
+            timing[name] = {
+                "input": [cin, h, w], "output": [cout, ho, wo],
+                "conv_int8": {"ms": time_ms(lambda: quant.conv_int8_packed(*args), 50, CUDA),
+                              **bound(c_bytes, c_ops, INT8_OPS_PER_S)},
+                "quantize_int8": {
+                    "ms": time_ms(lambda: quant.quantize_int8(x, amax=own), 50, CUDA),
+                    "amax_ms": time_ms(lambda: quant.amax_int8(x), 50, CUDA),
+                    **bound(q_bytes + x.numel() * x.element_size(), 0, F32_OPS_PER_S)}}
+        del x, weight, bias, wp, xq, got, want
+    emit("spatial_int8_kernel_check", shapes={k: list(v) for k, v in shard_site_shapes().items()},
+         padding="rows 0, columns 1 (k // 2)", max_abs_err=errs, tol="bit-exact",
+         timing_at_shards=timing, seconds=time.perf_counter() - t_phase)
     return {k: max(v.values()) for k, v in errs.items()}
 
 
@@ -2371,7 +2465,6 @@ def spatial_rank(rank, world, port, work):
     import torch.distributed as dist
 
     from refid_tpu_torch.parallel import make_mesh
-    from refid_tpu_torch.parallel.spatial import SpatialPlan, spatial_scope
 
     torch.cuda.set_device(0)
     dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
@@ -2432,6 +2525,11 @@ def spatial_rank(rank, world, port, work):
         del model, batches
         torch.cuda.empty_cache()
         out["serve"] = spatial_serve(rank, spatial_mesh)
+        torch.cuda.empty_cache()
+        out["int8"] = spatial_int8(spatial_mesh)
+        torch.cuda.empty_cache()
+        out["ablation"] = spatial_ablation(spatial_mesh)
+        out["evhinet"] = spatial_evhinet(spatial_mesh)
     finally:
         dist.destroy_process_group()
     with open(os.path.join(work, f"spatial_{rank}.json"), "w") as f:
@@ -2487,10 +2585,226 @@ def spatial_serve(rank, mesh):
     return result
 
 
+def sharded_update(model, state, batch, mesh, block, loss_fn=charbonnier_loss):
+    """One recipe optimiser step of ``model`` (reset to ``state``) on
+    ``batch`` (``lq, voxel, gt`` on the card), on this rank's rows under a
+    spatial ``mesh`` or whole (None): the update, flat, and the step's
+    loss and gradient norm (before the clip; reduced over the group)."""
+    model.load_state_dict(state)
+    trainer = Trainer(model, loss_fn, recipe_train_opt(), 100,
+                      frozen=known_unused_keys(model), mesh=mesh)
+    plan = None
+    if mesh is not None:
+        plan = SpatialPlan(mesh, batch[0].shape[-2], block)
+        batch = [plan.shard(a) for a in batch]
+    metrics = trainer.train_step(*batch, plan)
+    update = torch.cat([(p.detach() - state[k]).flatten().float() for k, p in trainer.named])
+    return update, float(metrics["loss"]), float(metrics["grad_norm"])
+
+
+def step_parity(ref, got):
+    """The dB of a sharded step's update against the whole step's, and the
+    relative errors of its loss and gradient norm (one AdamW step's update
+    is about the gradient's sign: the norm sees its magnitude)."""
+    return {"update_db": parity_db(ref[0], got[0]), "loss": got[1], "whole_loss": ref[1],
+            "grad_norm": got[2], "whole_grad_norm": ref[2],
+            "loss_rel_err": abs(got[1] - ref[1]) / abs(ref[1]),
+            "grad_norm_rel_err": abs(got[2] - ref[2]) / abs(ref[2])}
+
+
+def step_ok(row):
+    return (row["update_db"] >= PARITY_DB and row["loss_rel_err"] <= SPATIAL_STEP_RTOL
+            and row["grad_norm_rel_err"] <= SPATIAL_STEP_RTOL)
+
+
+def sharded_forward(model, mesh, *inputs):
+    """``model(*inputs)`` on this rank's rows, gathered, with the plan."""
+    plan = SpatialPlan(mesh, inputs[0].shape[-2], model.row_block)
+    with torch.no_grad(), spatial_scope(plan):
+        return plan.gather(model(*(plan.shard(a) for a in inputs))), plan
+
+
+def spatial_int8(mesh):
+    """720p windows (2**20 events, bf16 autocast, the network's own init) in
+    each int8 mode through ``BlurVFIPipeline(mesh=)`` ("static" calibrated on
+    another window on the shards first); the last window against the whole
+    int8 window served in this rank with the same scales.  Counts the int8
+    kernels' launches over the sharded windows: each window launches
+    ``conv_int8`` and ``quantize_int8`` once a site (and the amax pass once a
+    dynamic site)."""
+    import torch.distributed as dist
+
+    state = module_init_state()
+    rng = np.random.RandomState(21)
+    requests = [(rng.rand(HEIGHT, WIDTH, 3).astype(np.float32),
+                 rng.rand(HEIGHT, WIDTH, 3).astype(np.float32),
+                 random_events(rng, FULL_EVENTS, WIDTH, HEIGHT))
+                for _ in range(SPATIAL_INT8_WINDOWS + 1)]
+    result, totals = {}, {"conv_int8": 0, "quantize_int8": 0, "voxelize": 0}
+    for mode in INT8_SITES:
+        pipe = BlurVFIPipeline(state, RefidConfig(), int8=mode, mesh=mesh, device="cuda")
+        calib_ms = None
+        if mode == "static":
+            dist.barrier()
+            t0 = time.perf_counter()
+            with torch.autocast("cuda", dtype=torch.bfloat16):
+                pipe.calibrate(*requests[0])
+            torch.cuda.synchronize()
+            calib_ms = (time.perf_counter() - t0) * 1e3
+        int8_cuda.reset_launches()               # this mode's sharded windows start here
+        voxel_cuda.LAUNCHES = 0
+        times = []
+        for i, request in enumerate(requests[1:]):
+            dist.barrier()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with torch.autocast("cuda", dtype=torch.bfloat16):
+                got = pipe(*request)
+            torch.cuda.synchronize()
+            if i:
+                times.append((time.perf_counter() - t0) * 1e3)
+        launches = {"conv_int8": int8_cuda.CONV_LAUNCHES,           # ... and end here
+                    "quantize_int8": int8_cuda.QUANTIZE_LAUNCHES,
+                    "amax_pass": int8_cuda.AMAX_LAUNCHES, "voxelize": voxel_cuda.LAUNCHES}
+        for k in totals:
+            totals[k] += launches[k]
+        plan = pipe.last_plan
+        whole = BlurVFIPipeline(state, RefidConfig(), int8=mode, device="cuda")
+        if mode == "static":                    # the shards' scales
+            whole._int8_scales, whole._int8_exclude = pipe._int8_scales, pipe._int8_exclude
+        with torch.autocast("cuda", dtype=torch.bfloat16):
+            want = whole(*requests[-1])
+        if mode == "static":
+            calibrated = BlurVFIPipeline(state, RefidConfig(), int8=mode, device="cuda")
+            with torch.autocast("cuda", dtype=torch.bfloat16):
+                calibrated.calibrate(*requests[0])
+            amax_equal = calibrated._int8_raw_amax == pipe._int8_raw_amax
+            del calibrated
+        result[str(mode)] = {
+            "sites": INT8_SITES[mode], "windows": SPATIAL_INT8_WINDOWS,
+            "launches": launches, "ms_per_window": times, "calibrate_ms": calib_ms,
+            "calibrated_amax_equal_to_whole": amax_equal if mode == "static" else None,
+            "exchanges_per_window": plan.exchanges, "reductions_per_window": plan.reductions,
+            "exchange_bytes_per_window": plan.exchange_bytes,
+            "db_vs_whole": parity_db(want.float(), got.float()),
+            "bit_equal": bool(torch.equal(want, got)),
+            "max_abs_err": float((want.float() - got.float()).abs().max()),
+            "finite": bool(torch.isfinite(got).all()), "shape": list(got.shape),
+            "max_memory_allocated": torch.cuda.max_memory_allocated()}
+        del pipe, whole, got, want
+        torch.cuda.empty_cache()
+    return {"modes": result, "launches": totals}
+
+
+def spatial_ablation(mesh):
+    """Each ablation lineage of ABLATIONS at its production widths
+    (``ablation_net_opt``) on SPATIAL_TOY_SHAPE, seeded weights, f32, TF32
+    off: the forward on the shards against the whole one, and one optimiser
+    step against the whole step; then SPATIAL_LINEAGES_SERVED at 720p."""
+    b, t, h, w = SPATIAL_TOY_SHAPE
+    t_phase = time.perf_counter()
+    gen = torch.Generator().manual_seed(22)
+    batch = [torch.rand(b, 26, h, w, generator=gen), torch.randn(b, t, 2, h, w, generator=gen),
+             torch.rand(b, t, 3, h, w, generator=gen)]
+    batch = [a.cuda() for a in batch]
+    rows = {}
+    for k, (name, rbt, dcn) in enumerate(ABLATIONS):
+        model = ablation_model(k, name, rbt, dcn)
+        state = {key: v.cuda() for key, v in model.state_dict().items()}
+        model = model.cuda()
+        with torch.no_grad():
+            want = model(*batch[:2])
+        got, plan = sharded_forward(model, mesh, *batch[:2])
+        ref = sharded_update(model, state, batch, None, model.row_block)
+        upd = sharded_update(model, state, batch, mesh, model.row_block)
+        rows[ablation_label(name, rbt, dcn)] = {
+            "forward_db": parity_db(want, got), "max_abs_err": float((want - got).abs().max()),
+            **step_parity(ref, upd), "exchanges": plan.exchanges,
+            "reductions": plan.reductions}
+        del model, state
+    seconds = time.perf_counter() - t_phase
+    return {"rows": rows, "seconds": seconds, "served": spatial_lineage_serve(mesh)}
+
+
+def spatial_lineage_serve(mesh):
+    """SPATIAL_LINEAGES_SERVED through ``BlurVFIPipeline(mesh=)`` at 720p
+    (2**20 events, f32, TF32 off, seeded weights), every rank making the
+    same calls; the last window against the whole window in this rank.
+    Counts K1's launches over the sharded windows."""
+    import torch.distributed as dist
+
+    rng = np.random.RandomState(25)
+    requests = [(rng.rand(HEIGHT, WIDTH, 3).astype(np.float32),
+                 rng.rand(HEIGHT, WIDTH, 3).astype(np.float32),
+                 random_events(rng, FULL_EVENTS, WIDTH, HEIGHT))
+                for _ in range(SPATIAL_LINEAGE_WINDOWS)]
+    rows, launches = {}, 0
+    for name, rbt, dcn in SPATIAL_LINEAGES_SERVED:
+        model = ablation_model(ABLATIONS.index((name, rbt, dcn)), name, rbt, dcn)
+        pipe = BlurVFIPipeline(model, model.cfg, mesh=mesh, device="cuda")
+        torch.cuda.reset_peak_memory_stats()
+        voxel_cuda.LAUNCHES = 0                  # this lineage's sharded windows start here
+        times = []
+        for i, request in enumerate(requests):
+            dist.barrier()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = pipe(*request)
+            torch.cuda.synchronize()
+            if i:
+                times.append((time.perf_counter() - t0) * 1e3)
+        launches += voxel_cuda.LAUNCHES          # ... and end here
+        plan = pipe.last_plan
+        whole = BlurVFIPipeline(model, model.cfg, device="cuda")
+        want = whole(*requests[-1])
+        rows[ablation_label(name, rbt, dcn)] = {
+            "db_vs_whole": parity_db(want, got), "max_abs_err": float((want - got).abs().max()),
+            "ms_per_window": times, "exchanges_per_window": plan.exchanges,
+            "exchange_bytes_per_window": plan.exchange_bytes,
+            "allreduce_bytes_per_window": plan.allreduce_bytes,
+            "max_memory_allocated": torch.cuda.max_memory_allocated(),
+            "finite": bool(torch.isfinite(got).all()), "shape": list(got.shape)}
+        del pipe, whole, model, got, want
+        torch.cuda.empty_cache()
+    return {"rows": rows, "voxelize_launches": launches}
+
+
+def spatial_evhinet(mesh):
+    """EVHINet at full width (seeded weights, f32, TF32 off): a 720p image
+    (2**19 events in 6 bins, K2 on this rank) on the shards against the
+    whole image, and one optimiser step at SPATIAL_EVHINET_STEP against the
+    whole step."""
+    t_phase = time.perf_counter()
+    state = {k: v.cuda() for k, v in evhinet_state(1, filled=True).items()}
+    net = EVHINet().cuda()
+    net.load_state_dict(state)
+    rng = np.random.RandomState(23)
+    img = rng.rand(HEIGHT, WIDTH, 3).astype(np.float32)
+    voxel_cuda.GRID_LAUNCHES = 0                 # this rank's item voxelized here
+    vox, _ = evhinet_voxel(random_events(rng, EV_EVENTS, WIDTH, HEIGHT), WIDTH, HEIGHT)
+    grids = voxel_cuda.GRID_LAUNCHES
+    x, v = (to_nchw(torch.from_numpy(a[None]).cuda()) for a in (img, vox))
+    with torch.no_grad():
+        want = net(x, v)
+    got, plan = sharded_forward(net, mesh, x, v)
+    n, crop = SPATIAL_EVHINET_STEP
+    gen = torch.Generator().manual_seed(24)
+    batch = [a.cuda() for a in (torch.rand(n, 3, crop, crop, generator=gen),
+                                torch.randn(n, EV_BINS, crop, crop, generator=gen),
+                                torch.rand(n, 3, crop, crop, generator=gen))]
+    ref = sharded_update(net, state, batch, None, net.row_block)
+    upd = sharded_update(net, state, batch, mesh, net.row_block)
+    return {"forward_db": parity_db(want, got), "bit_equal": bool(torch.equal(want, got)),
+            "max_abs_err": float((want - got).abs().max()), "exchanges": plan.exchanges,
+            "reductions": plan.reductions, **step_parity(ref, upd),
+            "voxel_grid_launches": grids, "seconds": time.perf_counter() - t_phase}
+
+
 def phase_spatial(work):
-    """spatial_parity and spatial_serve: SPATIAL_RANKS gloo ranks on the one
-    card (spawned).  Fails where gloo does not carry the halo's collectives
-    for CUDA tensors.  Returns K1's launches."""
+    """spatial_parity, spatial_serve, spatial_int8, spatial_ablation and
+    spatial_evhinet: SPATIAL_RANKS gloo ranks on the one card (spawned).
+    Fails where gloo does not carry the halo's collectives for CUDA tensors.
+    Returns the launches of K1, K2 and the two int8 kernels in the ranks."""
     import torch.multiprocessing as mp
 
     t_phase = time.perf_counter()
@@ -2534,7 +2848,75 @@ def phase_spatial(work):
     launches = sum(r["voxelize_launches"] for r in serve)
     check(launches == world * SPATIAL_WINDOWS,
           f"spatial_serve launched K1 {launches} times for {world} x {SPATIAL_WINDOWS} windows")
-    return launches
+    return {"voxelize": launches, **phase_spatial_others(ranks)}
+
+
+def phase_spatial_others(ranks):
+    """The lines and checks of spatial_int8, spatial_ablation and
+    spatial_evhinet from the ranks' results; their launches."""
+    world = len(ranks)
+    int8 = [r["int8"] for r in ranks]
+    per_mode = {mode: [r["modes"][str(mode)] for r in int8] for mode in INT8_SITES}
+    emit("spatial_int8", ranks=world, frame=[HEIGHT, WIDTH], events=FULL_EVENTS, dtype="bf16",
+         weights="module init, seed 0", windows_a_mode=SPATIAL_INT8_WINDOWS,
+         min_db=SPATIAL_SERVE_MIN_DB, note="ranks sharing one card: exchange overhead",
+         per_mode={str(m): v for m, v in per_mode.items()})
+    for mode, rows in per_mode.items():
+        want = INT8_SITES[mode] * SPATIAL_INT8_WINDOWS
+        for rank, row in enumerate(rows):
+            got = row["launches"]
+            check(got["conv_int8"] == got["quantize_int8"] == want
+                  and got["amax_pass"] == (0 if mode == "static" else want)
+                  and got["voxelize"] == SPATIAL_INT8_WINDOWS,
+                  f"spatial_int8 {mode} rank {rank}: launches {got} for "
+                  f"{SPATIAL_INT8_WINDOWS} windows of {INT8_SITES[mode]} sites")
+            check(row["finite"] and row["shape"] == [23, HEIGHT, WIDTH, 3]
+                  and row["db_vs_whole"] >= SPATIAL_SERVE_MIN_DB and row["bit_equal"],
+                  f"spatial_int8 {mode} rank {rank}: {row['db_vs_whole']:.1f} dB against the "
+                  f"whole window (bit-equal {row['bit_equal']}, required: the int8 sums are "
+                  f"exact and the scales the whole frame's), shape {row['shape']}")
+    rows = ranks[0]["ablation"]["rows"]
+    emit("spatial_ablation", ranks=world, shape=SPATIAL_TOY_SHAPE,
+         base_num_channels=ablation_net_opt("UNetRecurrent", None)["base_num_channels"],
+         dtype="f32", tf32=False, forward_min_db=SPATIAL_FORWARD_DB, update_min_db=PARITY_DB,
+         step_rtol=SPATIAL_STEP_RTOL, rows=rows,
+         seconds=[r["ablation"]["seconds"] for r in ranks])
+    low = {k: (v["forward_db"], v["update_db"], v["loss_rel_err"], v["grad_norm_rel_err"])
+           for k, v in rows.items() if v["forward_db"] < SPATIAL_FORWARD_DB or not step_ok(v)}
+    check(len(rows) == len(ABLATIONS) and not low,
+          f"spatial_ablation below {SPATIAL_FORWARD_DB} / {PARITY_DB} dB or loss / grad "
+          f"norm beyond {SPATIAL_STEP_RTOL}: {low}")
+    served = [r["ablation"]["served"] for r in ranks]
+    emit("spatial_lineage_serve", ranks=world, frame=[HEIGHT, WIDTH], events=FULL_EVENTS,
+         dtype="f32", tf32=False, windows=SPATIAL_LINEAGE_WINDOWS, min_db=SPATIAL_FORWARD_DB,
+         note="ranks sharing one card: exchange overhead, not scaling",
+         per_rank=[s["rows"] for s in served])
+    for rank, s in enumerate(served):
+        bad = {k: (v["db_vs_whole"], v["shape"], v["finite"]) for k, v in s["rows"].items()
+               if v["db_vs_whole"] < SPATIAL_FORWARD_DB or not v["finite"]
+               or v["shape"] != [23, HEIGHT, WIDTH, 3]}
+        check(len(s["rows"]) == len(SPATIAL_LINEAGES_SERVED) and not bad,
+              f"spatial_lineage_serve rank {rank}: below {SPATIAL_FORWARD_DB} dB or bad "
+              f"output: {bad}")
+        want = len(SPATIAL_LINEAGES_SERVED) * SPATIAL_LINEAGE_WINDOWS
+        check(s["voxelize_launches"] == want,
+              f"spatial_lineage_serve rank {rank}: K1 launched {s['voxelize_launches']} times "
+              f"for {want} windows")
+    ev = [r["evhinet"] for r in ranks]
+    emit("spatial_evhinet", ranks=world, frame=[HEIGHT, WIDTH], dtype="f32", tf32=False,
+         step=SPATIAL_EVHINET_STEP, forward_min_db=SPATIAL_FORWARD_DB, update_min_db=PARITY_DB,
+         per_rank=ev)
+    check(all(e["forward_db"] >= SPATIAL_FORWARD_DB and step_ok(e)
+              and e["voxel_grid_launches"] == 1 for e in ev),
+          f"spatial_evhinet: {[(e['forward_db'], e['update_db']) for e in ev]} dB "
+          f"(bars {SPATIAL_FORWARD_DB} / {PARITY_DB}), loss / grad norm relative errors "
+          f"{[(e['loss_rel_err'], e['grad_norm_rel_err']) for e in ev]} (bar "
+          f"{SPATIAL_STEP_RTOL}) or K2 not once a rank")
+    return {"voxelize_int8": sum(r["launches"]["voxelize"] for r in int8)
+            + sum(s["voxelize_launches"] for s in served),
+            "voxel_grid": sum(e["voxel_grid_launches"] for e in ev),
+            "conv_int8": sum(r["launches"]["conv_int8"] for r in int8),
+            "quantize_int8": sum(r["launches"]["quantize_int8"] for r in int8)}
 
 
 def phase_mp_loader(data_root, work):
@@ -2648,6 +3030,7 @@ def main():
 
     t0 = time.perf_counter()
     int8_errs = phase_int8_kernel_check()
+    shard_errs = phase_spatial_int8_kernel_check()
     int8_timing = phase_int8_kernel_timing()
     set_tf32(False)
     int8_launches, int8_db, int8_faults = phase_int8_serve(requests)
@@ -2732,7 +3115,9 @@ def main():
         torch.backends.cuda.matmul.allow_tf32 = False
         grid_launches += phase_mp_loader(data_root, work)  # K2, each item, in this process
         grid_launches += phase_ddp_train(data_root, work)  # K2, each item
-        launches += phase_spatial(work)              # K1, each rank's windows
+        spatial_launches = phase_spatial(work)       # K1, K2, C8, Q8 in each rank
+        launches += spatial_launches["voxelize"] + spatial_launches["voxelize_int8"]
+        grid_launches += spatial_launches["voxel_grid"]
         emit("distribution_path", seconds=time.perf_counter() - t0)
 
     def rate_entry(variant, plain_ms, library, kernel):
@@ -2780,14 +3165,18 @@ def main():
         "name": "quantize_int8", "route": "cuda",
         "source": "refid_tpu_torch/csrc/conv_int8.cu",
         "replaces": "refid_tpu/serve/quant.py:147",
-        "launches": int8_launches["quantize_int8"] + evhinet_launches["quantize_int8"],
-        "max_abs_err": max(int8_errs["quantize_int8"], evhinet_errs["quantize_int8"]),
+        "launches": int8_launches["quantize_int8"] + evhinet_launches["quantize_int8"]
+        + spatial_launches["quantize_int8"],
+        "max_abs_err": max(int8_errs["quantize_int8"], evhinet_errs["quantize_int8"],
+                           shard_errs["quantize_int8"]),
         **int8_timing["quantize_int8"]}, {
         "name": "conv_int8", "route": "cuda",
         "source": "refid_tpu_torch/csrc/conv_int8.cu",
         "replaces": "refid_tpu/serve/quant.py:147",
-        "launches": int8_launches["conv_int8"] + evhinet_launches["conv_int8"],
-        "max_abs_err": max(int8_errs["conv_int8"], evhinet_errs["conv_int8"]),
+        "launches": int8_launches["conv_int8"] + evhinet_launches["conv_int8"]
+        + spatial_launches["conv_int8"],
+        "max_abs_err": max(int8_errs["conv_int8"], evhinet_errs["conv_int8"],
+                           shard_errs["conv_int8"]),
         **int8_timing["conv_int8"]}]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}),

@@ -9,7 +9,9 @@ given, loads ``path.pretrain_network_g`` (required) and writes the restored
 frame to ``img_path.output_img``.  This keeps the JAX package's repair of
 upstream's demo, which never builds the voxel that
 ``single_image_inference`` needs.  ``--device`` defaults to ``cuda`` and
-raises without a card.
+raises without a card.  With ``mesh: {spatial: S}`` S processes split the
+frame by height (``--coordinator / --num-processes / --process-id`` or
+torchrun, as for ``cli.train``); rank 0 writes the image.
 
 :func:`main` returns the task, with the ``(h, w, 3)`` prediction in
 ``task.demo_output``.
@@ -22,11 +24,11 @@ import argparse
 import numpy as np
 
 from refid_tpu_torch.core.config import parse_options
-from refid_tpu_torch.core.device import resolve_device
 from refid_tpu_torch.core.logging_util import get_root_logger
 from refid_tpu_torch.data.datasets.base import load_event_quad
 from refid_tpu_torch.data.img_util import imread
 from refid_tpu_torch.events.voxel import events_to_voxel_grid, voxel_norm_np
+from refid_tpu_torch.parallel.mesh import add_distributed_args, join_from_args, rank, rank_device
 from refid_tpu_torch.tasks import build_task
 
 __all__ = ["main", "parse_args"]
@@ -39,12 +41,14 @@ def parse_args(argv=None):
     p.add_argument("--device", default="cuda",
                    help="Device to run on (default: cuda; cpu runs the plain "
                         "versions of the kernels).")
+    add_distributed_args(p)
     return p.parse_args(argv)
 
 
 def main(argv=None):
     args = parse_args(argv)
-    device = resolve_device(args.device)
+    join_from_args(args)
+    device = rank_device(args.device)
     opt = parse_options(args.opt, is_train=False, root=args.root)
     logger = get_root_logger()
 
@@ -67,7 +71,8 @@ def main(argv=None):
 
     task = build_task(opt, device)
     task.load_pretrained(pretrain)
-    task.demo_output = task.single_image_inference(img, voxel, paths["output_img"])
+    task.demo_output = task.single_image_inference(
+        img, voxel, paths["output_img"] if rank() == 0 else None)
     logger.info(f"wrote {paths['output_img']}")
     return task
 

@@ -10,6 +10,12 @@ or a port checkpoint directory), validates each loader with the task's
 defaults to ``cuda`` and raises without a card; ``cpu`` runs the plain
 versions.
 
+With ``mesh: {spatial: S}`` the ranks of each spatial group split every
+prediction by image height: start S processes (or a multiple) with
+``--coordinator host:port --num-processes N --process-id K``, or under
+torchrun, as for ``cli.train``; every rank evaluates every item, and only
+rank 0 writes the log file and the images.
+
 :func:`main` returns ``{dataset name: results}``; :func:`run`, which it
 calls, returns the task with those results in ``task.results`` and each
 loader's timing (``validate``'s ``val_timing``) in ``task.test_timing``.
@@ -21,9 +27,9 @@ import argparse
 import os
 
 from refid_tpu_torch.core.config import dict2str, parse_options
-from refid_tpu_torch.core.device import resolve_device
 from refid_tpu_torch.core.logging_util import get_root_logger
 from refid_tpu_torch.data.loader import build_dataset, build_loader
+from refid_tpu_torch.parallel.mesh import add_distributed_args, join_from_args, rank, rank_device
 from refid_tpu_torch.tasks import build_task
 
 __all__ = ["main", "parse_args", "run"]
@@ -40,15 +46,19 @@ def parse_args(argv=None):
     p.add_argument("--device", default="cuda",
                    help="Device to evaluate on (default: cuda; cpu runs the "
                         "plain versions of the kernels).")
+    add_distributed_args(p)
     return p.parse_args(argv)
 
 
 def run(argv=None):
     args = parse_args(argv)
-    device = resolve_device(args.device)
+    join_from_args(args)
+    device = rank_device(args.device)
     opt = parse_options(args.opt, is_train=False, root=args.root)
+    lead = rank() == 0
     os.makedirs(opt["path"]["results_root"], exist_ok=True)
-    logger = get_root_logger(log_file=f"{opt['path']['log']}/test_{opt['name']}.log")
+    logger = get_root_logger(
+        log_file=f"{opt['path']['log']}/test_{opt['name']}.log" if lead else None)
     logger.info(dict2str(opt))
 
     loaders = []
@@ -64,7 +74,7 @@ def run(argv=None):
     task.load_pretrained(pretrain)
     logger.info(f"loaded weights from {pretrain}")
 
-    save_img = args.save_img or (opt.get("val") or {}).get("save_img", False)
+    save_img = (args.save_img or (opt.get("val") or {}).get("save_img", False)) and lead
     task.results, task.test_timing = {}, {}
     for dataset_opt, loader in loaders:
         name = dataset_opt.get("name", "test")

@@ -47,10 +47,11 @@ import numpy as np
 import torch
 
 from refid_tpu_torch.core.config import dict2str, parse_options
-from refid_tpu_torch.core.device import resolve_device
 from refid_tpu_torch.core.logging_util import MessageLogger, get_root_logger, init_tb_logger
 from refid_tpu_torch.data.loader import build_dataset, build_loader
-from refid_tpu_torch.parallel.mesh import init_distributed, local_rank, make_mesh, rank, world_size
+from refid_tpu_torch.parallel.mesh import (
+    add_distributed_args, join_from_args, make_mesh, rank, rank_device, world_size,
+)
 from refid_tpu_torch.tasks import build_task
 
 __all__ = ["main", "parse_args", "train"]
@@ -66,17 +67,13 @@ def parse_args(argv=None):
     p.add_argument("--device", default="cuda",
                    help="Device to train on (default: cuda; cpu runs the "
                         "plain versions of the kernels).")
-    p.add_argument("--coordinator", default=None,
-                   help="host:port of process 0 (with --num-processes > 1).")
-    p.add_argument("--num-processes", type=int, default=None)
-    p.add_argument("--process-id", type=int, default=None)
+    add_distributed_args(p)
     return p.parse_args(argv)
 
 
 def main(argv=None):
     args = parse_args(argv)
-    init_distributed(args.coordinator, args.num_processes, args.process_id,
-                     backend="gloo" if torch.device(args.device).type == "cpu" else None)
+    join_from_args(args)
     opt = parse_options(args.opt, is_train=True, root=args.root)
     if args.max_iters:
         opt["train"]["total_iter"] = args.max_iters
@@ -100,22 +97,8 @@ def _validate(task, current_iter, tb_logger, logger):
                                   current_iter)
 
 
-def _rank_device(device) -> torch.device:
-    """The device of this rank: ``cuda`` is ``cuda:LOCAL_RANK`` when the
-    process group has more than one rank or came from torchrun."""
-    device = resolve_device(device)
-    if device.type != "cuda" or device.index is not None or not torch.distributed.is_initialized():
-        return device
-    index = local_rank()
-    if index >= torch.cuda.device_count():
-        raise RuntimeError(f"local rank {index} has no card: {torch.cuda.device_count()} "
-                           "visible; start one process a card")
-    torch.cuda.set_device(index)
-    return torch.device("cuda", index)
-
-
 def train(opt: dict, device="cuda"):
-    device = _rank_device(device)
+    device = rank_device(device)
     mesh = make_mesh(data=-1, spatial=(opt.get("mesh") or {}).get("spatial", 1))
 
     seed = opt.get("manual_seed", 0) or 0

@@ -22,7 +22,11 @@
 //   them as one 16-byte vector, so a warp writes 16 whole 32-byte channel
 //   runs.  In dynamic mode every block derives scale = max(amax, 1e-12) /
 //   127 from the state, and the last block to do so resets the state to
-//   zero for the next call: no memset on the host.  Block 0 writes the scale
+//   zero for the next call: no memset on the host.  In device-amax mode
+//   (a row shard of a frame, whose amax is the group's max of every shard's
+//   amax_kernel result) the blocks derive the scale the same way from an
+//   amax that the caller keeps in device memory, and leave it as it is.
+//   Block 0 writes the scale
 //   to device memory, where the conv kernel reads it, so no value goes back
 //   to the host.  The NCHW read sits in load_tile() alone: a channels_last
 //   network changes that function and nothing else.
@@ -47,15 +51,17 @@
 //   products.
 // * A by TMA from the NHWC int8 tensor, a 4-D map (cp, W, H, n); out-of-image
 //   coordinates read zeros, which is the conv's padding, with no bounds
-//   checks.  A stride-1 conv wider than 1x1 loads, for each kernel row ky
-//   and K chunk, one box of bw + kw - 1 pixels for each of the tile's bh
-//   output rows, at (c0, ox0 - pad, oy0 + r - pad + ky, img), and the wgmma
+//   checks.  Rows and columns take their own padding (pad_h, pad_w): a row
+//   shard whose halo rows sit in the tensor runs with pad_h 0.  A stride-1
+//   conv wider than 1x1 loads, for each kernel row ky and K chunk, one box
+//   of bw + kw - 1 pixels for each of the tile's bh
+//   output rows, at (c0, ox0 - pad_w, oy0 + r - pad_h + ky, img), and the wgmma
 //   descriptors of tap kx start kx rows into it (a row inside a swizzle
 //   atom, base offset 0: the swizzle follows the address bits, for the 32-,
 //   64- and 128-byte swizzles alike): kw times fewer A bytes through TMA and
 //   the mainloop alone 2.4x faster at 64 -> 64 than with a box a tap.  Other
 //   convs (1x1, 4x4/2) load a box of bw x bh pixels a tap at (c0, ox0 s -
-//   pad + kx, oy0 s - pad + ky, img), element strides (1, s, s, 1), so a
+//   pad_w + kx, oy0 s - pad_h + ky, img), element strides (1, s, s, 1), so a
 //   stride-2 conv reads every other pixel.  K chunks of 128 bytes take the
 //   128-byte swizzle; cp 32 and 64 take chunks of 32 and 64 bytes with the
 //   32- and 64-byte swizzle, and the wgmma descriptors follow.
@@ -226,7 +232,7 @@ __global__ void __launch_bounds__(256) quantize_kernel(const T* __restrict__ x,
                                                        signed char* __restrict__ xq, int c,
                                                        int hw, int cp, int vec_ok,
                                                        unsigned int* __restrict__ state,
-                                                       float static_scale,
+                                                       int reset, float static_scale,
                                                        float* __restrict__ scale_out) {
   __shared__ __align__(16) unsigned char tile[kQCh * kQRow];
   __shared__ float block_scale;
@@ -235,11 +241,13 @@ __global__ void __launch_bounds__(256) quantize_kernel(const T* __restrict__ x,
     if (state != nullptr) {
       const unsigned int bits = *reinterpret_cast<volatile unsigned int*>(state);
       scale = __fdiv_rn(fmaxf(__uint_as_float(bits), 1e-12f), 127.0f);
-      __threadfence();        // the read is done before this block counts itself
-      const unsigned int blocks = gridDim.x * gridDim.y * gridDim.z;
-      if (atomicAdd(state + 1, 1u) == blocks - 1) {   // every block has read it
-        state[0] = 0u;
-        state[1] = 0u;
+      if (reset) {
+        __threadfence();      // the read is done before this block counts itself
+        const unsigned int blocks = gridDim.x * gridDim.y * gridDim.z;
+        if (atomicAdd(state + 1, 1u) == blocks - 1) {   // every block has read it
+          state[0] = 0u;
+          state[1] = 0u;
+        }
       }
     }
     if (blockIdx.x == 0 && blockIdx.y == 0 && blockIdx.z == 0) *scale_out = scale;
@@ -275,34 +283,43 @@ __global__ void __launch_bounds__(256) quantize_kernel(const T* __restrict__ x,
   }
 }
 
+// max |x| over `total` elements into *state (as float bits; zero before)
 template <typename T>
-int launch_quantize(const void* x, int n, int c, int hw, int cp, int dynamic, float scale,
+int launch_amax(const T* xt, long long total, unsigned int* state, cudaStream_t stream) {
+  constexpr int kV = 16 / static_cast<int>(sizeof(T));
+  const bool aligned = reinterpret_cast<uintptr_t>(xt) % 16 == 0;
+  int device = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  long long blocks = (total / kV + 255) / 256;
+  if (blocks > 8LL * sms) blocks = 8LL * sms;
+  if (blocks < 1) blocks = 1;
+  amax_kernel<T><<<static_cast<int>(blocks), 256, 0, stream>>>(xt, total, aligned, state);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// mode 0: the static `scale`; 1: dynamic, the amax reduced into the
+// two-word `amax_state`, reset by the quantize blocks; 2: the scale from
+// the amax that `amax_state` holds in device memory, left as it is
+template <typename T>
+int launch_quantize(const void* x, int n, int c, int hw, int cp, int mode, float scale,
                     void* amax_state, void* scale_out, void* xq, cudaStream_t stream) {
   const T* xt = static_cast<const T*>(x);
   constexpr int kV = 16 / static_cast<int>(sizeof(T));
   const bool aligned = reinterpret_cast<uintptr_t>(x) % 16 == 0;
-  unsigned int* state = nullptr;
-  if (dynamic) {
-    state = static_cast<unsigned int*>(amax_state);
-    const long long total = static_cast<long long>(n) * c * hw;
-    int device = 0, sms = 0;
-    cudaError_t err = cudaGetDevice(&device);
-    if (err == cudaSuccess) {
-      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-    }
-    if (err != cudaSuccess) return static_cast<int>(err);
-    long long blocks = (total / kV + 255) / 256;
-    if (blocks > 8LL * sms) blocks = 8LL * sms;
-    if (blocks < 1) blocks = 1;
-    amax_kernel<T><<<static_cast<int>(blocks), 256, 0, stream>>>(xt, total, aligned, state);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
+  unsigned int* state = mode ? static_cast<unsigned int*>(amax_state) : nullptr;
+  if (mode == 1) {
+    const int err = launch_amax(xt, static_cast<long long>(n) * c * hw, state, stream);
+    if (err != 0) return err;
   }
   const int ranges = (hw + kQPix - 1) / kQPix;
   const dim3 grid(cp / kQCh, ranges < 65535 ? ranges : 65535, n);
   quantize_kernel<T><<<grid, 256, 0, stream>>>(xt, static_cast<signed char*>(xq), c, hw, cp,
-                                                aligned && hw % kV == 0, state, scale,
-                                                static_cast<float*>(scale_out));
+                                                aligned && hw % kV == 0, state, mode == 1,
+                                                scale, static_cast<float*>(scale_out));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -317,7 +334,7 @@ constexpr int kMaxStages = 12;        // two rings of 2 to 6 stages
 
 // The conv's shape and its tile plan (ops/int8_cuda.py::conv_plan), by value.
 struct ConvGeom {
-  int co, cp, kw, stride, pad, ho, wo;
+  int co, cp, kw, stride, pad_h, pad_w, ho, wo;
   int bw, bh, bw_shift, chunk, stages, resident, vector_store;   // bw = 1 << bw_shift
   int shared;                         // one A box a tile row serves every kx
   int tiles_x, tiles_y, m_tiles, tiles, steps, chunks_per_tap, taps, b_boxes, n_tiles;
@@ -547,13 +564,13 @@ conv_int8_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__
           mbar_expect_tx(&full[s], g.a_tx + (g.resident ? 0 : g.taps * g.b_tx));
           if (g.shared) {        // a box of bw + kw - 1 pixels for each output row
             for (int row = 0; row < g.bh; ++row) {
-              tma_load(st + row * g.a_box, &tx, &full[s], c0, ox0[r] - g.pad,
-                       oy0[r] + row - g.pad + t0, img[r]);
+              tma_load(st + row * g.a_box, &tx, &full[s], c0, ox0[r] - g.pad_w,
+                       oy0[r] + row - g.pad_h + t0, img[r]);
             }
           } else {
             const int ky = t0 / g.kw, kx = t0 - ky * g.kw;
-            tma_load(st, &tx, &full[s], c0, ox0[r] * g.stride - g.pad + kx,
-                     oy0[r] * g.stride - g.pad + ky, img[r]);
+            tma_load(st, &tx, &full[s], c0, ox0[r] * g.stride - g.pad_w + kx,
+                     oy0[r] * g.stride - g.pad_h + ky, img[r]);
           }
           if (!g.resident) {
             for (int t = 0; t < g.taps; ++t) {
@@ -835,29 +852,45 @@ int launch_conv_c(int bn, const CUtensorMap& tx, const CUtensorMap& tw, const fl
 
 // x (n, c, hw) dense, float32 (dtype 0) or bf16 (1); xq (n, hw, cp) int8 with
 // cp a multiple of 32 >= c, 16-byte aligned; scale_out one float32;
-// amax_state two uint32, zero before the first dynamic call and left zero
-// by each (one state per stream).  Launches on `stream`; returns
-// cudaGetLastError().
+// mode 0 static (`scale`); 1 dynamic: amax_state two uint32, zero before the
+// first dynamic call and left zero by each (one state per stream); 2 device
+// amax: amax_state one float32 amax in device memory, read and kept.
+// Launches on `stream`; returns cudaGetLastError().
 extern "C" int refid_quantize_int8(const void* x, int dtype, int n, int c, int hw, int cp,
-                                   int dynamic, float scale, void* amax_state, void* scale_out,
+                                   int mode, float scale, void* amax_state, void* scale_out,
                                    void* xq, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (cp % kQCh != 0 || cp < c || reinterpret_cast<uintptr_t>(xq) % 16 != 0) {
+  if (cp % kQCh != 0 || cp < c || reinterpret_cast<uintptr_t>(xq) % 16 != 0 || mode < 0 ||
+      mode > 2 || (mode != 0 && amax_state == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (dtype == 0) {
-    return launch_quantize<float>(x, n, c, hw, cp, dynamic, scale, amax_state, scale_out, xq, s);
+    return launch_quantize<float>(x, n, c, hw, cp, mode, scale, amax_state, scale_out, xq, s);
   }
   if (dtype == 1) {
-    return launch_quantize<__nv_bfloat16>(x, n, c, hw, cp, dynamic, scale, amax_state,
+    return launch_quantize<__nv_bfloat16>(x, n, c, hw, cp, mode, scale, amax_state,
                                           scale_out, xq, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// x (total) dense, float32 (dtype 0) or bf16 (1); amax one float32, zero
+// before the call: max |x| afterwards.  Launches on `stream`; returns
+// cudaGetLastError().
+extern "C" int refid_amax_int8(const void* x, int dtype, long long total, void* amax,
+                               void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  auto* state = static_cast<unsigned int*>(amax);
+  if (total < 1 || amax == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype == 0) return launch_amax(static_cast<const float*>(x), total, state, s);
+  if (dtype == 1) return launch_amax(static_cast<const __nv_bfloat16*>(x), total, state, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 // xq (n, h, w, cp) int8, wp (co, kh, kw, cp) int8, both 16-byte aligned;
 // wscale (co) and xscale (1) float32, bias (co) float32 or null; out (n, co,
-// ho, wo) float32 (out_dtype 0) or bf16 (1), 16-byte aligned.  act 0 none,
+// ho, wo) float32 (out_dtype 0) or bf16 (1), 16-byte aligned; pad_h rows of
+// zeros above and below, pad_w columns left and right.  act 0 none,
 // 1 relu, 2 max(y, y slope).  The tile plan (bn, bw, bh, chunk, stages,
 // resident, vector_store) comes from ops/int8_cuda.py::conv_plan; a plan
 // that does not fit returns cudaErrorInvalidValue.  Launches on `stream`;
@@ -865,7 +898,8 @@ extern "C" int refid_quantize_int8(const void* x, int dtype, int n, int c, int h
 // be encoded.
 extern "C" int refid_conv_int8(const void* xq, const void* wp, const void* wscale,
                                const void* xscale, const void* bias, int n, int h, int w, int cp,
-                               int co, int kh, int kw, int stride, int pad, int ho, int wo,
+                               int co, int kh, int kw, int stride, int pad_h, int pad_w, int ho,
+                               int wo,
                                int act, float slope, int out_dtype, void* out, void* stream,
                                int bn, int bw, int bh, int chunk, int stages, int resident,
                                int vector_store, int shared) {
@@ -888,7 +922,8 @@ extern "C" int refid_conv_int8(const void* xq, const void* wp, const void* wscal
   g.cp = cp;
   g.kw = kw;
   g.stride = stride;
-  g.pad = pad;
+  g.pad_h = pad_h;
+  g.pad_w = pad_w;
   g.ho = ho;
   g.wo = wo;
   g.bw = bw;

@@ -35,6 +35,14 @@ It needs the geometry that the JAX serving forward implements
 ``dtype=torch.bfloat16`` runs the network under bf16 autocast with float32
 parameters and returns float32; the half instance norm computes its
 statistics in float32.
+
+Spatial sharding (``parallel/spatial.py``): under an active plan ``x`` and
+``event`` are this rank's rows of the frame, in whole blocks of
+:attr:`EVHINet.row_block` (2 to the power of the stride-2 convs).  The 3x3
+convs, the 4x4/2 downsamples and SAM's conv take halos (``HaloConv2d``); the
+half instance norm takes its mean and then its biased variance over the
+whole frame through two group sums; the 1x1 convs, ``fac_bias`` and the
+transposed convs are local; the int8 sites are ``serve/quant.py``'s.
 """
 
 from __future__ import annotations
@@ -46,6 +54,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from refid_tpu_torch.models.layers import conv_transpose_up
+from refid_tpu_torch.parallel import spatial
+from refid_tpu_torch.parallel.spatial import HaloConv2d
 
 __all__ = ["EVHINet", "HINConvBlock", "EVConvBlock", "UpBlock", "SAM",
            "half_instance_norm", "fac_bias", "evhinet_int8_applicable"]
@@ -54,11 +64,17 @@ __all__ = ["EVHINet", "HINConvBlock", "EVConvBlock", "UpBlock", "SAM",
 def half_instance_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                        eps: float = 1e-5) -> torch.Tensor:
     """Affine instance norm (biased variance) over the first ``len(weight)``
-    channels of NCHW ``x``; the other channels pass through."""
+    channels of NCHW ``x``; the other channels pass through.  Under an
+    active spatial plan the statistics are the whole frame's."""
     half = weight.shape[0]
     h1 = x[:, :half].float()
-    mu = h1.mean((2, 3), keepdim=True)
-    var = (h1 - mu).square().mean((2, 3), keepdim=True)
+    plan = spatial.active()
+    if plan is None:
+        mu = h1.mean((2, 3), keepdim=True)
+        var = (h1 - mu).square().mean((2, 3), keepdim=True)
+    else:
+        mu = plan.mean(h1)
+        var = plan.mean((h1 - mu).square())
     h1 = ((h1 - mu) * torch.rsqrt(var + eps) * weight.view(1, -1, 1, 1)
           + bias.view(1, -1, 1, 1))
     return torch.cat([h1.to(x.dtype), x[:, half:]], 1)
@@ -92,11 +108,11 @@ class HINConvBlock(nn.Module):
                  relu_slope: float = 0.2, use_hin: bool = True):
         super().__init__()
         self.relu_slope = relu_slope
-        self.conv_1 = nn.Conv2d(in_size, out_size, 3, 1, 1)
-        self.conv_2 = nn.Conv2d(out_size, out_size, 3, 1, 1)
+        self.conv_1 = HaloConv2d(in_size, out_size, 3, 1, 1)
+        self.conv_2 = HaloConv2d(out_size, out_size, 3, 1, 1)
         self.identity = nn.Conv2d(in_size, out_size, 1, 1, 0)
         self.norm = nn.InstanceNorm2d(out_size // 2, affine=True) if use_hin else None
-        self.downsample = (nn.Conv2d(out_size, out_size, 4, 2, 1, bias=False)
+        self.downsample = (HaloConv2d(out_size, out_size, 4, 2, 1, bias=False)
                            if downsample else None)
 
     def forward(self, x, filt=None, q=None):
@@ -144,7 +160,7 @@ class SAM(nn.Module):
     def __init__(self, n_feat: int):
         super().__init__()
         self.conv1 = nn.Conv2d(n_feat, n_feat, 3, 1, 1)
-        self.conv2 = nn.Conv2d(n_feat, 3, 3, 1, 1)
+        self.conv2 = HaloConv2d(n_feat, 3, 3, 1, 1)
         self.conv3 = nn.Conv2d(3, n_feat, 3, 1, 1)
 
     def forward(self, x, x_img):
@@ -168,7 +184,7 @@ class EVHINet(nn.Module):
         self.dtype = dtype
         hin = [hin_left <= i <= hin_right for i in range(depth)]
 
-        self.conv_ev1 = nn.Conv2d(ev_chn, wf, 3, 1, 1)
+        self.conv_ev1 = HaloConv2d(ev_chn, wf, 3, 1, 1)
         self.down_path_ev = nn.ModuleList()
         prev = wf
         for i in range(min(fac_place + 1, depth)):
@@ -176,7 +192,7 @@ class EVHINet(nn.Module):
                                                  relu_slope, hin[i]))
             prev = 2 ** i * wf
 
-        self.conv_01 = nn.Conv2d(in_chn, wf, 3, 1, 1)
+        self.conv_01 = HaloConv2d(in_chn, wf, 3, 1, 1)
         self.down_path_1 = nn.ModuleList()
         prev = wf
         for i in range(depth):
@@ -188,11 +204,16 @@ class EVHINet(nn.Module):
         self.skip_conv_1 = nn.ModuleList()
         for i in reversed(range(depth - 1)):
             self.up_path_1.append(UpBlock(prev, 2 ** i * wf, relu_slope))
-            self.skip_conv_1.append(nn.Conv2d(2 ** i * wf, 2 ** i * wf, 3, 1, 1))
+            self.skip_conv_1.append(HaloConv2d(2 ** i * wf, 2 ** i * wf, 3, 1, 1))
             prev = 2 ** i * wf
         self.sam12 = SAM(prev)
 
     int8_side = 4    # a task predicts in int8 where both frame sides are multiples of this
+
+    @property
+    def row_block(self) -> int:
+        """The rows of a spatial shard come in whole blocks of this many."""
+        return 2 ** (self.depth - 1)
 
     def task_int8_mode(self, int8) -> bool:
         """The int8 mode that a task's ``val.int8`` selects: any truthy value
@@ -211,6 +232,9 @@ class EVHINet(nn.Module):
         if q is not None and q.int8 not in (True, "calib", "static"):
             raise ValueError(f"EVHINet serves int8 True, 'calib' or 'static' (as the JAX "
                              f"serving forward); got {q.int8!r}")
+        plan = spatial.active()
+        if plan is not None:
+            plan.check_rows(x.shape[-2])
         if self.dtype != torch.bfloat16:
             out = self._forward(x, event, q)
         else:

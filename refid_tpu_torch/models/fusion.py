@@ -17,7 +17,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from refid_tpu_torch.models.layers import LayerNorm2d, SELayer
-from refid_tpu_torch.parallel.spatial import HaloConv2d
+from refid_tpu_torch.parallel.spatial import HaloConv2d, SpatialAvgPool
 
 __all__ = ["CrossmodalAtten", "ImgEvFusion"]
 
@@ -62,8 +62,8 @@ class ImgEvFusion(nn.Module):
 
     def __init__(self, c: int):
         super().__init__()
-        self.se_0 = nn.Sequential(nn.AdaptiveAvgPool2d(1), nn.Conv2d(c, c, 1), nn.Sigmoid())
-        self.se_1 = nn.Sequential(nn.AdaptiveAvgPool2d(1), nn.Conv2d(c, c, 1), nn.Sigmoid())
+        self.se_0 = nn.Sequential(SpatialAvgPool(), nn.Conv2d(c, c, 1), nn.Sigmoid())
+        self.se_1 = nn.Sequential(SpatialAvgPool(), nn.Conv2d(c, c, 1), nn.Sigmoid())
 
     def forward(self, ev, feat_0, feat_1):
         return feat_0 * self.se_0(ev) + feat_1 * self.se_1(ev)

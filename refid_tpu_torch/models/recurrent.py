@@ -29,6 +29,7 @@ from refid_tpu_torch.models.layers import (
     ConvLayer, ConvResidualBlocks, conv_transpose_up,
 )
 from refid_tpu_torch.ops.deform_conv import ModulatedDeformConvPack
+from refid_tpu_torch.parallel import spatial
 from refid_tpu_torch.parallel.spatial import HaloConv2d
 
 __all__ = [
@@ -59,7 +60,7 @@ class ConvGRU(nn.Module):
         super().__init__()
         p = kernel_size // 2
         for name in ("reset_gate", "update_gate", "out_gate"):
-            conv = nn.Conv2d(in_ch + hidden, hidden, kernel_size, padding=p)
+            conv = HaloConv2d(in_ch + hidden, hidden, kernel_size, padding=p)
             nn.init.orthogonal_(conv.weight)
             nn.init.zeros_(conv.bias)
             setattr(self, name, conv)
@@ -80,8 +81,8 @@ class ConvLSTM(nn.Module):
 
     def __init__(self, in_ch: int, hidden: int, kernel_size: int = 3):
         super().__init__()
-        self.Gates = nn.Conv2d(in_ch + hidden, 4 * hidden, kernel_size,
-                               padding=kernel_size // 2)
+        self.Gates = HaloConv2d(in_ch + hidden, 4 * hidden, kernel_size,
+                                padding=kernel_size // 2)
 
     def forward(self, x, prev_state, q=None):
         prev_hidden, prev_cell = prev_state
@@ -228,12 +229,21 @@ class PixelShuffleRecurrentConvLayer(nn.Module):
 class UpsampleConvLayer(nn.Module):
     """Decoder ablation without recurrence (upstream ``UpsampleConvLayer``,
     k5): bilinear x2 upsampling, a 5x5 conv and a ReLU.  The state passes
-    through unchanged."""
+    through unchanged.
+
+    On row shards the upsampling reads one row of each neighbour (the frame's
+    edge row repeated at its border, where ``F.interpolate`` clamps); the two
+    output rows on each side that those rows make are cropped again."""
 
     def __init__(self, in_ch: int, out_ch: int):
         super().__init__()
-        self.conv2d = nn.Conv2d(in_ch, out_ch, 5, 1, 2)
+        self.conv2d = HaloConv2d(in_ch, out_ch, 5, 1, 2)
 
     def forward(self, x, prev_state=None):
+        plan = spatial.active()
+        if plan is not None:
+            x = plan.exchange(x, 1, 1, edge=True)
         up = F.interpolate(x, scale_factor=2, mode="bilinear", align_corners=False)
+        if plan is not None:
+            up = up[..., 2:-2, :]
         return F.relu(self.conv2d(up)), prev_state

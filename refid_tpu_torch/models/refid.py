@@ -48,10 +48,12 @@ rest.  ``dtype=torch.bfloat16`` runs the network under bf16 autocast with
 float32 parameters and returns float32.
 
 Spatial sharding (``parallel/spatial.py``): under an active plan the
-inputs are a rank's rows of the frame; the convs with a halo
-(``HaloConv2d``) and the SE pools (``SpatialAvgPool``) exchange with the
-neighbouring shards, and :func:`spatial_applicable` names the lineage that
-runs so (the flagship's; others raise ``ValueError``).
+inputs are a rank's rows of the frame, in every lineage and int8 mode; the
+convs with a halo (``HaloConv2d``, the ConvGRU / ConvLSTM gates and the k5/s2
+stage convs among them), the SE pools (``SpatialAvgPool``), the bilinear
+decoder's edge-row halo, the DCN's gathered input and the int8 sites' group
+amax and int8 halos exchange with the neighbouring shards.  The rows split
+in whole blocks of :attr:`FinalBidirectionAttenfusion.row_block`.
 
 int8 serving (``serve/quant.py``): ``forward(x, event, q)`` with a
 ``QuantState`` runs the convs that ``refid_tpu/serve/fast_forward.py`` routes
@@ -86,8 +88,7 @@ from refid_tpu_torch.models.recurrent import (
 )
 from refid_tpu_torch.parallel import spatial
 
-__all__ = ["RefidConfig", "FinalBidirectionAttenfusion", "int8_applicable", "INT8_NEEDS",
-           "spatial_applicable", "SPATIAL_NEEDS"]
+__all__ = ["RefidConfig", "FinalBidirectionAttenfusion", "int8_applicable", "INT8_NEEDS"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -186,23 +187,6 @@ INT8_NEEDS = ("the production architecture that the JAX serving forward replays:
               "decoder, no siamese fusion")
 
 
-def spatial_applicable(cfg: Optional[RefidConfig]) -> bool:
-    """True iff the network runs on row shards (``parallel/spatial.py``):
-    the flagship's lineage, whose every op is a conv with a halo, a pooled
-    SE gate or local.  The ConvGRU / ConvLSTM cells, the k5/s2 stages, the
-    pixel-shuffle and bilinear decoders, the DCN and the siamese fusion
-    would each need their own halo or gather."""
-    return (cfg is not None and cfg.recurrent_cell == "simpleconv"
-            and cfg.encoder_stage == "then_down"
-            and cfg.decoder_type == "transpose_recurrent"
-            and not cfg.use_first_dcn and cfg.siamese_fusion is None)
-
-
-SPATIAL_NEEDS = ("the flagship FinalBidirectionAttenfusion lineage (then_down stages with "
-                 "simpleconv cells, the transposed-conv decoder, no DCN, no siamese fusion) "
-                 "in float")
-
-
 class FinalBidirectionAttenfusion(nn.Module):
     """Event-recurrent UNet for blurry VFI, bidirectional in the flagship.
 
@@ -213,7 +197,7 @@ class FinalBidirectionAttenfusion(nn.Module):
 
     Under an active spatial plan (``parallel/spatial.py::spatial_scope``)
     ``x`` and ``event`` are this rank's rows of the frame and so is the
-    output; only :func:`spatial_applicable` configurations run so, in float.
+    output.
     """
 
     def __init__(self, cfg: RefidConfig = RefidConfig()):
@@ -394,6 +378,12 @@ class FinalBidirectionAttenfusion(nn.Module):
 
     int8_side = 8    # a task predicts in int8 where both frame sides are multiples of this
 
+    @property
+    def row_block(self) -> int:
+        """The rows of a spatial shard come in whole blocks of this many:
+        every scale splits at the same place."""
+        return 2 ** self.cfg.num_encoders
+
     def task_int8_mode(self, int8):
         """The int8 mode that a task's ``val.int8`` selects: True or
         ``"scale0"`` (dynamic scales), as the JAX task; ``"static"`` raises,
@@ -411,9 +401,6 @@ class FinalBidirectionAttenfusion(nn.Module):
             raise ValueError(f"int8 serving needs {INT8_NEEDS}; got {self.cfg}")
         plan = spatial.active()
         if plan is not None:
-            if q is not None or not spatial_applicable(self.cfg):
-                raise ValueError(f"spatial sharding needs {SPATIAL_NEEDS}; got "
-                                 f"{self.cfg}{' with int8' if q is not None else ''}")
             plan.check_rows(x.shape[-2])
         if self.cfg.dtype != torch.bfloat16:
             return self._forward(x, event, q)

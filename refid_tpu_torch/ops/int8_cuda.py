@@ -5,11 +5,18 @@
   and the ``(1,)`` float32 scale, which stays on the card.  Without
   ``scale`` (dynamic) the amax is reduced on the card first (a second
   kernel launch of the same call) into a two-word state kept per device and
-  stream, which the quantize kernel leaves zero again.  Plain version:
+  stream, which the quantize kernel leaves zero again.  With ``amax`` (a
+  ``(1,)`` float32 on the card, e.g. the max over a spatial group of
+  :func:`amax_int8_cuda`'s results) the kernel derives the scale from it in
+  device memory, as the dynamic path does from its own.  Plain version:
   ``serve/quant.py::quantize_int8_reference``.
+* :func:`amax_int8_cuda`: the amax pass alone, ``max |x|`` as a ``(1,)``
+  float32 on the card.  Plain version: ``serve/quant.py::amax_int8``'s CPU
+  path.
 * :func:`conv_int8_cuda`: the implicit-GEMM int8 conv (TMA, ``wgmma`` s8 ->
   s32, a persistent grid) with the rescale, bias and activation fused, NCHW
-  out in float32 or bf16.  :func:`conv_plan` picks its tile: N fit to Cout,
+  out in float32 or bf16, the rows and the columns each with their own
+  zero padding.  :func:`conv_plan` picks its tile: N fit to Cout,
   the pixel tile's shape, the K chunk (and swizzle), the ring depth, whether
   the weights stay resident in shared memory, and the store path.  Plain
   version: ``serve/quant.py::conv_int8_reference``.
@@ -18,7 +25,7 @@ Neither replaces a TPU kernel: the JAX package's int8 conv is XLA's
 (``refid_tpu/serve/quant.py::conv_int8``).  Each wrapper checks device, type,
 shape and contiguity, launches on the current stream, raises if the launch
 failed, and counts its calls in ``QUANTIZE_LAUNCHES`` (one a quantization,
-whether it took one kernel or two) or ``CONV_LAUNCHES``.
+whether it took one kernel or two), ``AMAX_LAUNCHES`` or ``CONV_LAUNCHES``.
 """
 
 from __future__ import annotations
@@ -27,14 +34,17 @@ import ctypes
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
+from torch.nn.modules.utils import _pair
 
 from refid_tpu_torch.ops.build import load, raise_on_error
 from refid_tpu_torch.serve.quant import K_DEPTH, padded_channels
 
-__all__ = ["QUANTIZE_LAUNCHES", "CONV_LAUNCHES", "reset_launches", "quantize_int8_cuda",
-           "conv_int8_cuda", "ConvPlan", "conv_plan", "TILE_PIXELS", "SMEM_BYTES"]
+__all__ = ["QUANTIZE_LAUNCHES", "AMAX_LAUNCHES", "CONV_LAUNCHES", "reset_launches",
+           "quantize_int8_cuda", "amax_int8_cuda", "conv_int8_cuda", "ConvPlan", "conv_plan",
+           "TILE_PIXELS", "SMEM_BYTES"]
 
 QUANTIZE_LAUNCHES = 0
+AMAX_LAUNCHES = 0
 CONV_LAUNCHES = 0
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -127,17 +137,19 @@ def _library() -> ctypes.CDLL:
     if _lib is None:
         lib = load("conv_int8")
         lib.refid_quantize_int8.argtypes = [_P, _I, _I, _I, _I, _I, _I, _F, _P, _P, _P, _P]
-        lib.refid_conv_int8.argtypes = ([_P, _P, _P, _P, _P] + [_I] * 12 + [_F, _I, _P, _P]
+        lib.refid_amax_int8.argtypes = [_P, _I, ctypes.c_longlong, _P, _P]
+        lib.refid_conv_int8.argtypes = ([_P, _P, _P, _P, _P] + [_I] * 13 + [_F, _I, _P, _P]
                                         + [_I] * 8)
         lib.refid_quantize_int8.restype = lib.refid_conv_int8.restype = _I
+        lib.refid_amax_int8.restype = _I
         _lib = lib
     return _lib
 
 
 def reset_launches() -> None:
-    """Set both launch counts to zero."""
-    global QUANTIZE_LAUNCHES, CONV_LAUNCHES
-    QUANTIZE_LAUNCHES = CONV_LAUNCHES = 0
+    """Set the launch counts to zero."""
+    global QUANTIZE_LAUNCHES, AMAX_LAUNCHES, CONV_LAUNCHES
+    QUANTIZE_LAUNCHES = AMAX_LAUNCHES = CONV_LAUNCHES = 0
 
 
 def _check(t: torch.Tensor, what: str, dtypes, dim: int, device=None) -> None:
@@ -149,28 +161,36 @@ def _check(t: torch.Tensor, what: str, dtypes, dim: int, device=None) -> None:
         raise ValueError(f"{what} must be a contiguous {dim}-D tensor, got {tuple(t.shape)}")
 
 
-def quantize_int8_cuda(x: torch.Tensor, scale: Optional[float] = None):
+def quantize_int8_cuda(x: torch.Tensor, scale: Optional[float] = None,
+                       amax: Optional[torch.Tensor] = None):
     """NCHW ``x`` -> (int8 ``(n, h, w, c padded)``, ``(1,)`` float32 scale),
-    dynamic when ``scale`` is None."""
+    dynamic when ``scale`` is None: from ``x``'s amax, or from ``amax`` in
+    device memory where given."""
     global QUANTIZE_LAUNCHES
     _check(x, "quantize_int8_cuda", tuple(_DTYPE_CODE), 4)
     n, c, h, w = x.shape
     if x.numel() == 0 or x.numel() >= 2 ** 31:
         raise ValueError(f"quantize_int8_cuda takes 1 to 2**31 - 1 elements, got {x.numel()}")
+    if amax is not None:
+        _check(amax, "quantize_int8_cuda amax", (torch.float32,), 1, x.device)
+        if scale is not None or amax.numel() != 1:
+            raise ValueError("quantize_int8_cuda takes a scale or one device amax, not both")
     cp = padded_channels(c)
     xq = torch.empty((n, h, w, cp), dtype=torch.int8, device=x.device)
     scale_out = torch.empty(1, dtype=torch.float32, device=x.device)
     lib = _library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        state = None
-        if scale is None:
-            key = (x.device.index, stream)
+        mode, state = 0, amax
+        if amax is not None:
+            mode = 2
+        elif scale is None:
+            mode, key = 1, (x.device.index, stream)
             state = _AMAX_STATE.get(key)
             if state is None:
                 state = _AMAX_STATE[key] = torch.zeros(2, dtype=torch.int32, device=x.device)
         err = lib.refid_quantize_int8(x.data_ptr(), _DTYPE_CODE[x.dtype], n, c, h * w, cp,
-                                      int(scale is None), 0.0 if scale is None else scale,
+                                      mode, 0.0 if scale is None else scale,
                                       None if state is None else state.data_ptr(),
                                       scale_out.data_ptr(), xq.data_ptr(), stream)
     raise_on_error(lib, err, "quantize_int8")
@@ -178,12 +198,29 @@ def quantize_int8_cuda(x: torch.Tensor, scale: Optional[float] = None):
     return xq, scale_out
 
 
+def amax_int8_cuda(x: torch.Tensor) -> torch.Tensor:
+    """``max |x|`` of a contiguous float32 or bf16 CUDA tensor as a ``(1,)``
+    float32 on its card (the dynamic quantization's amax pass)."""
+    global AMAX_LAUNCHES
+    _check(x, "amax_int8_cuda", tuple(_DTYPE_CODE), x.dim())
+    if x.numel() == 0:
+        raise ValueError("amax_int8_cuda takes a non-empty tensor")
+    amax = torch.zeros(1, dtype=torch.float32, device=x.device)
+    lib = _library()
+    with torch.cuda.device(x.device):
+        err = lib.refid_amax_int8(x.data_ptr(), _DTYPE_CODE[x.dtype], x.numel(),
+                                  amax.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    raise_on_error(lib, err, "amax_int8")
+    AMAX_LAUNCHES += 1
+    return amax
+
+
 def conv_int8_cuda(xq, wp, wscale, xscale, bias=None, stride=1, padding=0, slope=None,
                    relu=False, out_dtype=torch.float32) -> torch.Tensor:
     """``xq (n, h, w, cp)`` int8 and ``wp (co, kh, kw, cp)`` int8 ->
     ``(n, co, ho, wo)`` in ``out_dtype`` (float32 or bf16): the int32 sums
     times ``wscale[co] * xscale``, plus ``bias``, then relu or
-    ``max(y, y * slope)``."""
+    ``max(y, y * slope)``.  ``padding``: one int, or ``(rows, columns)``."""
     global CONV_LAUNCHES
     _check(xq, "conv_int8_cuda x", (torch.int8,), 4)
     _check(wp, "conv_int8_cuda w", (torch.int8,), 4, xq.device)
@@ -200,8 +237,9 @@ def conv_int8_cuda(xq, wp, wscale, xscale, bias=None, stride=1, padding=0, slope
         raise ValueError("wscale and bias take one value per output channel, xscale one")
     if out_dtype not in _DTYPE_CODE:
         raise TypeError(f"conv_int8_cuda writes float32 or bf16, not {out_dtype}")
-    ho = (h + 2 * padding - kh) // stride + 1
-    wo = (w + 2 * padding - kw) // stride + 1
+    pad_h, pad_w = _pair(padding)
+    ho = (h + 2 * pad_h - kh) // stride + 1
+    wo = (w + 2 * pad_w - kw) // stride + 1
     if ho < 1 or wo < 1 or xq.numel() >= 2 ** 40 or n * co * ho * wo >= 2 ** 40:
         raise ValueError(f"no output for x {tuple(xq.shape)}, w {tuple(wp.shape)}, "
                          f"stride {stride}, padding {padding}")
@@ -213,7 +251,7 @@ def conv_int8_cuda(xq, wp, wscale, xscale, bias=None, stride=1, padding=0, slope
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.refid_conv_int8(xq.data_ptr(), wp.data_ptr(), wscale.data_ptr(),
                                   xscale.data_ptr(), None if bias is None else bias.data_ptr(),
-                                  n, h, w, cp, co, kh, kw, stride, padding, ho, wo, act,
+                                  n, h, w, cp, co, kh, kw, stride, pad_h, pad_w, ho, wo, act,
                                   0.0 if slope is None else slope, _DTYPE_CODE[out_dtype],
                                   out.data_ptr(), stream, plan.bn, plan.bw, plan.bh, plan.chunk,
                                   plan.stages, int(plan.resident), int(plan.vector_store),

@@ -32,7 +32,8 @@ import torch.distributed as dist
 from refid_tpu_torch.parallel.spatial import row_split
 
 __all__ = ["Mesh", "init_distributed", "make_mesh", "mesh_layout", "replicate",
-           "all_reduce_mean", "shard_batch", "local_rank", "rank", "world_size"]
+           "all_reduce_mean", "shard_batch", "local_rank", "rank", "world_size",
+           "add_distributed_args", "join_from_args", "rank_device"]
 
 
 def world_size() -> int:
@@ -73,6 +74,36 @@ def init_distributed(coordinator: Optional[str] = None,
                                 world_size=num_processes, rank=process_id)
     elif "WORLD_SIZE" in os.environ:
         dist.init_process_group(backend, init_method="env://")
+
+
+def add_distributed_args(parser) -> None:
+    """The JAX CLI's flags for several processes, on an argparse parser."""
+    parser.add_argument("--coordinator", default=None,
+                        help="host:port of process 0 (with --num-processes > 1).")
+    parser.add_argument("--num-processes", type=int, default=None)
+    parser.add_argument("--process-id", type=int, default=None)
+
+
+def join_from_args(args) -> None:
+    """:func:`init_distributed` from :func:`add_distributed_args`' flags
+    (gloo with ``--device cpu``)."""
+    init_distributed(args.coordinator, args.num_processes, args.process_id,
+                     backend="gloo" if torch.device(args.device).type == "cpu" else None)
+
+
+def rank_device(device) -> torch.device:
+    """The device of this rank: ``cuda`` is ``cuda:LOCAL_RANK`` when the
+    process group has more than one rank or came from torchrun."""
+    from refid_tpu_torch.core.device import resolve_device
+    device = resolve_device(device)
+    if device.type != "cuda" or device.index is not None or not dist.is_initialized():
+        return device
+    index = local_rank()
+    if index >= torch.cuda.device_count():
+        raise RuntimeError(f"local rank {index} has no card: {torch.cuda.device_count()} "
+                           "visible; start one process a card")
+    torch.cuda.set_device(index)
+    return torch.device("cuda", index)
 
 
 def mesh_layout(world: int, data: int = -1, spatial: int = 1):

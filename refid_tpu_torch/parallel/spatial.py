@@ -16,10 +16,21 @@ consult it:
     zeros, the conv's own zero padding.
   * :class:`SpatialAvgPool` (the SE gates' global average pool) sums its
     rows, all-reduces the sum over the group and divides by the global
-    ``H * W``.
+    ``H * W``; :meth:`SpatialPlan.mean` is the same statistic for any
+    caller (EVHINet's half instance norm, the PSNR loss).
+  * a bilinear x2 upsampling (the ``upsample_conv`` decoder) takes one row
+    from each neighbour in ``edge`` mode: the first and last shards repeat
+    their own edge row, as ``F.interpolate`` clamps at the frame's border.
+  * the deformable conv gathers the whole stage input on every rank
+    (:meth:`SpatialPlan.gather`, differentiable: each rank's gradient of the
+    gathered rows is summed over the group and kept by the rank that owns
+    them) and samples only its own output rows.
+  * an int8 site (``serve/quant.py``) quantizes with the group's amax
+    (:meth:`SpatialPlan.group_max`) and exchanges the halo rows of the
+    quantized NHWC int8 tensor (:meth:`SpatialPlan.exchange_nhwc`).
 
-Everything else in the flagship is local: the 1x1 convs, the 2x2
-transposed convs, LayerNorm2d's channel statistics, GELU, the recurrence.
+Everything else is local: the 1x1 convs, the 2x2 transposed convs and the
+pixel shuffle, LayerNorm2d's channel statistics, GELU, the recurrence.
 
 Every exchange is one ``all_reduce`` over the spatial group of a buffer
 with one slot per rank, each rank writing only its own slot, summed as
@@ -46,11 +57,12 @@ import torch
 import torch.distributed as dist
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.nn.modules.utils import _pair
 
 __all__ = ["MAX_HALO", "row_split", "halo_exchange", "SpatialPlan", "spatial_scope",
-           "active", "HaloConv2d", "SpatialAvgPool"]
+           "active", "HaloConv2d", "SpatialAvgPool", "halo_conv2d"]
 
-MAX_HALO = 2        # the largest halo of the flagship's convs: the 5x5 heads'
+MAX_HALO = 2        # the largest halo of the networks' convs: the 5x5 heads' and k5/s2 stages'
 _ACTIVE: Optional["SpatialPlan"] = None
 
 
@@ -83,7 +95,7 @@ def _sum_bytes(buf: torch.Tensor, group) -> torch.Tensor:
     return buf
 
 
-def _exchange(x, above: int, below: int, group):
+def _exchange(x, above: int, below: int, group, edge: bool = False):
     size, r = _group_size_rank(group)
     n = x.shape[-2]
     if n < max(above, below):
@@ -91,14 +103,19 @@ def _exchange(x, above: int, below: int, group):
     buf = x.new_zeros((size,) + x.shape[:-2] + (below + above, x.shape[-1]))
     buf[r] = torch.cat([x[..., :below, :], x[..., n - above:, :]], -2)
     _sum_bytes(buf, group)
-    top = (buf[r - 1][..., below:, :] if r > 0
-           else x.new_zeros(x.shape[:-2] + (above, x.shape[-1])))
-    bottom = (buf[r + 1][..., :below, :] if r + 1 < size
-              else x.new_zeros(x.shape[:-2] + (below, x.shape[-1])))
+    top = buf[r - 1][..., below:, :] if r > 0 else _border(x, above, 0, edge)
+    bottom = buf[r + 1][..., :below, :] if r + 1 < size else _border(x, below, n - 1, edge)
     return torch.cat([top, x, bottom], -2)
 
 
-def _exchange_grad(g, above: int, below: int, group):
+def _border(x, rows: int, edge_row: int, edge: bool):
+    """The rows past the frame's border: zeros, or ``x``'s edge row repeated."""
+    if edge:
+        return x[..., edge_row:edge_row + 1, :].expand(*x.shape[:-2], rows, x.shape[-1])
+    return x.new_zeros(x.shape[:-2] + (rows, x.shape[-1]))
+
+
+def _exchange_grad(g, above: int, below: int, group, edge: bool = False):
     size, r = _group_size_rank(group)
     n = g.shape[-2] - above - below
     buf = g.new_zeros((size,) + g.shape[:-2] + (above + below, g.shape[-1]))
@@ -107,31 +124,39 @@ def _exchange_grad(g, above: int, below: int, group):
     gx = g[..., above:above + n, :].clone()
     if r + 1 < size:      # the shard below read my last `above` rows
         gx[..., n - above:, :] += buf[r + 1][..., :above, :]
+    elif edge:            # my bottom border repeated my last row
+        gx[..., n - 1:, :] += g[..., above + n:, :].sum(-2, keepdim=True)
     if r > 0:             # the shard above read my first `below` rows
         gx[..., :below, :] += buf[r - 1][..., above:, :]
+    elif edge:
+        gx[..., :1, :] += g[..., :above, :].sum(-2, keepdim=True)
     return gx
 
 
 class _HaloExchange(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, above, below, group):
-        ctx.halo = (above, below, group)
-        return _exchange(x, above, below, group)
+    def forward(ctx, x, above, below, group, edge):
+        ctx.halo = (above, below, group, edge)
+        return _exchange(x, above, below, group, edge)
 
     @staticmethod
     def backward(ctx, g):
-        return _exchange_grad(g.contiguous(), *ctx.halo), None, None, None
+        return _exchange_grad(g.contiguous(), *ctx.halo), None, None, None, None
 
 
-def halo_exchange(x: torch.Tensor, rows_above: int, rows_below: int, group) -> torch.Tensor:
+def halo_exchange(x: torch.Tensor, rows_above: int, rows_below: int, group,
+                  edge: bool = False) -> torch.Tensor:
     """``x`` (``(..., h, w)``, this rank's rows) with ``rows_above`` rows of
     the previous rank of ``group`` on top and ``rows_below`` rows of the
-    next one underneath; zeros at the ends of the frame.  The backward pass
-    sends each halo's gradient back to the rank that lent the rows and adds
-    it to them.  ``group=None`` is a group of one rank: zero padding."""
+    next one underneath; at the ends of the frame zeros, or with ``edge``
+    the frame's edge row repeated.  The backward pass sends each halo's
+    gradient back to the rank that lent the rows and adds it to them.
+    ``group=None`` is a group of one rank."""
     if group is None or dist.get_world_size(group) == 1:
-        return F.pad(x, (0, 0, rows_above, rows_below))
-    return _HaloExchange.apply(x.contiguous(), rows_above, rows_below, group)
+        n = x.shape[-2]
+        return torch.cat([_border(x, rows_above, 0, edge), x,
+                          _border(x, rows_below, n - 1, edge)], -2)
+    return _HaloExchange.apply(x.contiguous(), rows_above, rows_below, group, edge)
 
 
 class _GroupSum(torch.autograd.Function):
@@ -149,6 +174,29 @@ class _GroupSum(torch.autograd.Function):
         g = g.clone()
         dist.all_reduce(g, group=ctx.group)
         return g, None
+
+
+class _Gather(torch.autograd.Function):
+    """Every rank's rows into the full-height tensor on every rank; the
+    gradient of the full tensor is summed over the group and each rank
+    keeps its own rows of it."""
+
+    @staticmethod
+    def forward(ctx, x, plan, dim):
+        rows = x.shape[dim]
+        ctx.group, ctx.dim, ctx.rows = plan.group, dim, rows
+        ctx.start = plan.first_row(rows)
+        shape = list(x.shape)
+        shape[dim] = plan.frame_rows(rows)
+        full = x.new_zeros(shape)
+        full.narrow(dim, ctx.start, rows).copy_(x)
+        return _sum_bytes(full, plan.group)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g.narrow(ctx.dim, ctx.start, ctx.rows), None, None
 
 
 class SpatialPlan:
@@ -175,41 +223,68 @@ class SpatialPlan:
     def local_rows(self) -> int:
         return self.stop - self.start
 
-    @property
-    def row_fraction(self) -> float:
-        return self.local_rows / self.height
-
     def shard(self, x: torch.Tensor, dim: int = -2) -> torch.Tensor:
         """This rank's rows of a full-height ``x``."""
         return x.narrow(dim, self.start, self.local_rows)
 
     def gather(self, x: torch.Tensor, dim: int = -2) -> torch.Tensor:
-        """The full-height tensor from every rank's rows ``x``, on every rank."""
-        dim = dim % x.dim()
-        shape = list(x.shape)
-        shape[dim] = self.height
-        full = x.new_zeros(shape)
-        full.narrow(dim, self.start, self.local_rows).copy_(x)
-        return _sum_bytes(full, self.group) if self.size > 1 else full
+        """The full-height tensor from every rank's rows ``x`` (at any scale
+        of the frame), on every rank; differentiable (:class:`_Gather`)."""
+        if self.size == 1:
+            return x
+        return _Gather.apply(x.contiguous(), self, dim % x.dim())
 
-    def exchange(self, x: torch.Tensor, above: int, below: int) -> torch.Tensor:
+    def exchange(self, x: torch.Tensor, above: int, below: int,
+                 edge: bool = False) -> torch.Tensor:
+        """:func:`halo_exchange` over the group, counted."""
         strip = x[..., :1, :].numel() * x.element_size()
         self.exchanges += 1
         self.exchange_bytes += (above + below) * strip
         self.allreduce_bytes += self.size * (above + below) * strip
-        return halo_exchange(x, above, below, self.group)
+        return halo_exchange(x, above, below, self.group, edge)
+
+    def exchange_nhwc(self, x: torch.Tensor, above: int, below: int) -> torch.Tensor:
+        """:meth:`exchange` of an NHWC ``(n, h, w, c)`` tensor's rows (an
+        int8 site's quantized input): zeros at the frame's border."""
+        n, h, w, c = x.shape
+        return self.exchange(x.reshape(n, h, w * c), above, below).view(
+            n, h + above + below, w, c)
+
+    def group_max(self, x: torch.Tensor) -> torch.Tensor:
+        """The max over the group of every rank's ``(1,)`` ``x``, through
+        the byte ``all_reduce`` of one slot a rank (exact)."""
+        if self.size == 1:
+            return x
+        buf = x.new_zeros((self.size,) + tuple(x.shape))
+        buf[self.index] = x
+        self.reductions += 1
+        self.allreduce_bytes += buf.numel() * buf.element_size()
+        return _sum_bytes(buf, self.group).amax(0)
+
+    def total(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum of ``x`` over the group (autograd: the gradient is the sum
+        of the ranks' gradients)."""
+        if self.size == 1:
+            return x
+        self.reductions += 1
+        return _GroupSum.apply(x, self.group)
+
+    def frame_rows(self, h: int) -> int:
+        """The frame's rows at the scale where this rank holds ``h``."""
+        if (self.height * h) % self.local_rows:
+            raise ValueError(f"{h} local rows are not a scale of {self.local_rows}")
+        return self.height * h // self.local_rows
+
+    def first_row(self, h: int) -> int:
+        """This rank's first row at the scale where it holds ``h``."""
+        return self.start * h // self.local_rows
 
     def mean(self, x: torch.Tensor) -> torch.Tensor:
         """The global mean over the last two axes of a row-sharded ``x``,
-        keeping them as ones (``AdaptiveAvgPool2d(1)`` of the whole frame)."""
-        h = x.shape[-2]
-        if (self.height * h) % self.local_rows:
-            raise ValueError(f"{h} local rows are not a scale of {self.local_rows}")
-        count = self.height * h // self.local_rows * x.shape[-1]
-        s = x.float().sum((-2, -1), keepdim=True)
-        if self.size > 1:
-            self.reductions += 1
-            s = _GroupSum.apply(s, self.group)
+        keeping them as ones (``AdaptiveAvgPool2d(1)`` of the whole frame),
+        in float32 cast back to ``x``'s dtype."""
+        count = self.frame_rows(x.shape[-2]) * x.shape[-1]
+        s = self.total(x.float().sum((-2, -1), keepdim=True))
         return (s / count).to(x.dtype)
 
     def check_rows(self, h: int) -> None:
@@ -234,21 +309,29 @@ def spatial_scope(plan: Optional[SpatialPlan]):
         _ACTIVE = saved
 
 
+def halo_conv2d(x, weight, bias=None, stride=(1, 1), padding=(0, 0), groups: int = 1):
+    """``F.conv2d`` (undilated, zero padding) that, under an active plan,
+    borrows its height padding from the neighbouring shards (``padding``
+    rows above, ``kernel - stride - padding`` below) and pads only the
+    width itself."""
+    stride, padding = _pair(stride), _pair(padding)
+    kh = weight.shape[2]
+    if _ACTIVE is None or kh == 1:
+        return F.conv2d(x, weight, bias, stride, padding, 1, groups)
+    x = _ACTIVE.exchange(x, padding[0], kh - stride[0] - padding[0])
+    return F.conv2d(x, weight, bias, stride, (0, padding[1]), 1, groups)
+
+
 class HaloConv2d(nn.Conv2d):
-    """``nn.Conv2d`` that, under an active plan, borrows its height padding
-    from the neighbouring shards (``padding`` rows above, ``kernel - stride -
-    padding`` below) and pads only the width itself."""
+    """``nn.Conv2d`` whose height padding, under an active plan, comes from
+    the neighbouring shards (:func:`halo_conv2d`)."""
 
     def forward(self, x):
-        plan, kh = _ACTIVE, self.kernel_size[0]
-        if plan is None or kh == 1:
+        if _ACTIVE is None or self.kernel_size[0] == 1:
             return super().forward(x)
         if self.dilation != (1, 1) or self.padding_mode != "zeros":
             raise ValueError("spatial sharding takes undilated zero-padded convs")
-        sh, ph = self.stride[0], self.padding[0]
-        x = plan.exchange(x, ph, kh - sh - ph)
-        return F.conv2d(x, self.weight, self.bias, self.stride, (0, self.padding[1]),
-                        self.dilation, self.groups)
+        return halo_conv2d(x, self.weight, self.bias, self.stride, self.padding, self.groups)
 
 
 class SpatialAvgPool(nn.AdaptiveAvgPool2d):

@@ -25,8 +25,11 @@ voxelizes the whole frame (K1 takes ~0.07 ms at 720p on the card), keeps
 its rows of the packed input, runs them through the network with the halo
 exchanges of ``parallel/spatial.py``, and gathers the full ``(t, h, w, 3)``
 output on every rank.  Every rank makes the same call with the same
-request.  It serves the flagship lineage in float; int8 with a mesh
-raises.
+request.  Every lineage and every int8 mode serves so: an int8 site
+quantizes with the group's amax and exchanges int8 halo rows
+(``serve/quant.py``), and :meth:`BlurVFIPipeline.calibrate` records the
+whole frame's amax and rms on every rank, so ``"static"`` scales are equal
+across the group.
 """
 
 from __future__ import annotations
@@ -44,8 +47,7 @@ from refid_tpu_torch.events.voxel import (
 )
 from refid_tpu_torch.models.convert import load_state
 from refid_tpu_torch.models.refid import (
-    INT8_NEEDS, SPATIAL_NEEDS, FinalBidirectionAttenfusion, RefidConfig, int8_applicable,
-    spatial_applicable,
+    INT8_NEEDS, FinalBidirectionAttenfusion, RefidConfig, int8_applicable,
 )
 from refid_tpu_torch.parallel.spatial import SpatialPlan, spatial_scope
 from refid_tpu_torch.serve.quant import (
@@ -88,9 +90,6 @@ class BlurVFIPipeline:
                              f"got {int8!r}")
         if int8 and not int8_applicable(cfg):
             raise ValueError(f"int8 serving needs {INT8_NEEDS}")
-        if mesh is not None and mesh.spatial > 1 and (int8 or not spatial_applicable(cfg)):
-            raise ValueError(f"spatial serving (mesh=) needs {SPATIAL_NEEDS}; int8 "
-                             "needs halos in the int8 conv and a max-reduce of the amax")
         self.mesh = mesh
         self.last_plan = None
         self.int8 = int8
@@ -147,7 +146,7 @@ class BlurVFIPipeline:
         pairs = torch.stack([vox[:-1], vox[1:]], 1)[None]     # (1, t, 2, h, w)
         if self.mesh is None or self.mesh.spatial == 1:
             return self.model(lq, pairs, q)[0].permute(0, 2, 3, 1)
-        plan = self.last_plan = SpatialPlan(self.mesh, h, 2 ** self.cfg.num_encoders)
+        plan = self.last_plan = SpatialPlan(self.mesh, h, self.model.row_block)
         with spatial_scope(plan):
             out = self.model(plan.shard(lq), plan.shard(pairs), q)[0]
         return plan.gather(out).permute(0, 2, 3, 1)

@@ -25,6 +25,17 @@ layouts.
 EVHINet serves in int8 too (``models/evhinet.py``: 25 sites, modes True,
 ``"calib"`` and ``"static"``), where its ``evhinet_int8_applicable`` holds.
 
+On row shards (an active ``parallel/spatial.py`` plan) a site is the whole
+frame's site: a dynamic scale comes from the group's amax (each rank's amax
+by :func:`amax_int8`, the max over the group by ``SpatialPlan.group_max``,
+then the quantization reads it from device memory), calibration reduces the
+amax by max and the rms by a sum of squares, and a conv taller than one row
+exchanges the halo rows of the quantized NHWC int8 tensor (1 byte an
+element; a zero row past the frame's border is the conv's own zero padding,
+since the quantization is symmetric) and runs with row padding 0 and its
+column padding.  The integer sums and the scales are the whole frame's, so
+a sharded site computes the whole site's rows bit for bit.
+
 The per-call quant state :class:`QuantState` carries the mode, as the JAX
 package's ``cache`` dict does: ``int8`` True (dynamic scales), ``"scale0"``
 (True plus the scale-0 encoder trunks), ``"static"`` (calibrated scales for
@@ -40,11 +51,15 @@ from typing import Dict, Optional, Sequence, Tuple, Union
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.nn.modules.utils import _pair
+
+from refid_tpu_torch.parallel import spatial
 
 __all__ = ["K_DEPTH", "PRODUCTION_SHAPE_DB", "PRODUCTION_DB_GATE", "PRODUCTION_DB_CARD",
            "EVHINET_PRODUCTION_SHAPE_DB", "INT8_MODES",
            "int8_quality_gated", "padded_channels", "quantize_kernel", "pack_kernel",
            "quantize_act", "static_scale", "quantize_int8", "quantize_int8_reference",
+           "amax_int8",
            "conv_int8_packed", "conv_int8_reference", "conv_int8", "WeightCache",
            "QuantState", "calibration_stats"]
 
@@ -127,38 +142,52 @@ def static_scale(amax: float) -> float:
     return max(float(amax), 1e-12) / 127.0
 
 
-def quantize_act(x: torch.Tensor, scale: Optional[float] = None
-                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+def quantize_act(x: torch.Tensor, scale: Optional[float] = None,
+                 amax: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-tensor quantization -> (int8 ``x``, 0-d float32 scale on ``x``'s
-    device).  ``scale`` None: dynamic, from the tensor's amax."""
+    device).  ``scale`` None: dynamic, from the tensor's amax, or from
+    ``amax`` (a ``(1,)`` float32 on the device: the group's) where given."""
     xf = x.detach().float()
     if scale is None:
-        s = torch.clamp_min(xf.abs().amax(), 1e-12) / _scalar(xf, 127.0)
+        a = xf.abs().amax() if amax is None else amax.reshape(())
+        s = torch.clamp_min(a, 1e-12) / _scalar(xf, 127.0)
     else:
         s = _scalar(xf, scale)
     return torch.clamp(torch.round(xf / s), -127, 127).to(torch.int8), s
 
 
-def quantize_int8_reference(x: torch.Tensor, scale: Optional[float] = None
+def amax_int8(x: torch.Tensor) -> torch.Tensor:
+    """``max |x|`` as a ``(1,)`` float32 on ``x``'s device: the amax pass of
+    the ``quantize_int8`` kernel on a CUDA tensor, its plain version on the
+    CPU."""
+    if x.device.type == "cuda":
+        from refid_tpu_torch.ops.int8_cuda import amax_int8_cuda
+        return amax_int8_cuda(x.contiguous())
+    return x.detach().float().abs().amax().reshape(1)
+
+
+def quantize_int8_reference(x: torch.Tensor, scale: Optional[float] = None,
+                            amax: Optional[torch.Tensor] = None
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of the ``quantize_int8`` kernel: NCHW ``x`` -> (int8
     ``(n, h, w, c padded)``, ``(1,)`` float32 scale)."""
-    xq, s = quantize_act(x, scale)
+    xq, s = quantize_act(x, scale, amax)
     n, c, h, w = x.shape
     out = xq.new_zeros((n, h, w, padded_channels(c)))
     out[..., :c] = xq.permute(0, 2, 3, 1)
     return out, s.reshape(1)
 
 
-def quantize_int8(x: torch.Tensor, scale: Optional[float] = None
-                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+def quantize_int8(x: torch.Tensor, scale: Optional[float] = None,
+                  amax: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """NCHW float32 / bf16 -> (NHWC int8 with padded channels, ``(1,)``
     float32 scale on the device): the CUDA kernel on a CUDA tensor, the plain
-    version on the CPU."""
+    version on the CPU.  ``scale`` None is dynamic: from ``x``'s own amax, or
+    from ``amax`` (``(1,)`` float32 on the device) where given."""
     if x.device.type == "cuda":
         from refid_tpu_torch.ops.int8_cuda import quantize_int8_cuda
-        return quantize_int8_cuda(x, scale)
-    return quantize_int8_reference(x, scale)
+        return quantize_int8_cuda(x, scale, amax)
+    return quantize_int8_reference(x, scale, amax)
 
 
 def _epilogue(acc, wscale, xscale, bias, slope, relu, out_dtype):
@@ -177,11 +206,12 @@ def conv_int8_reference(xq, wp, wscale, xscale, bias=None, stride=1, padding=0,
     """Plain version of the ``conv_int8`` kernel, on its layouts: ``xq``
     ``(n, h, w, cp)`` int8, ``wp`` ``(co, kh, kw, cp)`` int8, ``wscale``
     ``(co,)`` and ``xscale`` ``(1,)`` float32, ``bias`` ``(co,)`` or None ->
-    ``(n, co, ho, wo)`` in ``out_dtype``.  The integer sums are a float64
-    conv rounded back to int32: exact, since ``|sum| < 127^2 K < 2^53``."""
+    ``(n, co, ho, wo)`` in ``out_dtype``; ``padding`` one int or ``(rows,
+    columns)``.  The integer sums are a float64 conv rounded back to int32:
+    exact, since ``|sum| < 127^2 K < 2^53``."""
     with torch.autocast(xq.device.type, enabled=False):
         acc = F.conv2d(xq.permute(0, 3, 1, 2).double(), wp.permute(0, 3, 1, 2).double(),
-                       stride=stride, padding=padding)
+                       stride=stride, padding=_pair(padding))
         acc = torch.round(acc).to(torch.int32)
         return _epilogue(acc, wscale, xscale, bias, slope, relu, out_dtype)
 
@@ -232,7 +262,7 @@ def _output_dtype(x: torch.Tensor, out_dtype):
 
 def _exact(p, x, stride, padding, slope, relu):
     weight, bias = _params(p)
-    y = F.conv2d(x, weight, bias, stride=stride, padding=padding)
+    y = spatial.halo_conv2d(x, weight, bias, stride, padding)
     if relu:
         return F.relu(y)
     return F.leaky_relu(y, slope) if slope is not None else y
@@ -245,15 +275,25 @@ def conv_int8(p, x, stride=1, padding=0, slope=None, relu=False, out_dtype=None,
     ``q`` resolves the site (dynamic when None); a calibrated or excluded
     site runs ``exact(x)`` (default: the float conv and its activation, the
     int8-off path).  ``out_dtype`` defaults to the autocast dtype where
-    autocast is on, else float32: the dtype of the conv it replaces."""
+    autocast is on, else float32: the dtype of the conv it replaces.  Under
+    an active spatial plan ``x`` is this rank's rows (module docstring)."""
     mode, xscale = ("dynamic", None) if q is None else q.resolve(x)
     if mode == "exact":
         return exact(x) if exact is not None else _exact(p, x, stride, padding, slope, relu)
     weight, bias = _params(p)
     cache = q.weights if q is not None else WeightCache()
     wp, wscale, b = cache.packed(weight, bias)
-    xq, s = quantize_int8(x.contiguous(), xscale)
-    return conv_int8_packed(xq, wp, wscale, s, b, stride, padding, slope, relu,
+    plan = spatial.active()
+    amax = None
+    if plan is not None and xscale is None:
+        amax = plan.group_max(amax_int8(x))
+    xq, s = quantize_int8(x.contiguous(), xscale, amax)
+    pad = _pair(padding)
+    kh = weight.shape[2]
+    if plan is not None and kh > 1:
+        xq = plan.exchange_nhwc(xq, pad[0], kh - stride - pad[0])
+        pad = (0, pad[1])
+    return conv_int8_packed(xq, wp, wscale, s, b, stride, pad, slope, relu,
                             _output_dtype(x, out_dtype))
 
 
@@ -293,8 +333,14 @@ class QuantState:
         self.sites += 1
         if self.int8 == "calib":
             xf = x.detach().float()
-            self.calib_amax.append(xf.abs().amax())
-            self.calib_rms.append(torch.sqrt(torch.mean(xf * xf)))
+            plan = spatial.active()
+            if plan is None:
+                self.calib_amax.append(xf.abs().amax())
+                self.calib_rms.append(torch.sqrt(torch.mean(xf * xf)))
+            else:       # the whole frame's: max of the amaxes, sum of the squares
+                count = xf.numel() // xf.shape[-2] * plan.frame_rows(xf.shape[-2])
+                self.calib_amax.append(plan.group_max(xf.abs().amax().reshape(1))[0])
+                self.calib_rms.append(torch.sqrt(plan.total((xf * xf).sum()) / count))
             return "exact", None
         if self.int8 == "static":
             if i >= len(self.amax):

@@ -30,10 +30,13 @@ spatial)`` with ``spatial = opt['mesh']['spatial']`` (default 1), as the JAX
 task does (``refid_tpu/tasks/base.py``); :meth:`setup_train_state`
 broadcasts the state from rank 0, and only rank 0 saves checkpoints.  With
 ``spatial > 1`` each training batch is cut to the rank's rows
-(``parallel.mesh.shard_batch``) and the step runs under a spatial plan;
-that needs the flagship FinalBidirectionAttenfusion in float with a mean
-loss (others raise ``ValueError``).  Prediction and validation run whole
-frames on every rank.
+(``parallel.mesh.shard_batch``) and the step runs under a spatial plan, for
+every network, loss and int8 mode; so does every prediction (validation,
+the test and demo CLIs, each tile of a tiled evaluation): the ranks of a
+spatial group make the same call, each runs its rows of the frame, and the
+output is gathered on every rank.  A frame (or tile) whose rows leave a
+shard fewer than two rows at the network's deepest scale raises
+``ValueError``.
 """
 
 from __future__ import annotations
@@ -50,9 +53,8 @@ from refid_tpu_torch.core.registry import ARCHS, MODELS
 from refid_tpu_torch.eval import metrics as metric_module
 from refid_tpu_torch.models import archs as _archs  # noqa: F401 (registers archs)
 from refid_tpu_torch.models.convert import known_unused_keys, load_state
-from refid_tpu_torch.models.refid import SPATIAL_NEEDS, spatial_applicable
 from refid_tpu_torch.parallel.mesh import make_mesh, rank, replicate, shard_batch
-from refid_tpu_torch.parallel.spatial import SpatialPlan
+from refid_tpu_torch.parallel.spatial import SpatialPlan, spatial_scope
 from refid_tpu_torch.serve.quant import QuantState, WeightCache
 from refid_tpu_torch.train.losses import build_loss
 from refid_tpu_torch.train.trainer import Trainer
@@ -61,7 +63,6 @@ __all__ = ["RestorationTaskBase", "build_task", "to_nchw", "compute_metric"]
 
 _DEFAULT_LOSS = {"type": "CharbonnierLoss", "loss_weight": 1.0,
                  "reduction": "mean"}
-_MEAN_LOSSES = ("CharbonnierLoss", "L1Loss", "MSELoss")   # a row-weighted sum of shard means
 _SPATIAL_AXES = {4: 1, 5: 2}      # the height axis of NHWC / NTHWC batch arrays
 
 
@@ -101,8 +102,6 @@ class RestorationTaskBase:
                              "(val.folded_predict: false given)")
         self._int8_weights = WeightCache()
         self.mesh = mesh or make_mesh(data=-1, spatial=(opt.get("mesh") or {}).get("spatial", 1))
-        if self.mesh.spatial > 1:
-            self._check_spatial(opt)
         self.trainer: Optional[Trainer] = None
         self.start_iter = 0
         self.start_epoch = 0
@@ -120,22 +119,6 @@ class RestorationTaskBase:
 
     def _build_net(self):
         return ARCHS.get(self.opt["network_g"]["type"])(self.opt["network_g"])
-
-    def _check_spatial(self, opt: dict):
-        """The configurations that train on row shards (``ValueError``
-        otherwise): the flagship in float, with a mean loss."""
-        net_type = opt["network_g"]["type"]
-        if net_type != "FinalBidirectionAttenfusion" or not spatial_applicable(
-                getattr(self.net, "cfg", None)):
-            raise ValueError(f"mesh.spatial > 1 needs {SPATIAL_NEEDS}; got network_g.type "
-                             f"{net_type!r}")
-        if self.int8:
-            raise ValueError("mesh.spatial > 1 serves in float: val.int8 needs halos in "
-                             "the int8 conv and a max-reduce of the dynamic amax")
-        pixel = (opt.get("train") or {}).get("pixel_opt", _DEFAULT_LOSS)
-        if pixel["type"] not in _MEAN_LOSSES or pixel.get("reduction", "mean") != "mean":
-            raise ValueError(f"mesh.spatial > 1 needs a mean loss ({_MEAN_LOSSES}); got "
-                             f"{pixel}")
 
     # --- parameter lifecycle -------------------------------------------------
 
@@ -208,9 +191,9 @@ class RestorationTaskBase:
         arrays = {k: v for k, v in batch.items() if isinstance(v, np.ndarray)}
         plan = None
         if self.mesh.spatial > 1:
-            plan = SpatialPlan(self.mesh, arrays["lq"].shape[1],
-                               2 ** self.net.cfg.num_encoders)
-            arrays = shard_batch(arrays, self.mesh, _SPATIAL_AXES, 2 ** self.net.cfg.num_encoders)
+            block = self.net.row_block
+            plan = SpatialPlan(self.mesh, arrays["lq"].shape[1], block)
+            arrays = shard_batch(arrays, self.mesh, _SPATIAL_AXES, block)
         arrays = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in arrays.items()}
         if self.device.type != "cuda":
             out = {k: to_nchw(v.to(self.device)) for k, v in arrays.items()}
@@ -261,22 +244,30 @@ class RestorationTaskBase:
         ``torch.inference_mode`` (the options' compute dtype), the training
         mode restored afterwards.  ``use_ema`` runs the trainer's EMA weights
         when it keeps them; ``val.int8`` the int8 forward, where the frame's
-        sides are multiples of the network's ``int8_side``."""
+        sides are multiples of the network's ``int8_side``.  With
+        ``mesh.spatial > 1`` each rank of the spatial group runs its rows of
+        the frame and every rank returns the whole output."""
         lq_t, vox_t = (to_nchw(torch.from_numpy(np.ascontiguousarray(a, np.float32))
                                .to(self.device)) for a in (lq, voxel))
         q = None
         k = self.net.int8_side
         if self.int8 and lq_t.shape[-2] % k == 0 and lq_t.shape[-1] % k == 0:
             q = QuantState(self.int8, self._int8_weights)
+        plan = None
+        if self.mesh.spatial > 1:
+            plan = SpatialPlan(self.mesh, lq_t.shape[-2], self.net.row_block)
+            lq_t, vox_t = plan.shard(lq_t), plan.shard(vox_t)
         tr = self.trainer
         training = self.net.training
         self.net.eval()
         try:
-            with torch.inference_mode():
+            with torch.inference_mode(), spatial_scope(plan):
                 if use_ema and tr is not None and tr.ema is not None:
                     out = torch.func.functional_call(self.net, tr.ema, (lq_t, vox_t, q))
                 else:
                     out = self.net(lq_t, vox_t, q)
+                if plan is not None:
+                    out = plan.gather(out)
         finally:
             self.net.train(training)
         return out.movedim(-3, -1)

@@ -99,12 +99,14 @@ class ImageEventRestorationTask(RestorationTaskBase):
         return results
 
     def single_image_inference(self, img: np.ndarray, voxel: np.ndarray,
-                               save_path: str) -> torch.Tensor:
+                               save_path: Optional[str]) -> torch.Tensor:
         """Restore ``img`` ``(h, w, 3)`` with ``voxel`` ``(h, w, bins)``
         (tiled when ``val.crop_size`` is set) and write the PNG to
-        ``save_path``; returns the ``(h, w, 3)`` prediction."""
+        ``save_path`` (None: no file); returns the ``(h, w, 3)``
+        prediction."""
         pred = self._predict_item(img, voxel)
-        imwrite(tensor2img(pred), save_path)
+        if save_path is not None:
+            imwrite(tensor2img(pred), save_path)
         return pred
 
 

@@ -1,9 +1,14 @@
 """Training losses (mirrors ``refid_tpu/train/losses.py``).
 
 All losses take (pred, target[, weight]) and support 'none' | 'mean' |
-'sum' reduction.  The spatial losses take NCHW tensors (the JAX package's
-take NHWC): ``psnr_loss`` projects to luma over dim 1, ``weighted_tv_loss``
-differences over dims 2 and 3, ``srn_loss`` resizes over the last two.
+'sum' reduction.  The spatial losses take channels-first tensors (the JAX
+package's take NHWC): ``psnr_loss`` projects to luma over dim 1,
+``weighted_tv_loss`` differences over the axes that the JAX loss's axes 1
+and 2 are in NHWC (height and width of an image, time and height of a
+``(b, t, c, h, w)`` stack), ``srn_loss`` resizes over the last two.
+
+A loss always sees whole frames: on row shards the Trainer gathers the
+prediction and the target first (``train/trainer.py::sharded_loss``).
 """
 
 from __future__ import annotations
@@ -61,8 +66,16 @@ def psnr_loss(pred, target, loss_weight=1.0, toY=False):
 
 
 def srn_loss(preds, target, loss_weight=1.0):
-    """3-scale MSE pyramid: ``preds`` at 1/4, 1/2 and full resolution; the
-    target is resized with an antialiased bilinear filter."""
+    """3-scale MSE pyramid: ``preds`` a sequence of the predictions at 1/4,
+    1/2 and full resolution; the target ``(b, c, h, w)`` is resized with an
+    antialiased bilinear filter.  As the JAX loss, it raises ``ValueError``
+    for a target of another rank or a single prediction tensor (no network
+    of either package returns the pyramid)."""
+    if target.dim() != 4:
+        raise ValueError(f"srn_loss takes a 4-D target, got {tuple(target.shape)}")
+    if isinstance(preds, torch.Tensor) or len(preds) != 3:
+        raise ValueError("srn_loss takes the three predictions (1/4, 1/2, full), "
+                        f"got {type(preds).__name__}")
     h, w = target.shape[-2:]
     gt2 = F.interpolate(target, (h // 2, w // 2), mode="bilinear",
                         align_corners=False, antialias=True)
@@ -72,15 +85,23 @@ def srn_loss(preds, target, loss_weight=1.0):
                           + mse_loss(preds[2], target))
 
 
+def _tv_axis(ndim: int, axis: int) -> int:
+    """The channels-first axis of the JAX loss's NHWC ``axis``: the axes
+    before the image stay, height and width move past the channels."""
+    return axis if axis < ndim - 3 else axis + 1
+
+
 def weighted_tv_loss(pred, weight=None, loss_weight=1.0):
-    """Total-variation loss with optional elementwise weights; NCHW."""
-    yw = weight[:, :, :-1, :] if weight is not None else None
-    xw = weight[:, :, :, :-1] if weight is not None else None
-    y_diff = l1_loss(pred[:, :, :-1, :], pred[:, :, 1:, :], weight=yw,
-                     loss_weight=loss_weight)
-    x_diff = l1_loss(pred[:, :, :, :-1], pred[:, :, :, 1:], weight=xw,
-                     loss_weight=loss_weight)
-    return x_diff + y_diff
+    """Total-variation loss with optional elementwise weights, differencing
+    the axes of the JAX loss's NHWC axes 1 and 2; channels-first."""
+    nd = pred.dim()
+    terms = []
+    for axis in (_tv_axis(nd, 2), _tv_axis(nd, 1)):     # the JAX loss's x, then y
+        n = pred.shape[axis] - 1
+        w = None if weight is None else weight.narrow(axis, 0, n)
+        terms.append(l1_loss(pred.narrow(axis, 0, n), pred.narrow(axis, 1, n), weight=w,
+                             loss_weight=loss_weight))
+    return terms[0] + terms[1]
 
 
 _LOSSES = {

@@ -15,11 +15,13 @@ modules and any ``conv_offset``), which for these optimisers equals scaling
 their group's learning rate.
 
 On a ``(data, spatial)`` mesh (``parallel/mesh.py``) the step is the
-single-process step on the global batch: each rank's loss is its rows'
-mean weighted by its share of the frame's rows, the gradients are summed
-over the world and divided by the data axis (a sum over the spatial ranks,
-a mean over the data ranks), and the clip, the update and the EMA then run
-on the reduced gradient, the same on every rank.  The reduction is one
+single-process step on the global batch: under the step's spatial plan each
+rank gathers the prediction and the target of the whole frame and takes
+the unchanged loss of it divided by the group's size (:func:`sharded_loss`),
+the gradients are summed over the world and divided by the data axis (a sum
+over the spatial ranks, a mean over the data ranks), and the clip, the
+update and the EMA then run on the reduced gradient, the same on every
+rank.  The reduction is one
 ``all_reduce`` of a flat buffer per dtype after the backward pass, not
 DDP: the zero gradient of a parameter the loss never reaches is filled
 before it (DDP would need ``find_unused_parameters`` and a traversal of the
@@ -41,7 +43,7 @@ from refid_tpu_torch.parallel.mesh import all_reduce_mean
 from refid_tpu_torch.parallel.spatial import spatial_scope
 from refid_tpu_torch.train.schedules import build_schedule
 
-__all__ = ["build_optimizer", "Trainer"]
+__all__ = ["build_optimizer", "sharded_loss", "Trainer"]
 
 
 def _is_dcn(name: str) -> bool:
@@ -78,6 +80,17 @@ def build_optimizer(train_opt: dict, total_iter: int,
     else:
         raise ValueError(f"unknown optimizer {typ!r}")
     return opt, schedule
+
+
+def sharded_loss(loss_fn: Callable, pred, gt, plan=None):
+    """``loss_fn(pred, gt)``, or on row shards (``plan`` a
+    ``parallel.spatial.SpatialPlan``) the loss of the gathered whole frames
+    divided by the group's size: the ranks' losses sum to the frame's, and
+    the gather's backward hands each rank the whole loss's gradient of its
+    own rows.  Any loss of whole frames thus runs unchanged."""
+    if plan is None:
+        return loss_fn(pred, gt)
+    return loss_fn(plan.gather(pred), plan.gather(gt)) / plan.size
 
 
 class Trainer:
@@ -126,9 +139,7 @@ class Trainer:
         self.model.train()
         self.optimizer.zero_grad(set_to_none=True)
         with spatial_scope(plan):       # the backward pass recomputes under remat
-            loss = self.loss_fn(self.model(lq, voxel), gt)
-            if plan is not None:
-                loss = loss * plan.row_fraction
+            loss = sharded_loss(self.loss_fn, self.model(lq, voxel), gt, plan)
             loss.backward()
         for p in self.params:
             if p.grad is None:

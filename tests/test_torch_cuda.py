@@ -2,7 +2,8 @@
 
 A CUDA kernel has no CPU mode, so these tests carry the ``gpu`` marker and
 skip without a CUDA device.  On the GPU machine:
-``python -m pytest tests/test_torch_cuda.py -m gpu``.
+``python -m pytest tests/test_torch_cuda.py -m gpu --noconftest`` (the
+suite's conftest sets up JAX, which these tests do not use).
 """
 
 import math
@@ -513,3 +514,88 @@ def test_int8_pipeline_on_the_card_matches_the_cpu(cuda, mode):
     finally:
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
     assert parity_db(want, got) >= parity_db(exact, got) + 10.0
+
+
+# --- row shards (parallel/spatial.py): C8 with its own row padding, Q8 on a
+# device amax ---------------------------------------------------------------
+
+def _shard_sites():
+    """(name, cin, cout, input rows, w, k, stride): the 360-row half of a 720p
+    frame at every production int8 site of blurry VFI (chip_smoke.py's
+    INT8_CONV_SHAPES, the rows at the site's input scale) and of EVHINet
+    (EVHINET_INT8_SHAPES), each with its halo rows (padding above, k -
+    stride - padding below) in the tensor."""
+    from chip_smoke import INT8_CONV_SHAPES
+    sites = []
+    for name, (cin, cout, h, w, k, stride) in INT8_CONV_SHAPES.items():
+        sites.append((name, cin, cout, h * stride // 2 + k - stride, w * stride, k, stride))
+    for i, (cin, cout, h, w, k) in enumerate(EVHINET_INT8_SHAPES):
+        sites.append((f"evhinet{i}", cin, cout, h // 2 + k - 1, w, k, 1))
+    return sites
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("name,cin,cout,h,w,k,stride", _shard_sites(),
+                         ids=[s[0] for s in _shard_sites()])
+def test_conv_int8_kernel_row_padding_at_shard_shapes(cuda, name, cin, cout, h, w, k, stride,
+                                                      out_dtype):
+    """A shard's site: the halo rows in the tensor, row padding 0, column
+    padding k // 2 (1 for the 4x4/2), bit for bit against the plain version."""
+    from refid_tpu_torch.ops import int8_cuda
+    from refid_tpu_torch.serve import quant
+    x = _act(13, 1, cin, h, w, dtype=torch.bfloat16).to(cuda)
+    weight = _randn(14, cout, cin, k, k, scale=1 / math.sqrt(cin * k * k)).to(cuda)
+    bias = _randn(15, cout, scale=0.1).to(cuda)
+    wp, wscale, b = quant.WeightCache().packed(weight, bias)
+    xq, s = quant.quantize_int8(x)
+    args = (xq, wp, wscale, s, b, stride, (0, 1 if k == 4 else k // 2), 0.1, False, out_dtype)
+    before = int8_cuda.CONV_LAUNCHES
+    got = quant.conv_int8_packed(*args)
+    torch.cuda.synchronize()
+    assert int8_cuda.CONV_LAUNCHES == before + 1
+    assert got.shape[2] == (h - k) // stride + 1
+    assert torch.equal(got, quant.conv_int8_reference(*args))
+
+
+@pytest.mark.parametrize("padding", [(0, 1), (1, 0), (2, 1), (0, 2)])
+@pytest.mark.parametrize("n,cin,cout,h,w,k,stride", [(1, 24, 16, 9, 13, 3, 1),
+                                                     (2, 40, 136, 12, 20, 4, 2),
+                                                     (1, 64, 64, 10, 40, 5, 1),
+                                                     (1, 96, 32, 11, 19, 3, 1)])
+def test_conv_int8_kernel_row_and_column_padding_apart(cuda, n, cin, cout, h, w, k, stride,
+                                                       padding):
+    from refid_tpu_torch.serve import quant
+    x = _act(16, n, cin, h, w, dtype=torch.bfloat16).to(cuda)
+    weight = _randn(17, cout, cin, k, k, scale=1 / math.sqrt(cin * k * k)).to(cuda)
+    wp, wscale, b = quant.WeightCache().packed(weight, None)
+    xq, s = quant.quantize_int8(x)
+    args = (xq, wp, wscale, s, b, stride, padding, None, False, torch.float32)
+    got = quant.conv_int8_packed(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, quant.conv_int8_reference(*args))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", [(1, 24, 17, 19), (1, 256, 45, 80), (1, 64, 362, 1280)]
+                         + QUANTIZE_INT8_EDGES)
+def test_quantize_int8_device_amax_matches_plain(cuda, shape, dtype):
+    """Q8's device-amax mode (a shard quantized with the group's amax, here
+    a larger one than its own, and its own) against the plain version; the
+    amax pass alone against ``max |x|``.  The amax in device memory is left
+    as it was."""
+    from refid_tpu_torch.ops import int8_cuda
+    from refid_tpu_torch.serve import quant
+    x = _act(18, *shape, dtype=dtype).to(cuda)
+    before = int8_cuda.AMAX_LAUNCHES
+    own = quant.amax_int8(x)
+    torch.cuda.synchronize()
+    assert int8_cuda.AMAX_LAUNCHES == before + 1
+    assert torch.equal(own, x.float().abs().amax().reshape(1))
+    for amax in (own, own * 3.5):
+        kept = amax.clone()
+        before = int8_cuda.QUANTIZE_LAUNCHES
+        got, got_s = quant.quantize_int8(x, amax=amax)
+        torch.cuda.synchronize()
+        assert int8_cuda.QUANTIZE_LAUNCHES == before + 1 and torch.equal(amax, kept)
+        want, want_s = quant.quantize_int8_reference(x, amax=amax)
+        assert torch.equal(got_s, want_s) and torch.equal(got, want)

@@ -129,14 +129,16 @@ def _flagship(cfg_kw, state):
 
 def _sharded_step(net, mesh, x, ev, gt, block):
     """The sharded forward (gathered) and the gradient of the mean
-    Charbonnier loss, summed over the spatial group."""
+    Charbonnier loss (the Trainer's ``sharded_loss``), summed over the
+    spatial group."""
     from refid_tpu_torch.parallel.spatial import SpatialPlan, spatial_scope
     from refid_tpu_torch.train.losses import charbonnier_loss
+    from refid_tpu_torch.train.trainer import sharded_loss
     plan = SpatialPlan(mesh, x.shape[-2], block)
     net.zero_grad(set_to_none=True)
     with spatial_scope(plan):
         out = net(plan.shard(x), plan.shard(ev))
-        (charbonnier_loss(out, plan.shard(gt)) * plan.row_fraction).backward()
+        sharded_loss(charbonnier_loss, out, plan.shard(gt), plan).backward()
     grads = {}
     for k, p in net.named_parameters():
         grad = p.grad if p.grad is not None else torch.zeros_like(p)
@@ -248,3 +250,122 @@ class DeadHead(torch.nn.Module):
 
 def mse(pred, gt):
     return ((pred - gt) ** 2).mean()
+
+
+def _registry_net(name, opt, state):
+    from refid_tpu_torch.core.registry import ARCHS
+    from refid_tpu_torch.models import archs  # noqa: F401 (registers the archs)
+    from refid_tpu_torch.models.convert import load_state
+    net = ARCHS.get(name)(opt)
+    load_state(net, state)
+    return net
+
+
+def lineage_job(rank, work):
+    """Every ablation lineage (and the DCN) on row shards: the forward
+    (gathered) and the gradients of the mean Charbonnier loss, summed over
+    the group, at S = 4; each case's net from the port's registry."""
+    from refid_tpu_torch.parallel import make_mesh
+    inp = torch.load(os.path.join(work, "lineages.pt"), weights_only=False)
+    mesh = make_mesh(data=1, spatial=dist.get_world_size())
+    res = {}
+    for key, (name, opt, state) in inp["cases"].items():
+        net = _registry_net(name, opt, state)
+        x, ev, gt = inp["data"]
+        res[key] = _sharded_step(net, mesh, x, ev, gt, net.row_block)
+    if rank == 0:
+        torch.save(res, os.path.join(work, "lineages_out.pt"))
+
+
+def int8_job(rank, work):
+    """int8 on row shards at S = 4: single int8 convs (dynamic and static),
+    the toy blurry-VFI pipeline through ``BlurVFIPipeline(mesh=)`` in every
+    mode ("static" calibrated on the shards), in float and in int8 True with
+    mkldnn's convs on and off, and EVHINet's 25 sites in True and
+    "static"."""
+    from refid_tpu_torch import BlurVFIPipeline, RefidConfig
+    from refid_tpu_torch.models.evhinet import EVHINet
+    from refid_tpu_torch.parallel import make_mesh
+    from refid_tpu_torch.parallel.spatial import SpatialPlan, spatial_scope
+    from refid_tpu_torch.serve import quant
+    from refid_tpu_torch.serve.quant import QuantState, calibration_stats
+    inp = torch.load(os.path.join(work, "int8.pt"), weights_only=False)
+    mesh = make_mesh(data=1, spatial=dist.get_world_size())
+    res = {}
+    for mode in (True, "scale0", "static"):
+        pipe = BlurVFIPipeline(inp["state"], RefidConfig(**inp["cfg"]), m=2, n=1, int8=mode,
+                               mesh=mesh, device="cpu")
+        if mode == "static":
+            pipe.calibrate(*inp["request"])
+        out = pipe(*inp["request"])
+        plan = pipe.last_plan
+        res[mode] = (out, pipe._int8_raw_amax, pipe._int8_rms, plan.exchanges, plan.reductions)
+    for mode, mkldnn in ((False, True), (False, False), (True, False)):
+        with torch.backends.mkldnn.flags(enabled=mkldnn):
+            pipe = BlurVFIPipeline(inp["state"], RefidConfig(**inp["cfg"]), m=2, n=1, int8=mode,
+                                   mesh=mesh, device="cpu")
+            res[("mkldnn", mkldnn, mode)] = pipe(*inp["request"])
+    x, convs = inp["sites"]
+    plan = SpatialPlan(mesh, x.shape[-2], 4)
+    with torch.no_grad(), spatial_scope(plan):
+        for key, (conv, scale) in convs.items():
+            q = None if scale is None else QuantState("static", amax=[scale * 127.0])
+            res[key] = plan.gather(quant.conv_int8(conv, plan.shard(x), conv.stride[0],
+                                                   conv.padding[0], slope=0.1, q=q))
+    net = EVHINet(wf=inp["wf"])
+    net.load_state_dict(inp["evhinet_state"])
+    x, ev = inp["evhinet_input"]
+    plan = SpatialPlan(mesh, x.shape[-2], net.row_block)
+    with torch.no_grad(), spatial_scope(plan):
+        calib = QuantState("calib")
+        net(plan.shard(x), plan.shard(ev), calib)
+        amax, rms = calibration_stats(calib)
+        for mode, q in (("evhinet_True", QuantState(True)),
+                        ("evhinet_static", QuantState("static", amax=amax))):
+            res[mode] = (plan.gather(net(plan.shard(x), plan.shard(ev), q)), amax, rms,
+                         q.sites)
+    if rank == 0:
+        torch.save(res, os.path.join(work, "int8_out.pt"))
+
+
+def single_task_job(rank, work):
+    """EVHINet's task on row shards at S = 4: a whole prediction and a tiled
+    one (``val.crop_size``), then one training step per ``pixel_opt`` through
+    ``task.train_step`` (its reduced, clipped gradients); and the TV loss
+    of a ``(b, t, c, h, w)`` stack on row shards (the Trainer's
+    ``sharded_loss``), a rank's share and gradient."""
+    from refid_tpu_torch.parallel import make_mesh
+    from refid_tpu_torch.parallel.spatial import SpatialPlan, spatial_scope
+    from refid_tpu_torch.tasks import build_task
+    from refid_tpu_torch.train.losses import weighted_tv_loss
+    from refid_tpu_torch.train.trainer import sharded_loss
+    inp = torch.load(os.path.join(work, "single.pt"), weights_only=False)
+    mesh = make_mesh(data=1, spatial=dist.get_world_size())
+    res = {}
+    for key, opt in inp["opts"].items():
+        task = build_task(opt, "cpu", mesh)
+        task.net.load_state_dict(inp["state"])
+        lq, voxel, gt = inp["batch"]
+        if key == "predict":
+            res[key] = (task.predict(lq, voxel), task._predict_item(lq[0], voxel[0]).numpy())
+            continue
+        if key == "predict_short_tiles":
+            try:
+                task._predict_item(lq[0], voxel[0])
+                res[key] = None
+            except ValueError as e:
+                res[key] = str(e)
+            continue
+        task.setup_train_state()
+        metrics = task.train_step({"lq": lq, "voxel": voxel, "gt": gt})
+        res[key] = ({k: p.grad.clone() for k, p in task.net.named_parameters()},
+                    float(metrics["loss"]), float(metrics["grad_norm"]))
+    pred, weight = inp["tv"]
+    plan = SpatialPlan(mesh, pred.shape[-2], 2)
+    local = plan.shard(pred).clone().requires_grad_(True)
+    with spatial_scope(plan):
+        share = sharded_loss(weighted_tv_loss, local, plan.shard(weight), plan)
+        share.backward()
+    res["tv_stack"] = _gather((float(share.detach()), local.grad))
+    if rank == 0:
+        torch.save(res, os.path.join(work, "single_out.pt"))
