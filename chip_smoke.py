@@ -5,9 +5,11 @@ Run from the root of a checkout on a machine with one CUDA card (Hopper):
 
     python3 chip_smoke.py
 
-It builds the CUDA kernels from ``refid_tpu_torch/csrc``, holds each kernel
-against its plain PyTorch version on the card, and drives the port's two
-main paths with production-width ``RefidConfig()`` networks and seeded
+It builds the CUDA kernels from ``refid_tpu_torch/csrc``, measures the
+launch path they share (``launch_path``: each wrapper's host time a call and
+where it goes, beside the floors; ``tools/launch_path.py``), holds each
+kernel against its plain PyTorch version on the card, and drives the port's
+two main paths with production-width ``RefidConfig()`` networks and seeded
 random weights:
 
 * serving (K1): ``BlurVFIPipeline``, blurry VFI 11+1, against the same
@@ -77,6 +79,7 @@ line and ``{"ok": true, "device": {...}}``.  Any failed phase exits
 non-zero without the ``ok`` line; so does a machine without CUDA.
 """
 
+import importlib.util
 import json
 import logging
 import math
@@ -972,6 +975,7 @@ def phase_int8_serve(requests):
              bf16_db_vs_f32=bf16_db, calibrate_ms=calib_ms,
              calibrated_sites=None if pipe._int8_scales is None else len(pipe._int8_scales),
              max_memory_allocated=peak, profiled_device_busy_ms=busy,
+             idle_share=max(0.0, 1.0 - busy / ms),
              int8_device_ms=int8_ms, int8_share=int8_ms / busy,
              int8_kernels={k: {"ms": v[0], "launches": v[1]} for k, v in mine.items()})
         del pipe, out
@@ -1206,8 +1210,8 @@ def phase_evhinet_serve(requests):
                   f"{len(requests) - 1} images of {EVHINET_SITES} sites")
             mine, busy = int8_share(lambda: run(requests[-1]), mode is True)
             int8_ms = sum(v[0] for v in mine.values())
-            row.update(profiled_device_busy_ms=busy, int8_device_ms=int8_ms,
-                       int8_share=int8_ms / busy,
+            row.update(profiled_device_busy_ms=busy, idle_share=max(0.0, 1.0 - busy / ms),
+                       int8_device_ms=int8_ms, int8_share=int8_ms / busy,
                        int8_kernels={k: {"ms": v[0], "launches": v[1]} for k, v in mine.items()})
         rows[str(mode)] = row
         del task
@@ -1929,6 +1933,35 @@ def phase_voxel_grid_padded(calls=4):
     return launches
 
 
+def phase_launch_path():
+    """The kernels' launch path (``tools/launch_path.py::measure``): each
+    wrapper's host microseconds a call at its main-path or probe shape and
+    their split, CUDA-event and device ms, and the floors (``view.mul_(2)``,
+    the one-call library versions of P1 and P2, an empty kernel, the
+    runtime queries; whether P1's and P2's one-call library versions are
+    bit-equal to the kernels).  Fails if the amax pass alone takes more than
+    one launch."""
+    spec = importlib.util.spec_from_file_location(
+        "launch_path", os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools",
+                                    "launch_path.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    t0 = time.perf_counter()
+    result = module.measure()
+    rows, paired = result["wrappers"], result["paired"]
+    emit("launch_path", seconds=time.perf_counter() - t0,
+         p2_at_or_under_library=paired["P2"]["kernel_ms"] <= paired["P2"]["library_ms"],
+         p1_at_or_under_library=paired["P1"]["kernel_ms"] <= paired["P1"]["library_ms"],
+         **result)
+    # the profiler may drop records, never add them: at most one launch a
+    # call, every one the amax kernel
+    amax = rows["amax"]
+    check(amax["by_kernel"] and all("amax_kernel" in k for k in amax["by_kernel"])
+          and amax["device_launches"] <= 1,
+          f"the amax pass launched {amax['by_kernel']} a call")
+    return result
+
+
 def kernel_device_ms(fn, iters, name_part):
     """Device time per launch of the kernels whose name holds ``name_part``
     over ``iters`` calls of ``fn()``, from torch.profiler: for a kernel
@@ -1987,23 +2020,32 @@ def phase_probe_kernel_check():
         check(torch.equal(got, want), f"P2 {dtype} differs from 2x + 1 on the slice")
     d = _probe_d(gen, torch.bfloat16)
     scratch = d.clone()
+    one = torch.ones((), dtype=d.dtype, device=CUDA)
+
+    def p2_library():          # one PyTorch call, in place, on the slice taken each call
+        view = scratch[0, 0, :8, :128]
+        torch.add(one, view, alpha=2, out=view)
+
     p1 = {"ms": time_ms(lambda: probe_poison.passthrough(d), 50, CUDA),
           "plain_ms": time_ms(lambda: probe_poison.passthrough_reference(d), 50, CUDA),
-          "library_ms": time_ms(lambda: d * 2.0 + 1.0, 50, CUDA),
+          "library_ms": time_ms(lambda: torch.add(one, d, alpha=2), 50, CUDA),
+          "library_two_ops_ms": time_ms(lambda: d * 2.0 + 1.0, 50, CUDA),
           **bound(2 * d.numel() * d.element_size(), 2 * d.numel(), F32_OPS_PER_S)}
     p2 = {"ms": time_ms(lambda: probe_poison.tiny_passthrough(scratch), 50, CUDA),
           "plain_ms": time_ms(lambda: probe_poison.tiny_passthrough_reference(scratch), 50, CUDA),
-          "library_ms": None, **bound(2 * 8 * 128 * 2, 2 * 8 * 128, F32_OPS_PER_S)}
+          "library_ms": time_ms(p2_library, 50, CUDA),
+          **bound(2 * 8 * 128 * 2, 2 * 8 * 128, F32_OPS_PER_S)}
     p1_device_ms = kernel_device_ms(lambda: probe_poison.passthrough(d), 20,
                                     "passthrough_kernel")
     p2_device_ms = kernel_device_ms(lambda: probe_poison.tiny_passthrough(scratch), 20,
                                     "passthrough_slice_kernel")
-    # the launch floor beside P2: one PyTorch op on the same (8, 128) view
+    # one PyTorch op on the same (8, 128) view beside P2 (the launch floor, an
+    # empty kernel, is the launch_path phase's)
     view = scratch[0, 0, :8, :128]
     p2_floor = {"op": "view.mul_(2)", "ms": time_ms(lambda: view.mul_(2), 50, CUDA),
                 "device_ms": kernel_device_ms(lambda: view.mul_(2), 20, "elementwise")}
-    p2.update(device_ms=p2_device_ms, launch_floor_device_ms=p2_floor["device_ms"])
-    del d, scratch, view
+    p2.update(device_ms=p2_device_ms, view_mul_device_ms=p2_floor["device_ms"])
+    del d, scratch, view, one
 
     # P3 and P4 at the probe's shape and at the kernel's edges (see
     # BAND_CONV_EDGES), rolls on and off, P4 in its three modes
@@ -2065,7 +2107,7 @@ def phase_probe_kernel_check():
     emit("probe_kernel_check", p1_p2="bit-exact (bf16, f32; bands 8, 16)", p3_steps=steps,
          p3_db=dbs, p3_max_steps=P3_STEPS, min_db=PARITY_DB, p4="bit-exact",
          max_abs_err=errs, poison_step_db_vs_torch=step_db, p1=p1, p2=p2,
-         p1_device_ms=p1_device_ms, p2_device_ms=p2_device_ms, p2_launch_floor=p2_floor,
+         p1_device_ms=p1_device_ms, p2_device_ms=p2_device_ms, p2_view_mul=p2_floor,
          p3_plain_ms=p3_plain_ms, p4_plain_ms=p4_plain_ms, p3_p4_device_ms=device_ms,
          edges=[list(e) for e in BAND_CONV_EDGES])
     return errs, p1, p2, p3_plain_ms, p4_plain_ms, device_ms
@@ -2999,6 +3041,7 @@ def main():
              line for line in v["log"].splitlines() if "Used" in line or "spill" in line]}
                   for k, v in built.items()},
          host={"png_unfilter": {"seconds": time.perf_counter() - t1, "path": host.name}})
+    launch_path = phase_launch_path()
 
     max_err, events, skewed, n_valid = phase_kernel_check()
     timing = phase_kernel_timing(events, skewed, n_valid)
@@ -3132,7 +3175,7 @@ def main():
     check(not evhinet_low, f"EVHINet int8 modes {evhinet_low} below the "
           f"{quant.PRODUCTION_DB_GATE} dB gate: {evhinet_db}")
     print(smi, flush=True)
-    print(json.dumps({"kernels": [{
+    kernels = [{
         "name": "voxelize", "route": "cuda",
         "source": "refid_tpu_torch/csrc/voxelize.cu",
         "replaces": "refid_tpu/events/voxel_pallas.py:311",
@@ -3177,7 +3220,18 @@ def main():
         + spatial_launches["conv_int8"],
         "max_abs_err": max(int8_errs["conv_int8"], evhinet_errs["conv_int8"],
                            shard_errs["conv_int8"]),
-        **int8_timing["conv_int8"]}]}), flush=True)
+        **int8_timing["conv_int8"]}]
+    # each wrapper's host time a call, from the launch_path phase; P2's launch
+    # floor there, an empty kernel's device time
+    wrappers = {"voxelize": "K1", "voxel_grid": "K2", "passthrough": "P1",
+                "passthrough_slice": "P2", "band_conv": "P3", "band_conv_int8": "P4",
+                "quantize_int8": "Q8_dynamic", "conv_int8": "C8"}
+    for k in kernels:
+        k["host_us"] = launch_path["wrappers"][wrappers[k["name"]]]["host_us"]["median"]
+        if k["name"] == "passthrough_slice":
+            k["launch_floor_device_ms"] = \
+                launch_path["floors"]["empty kernel (ctypes)"]["device_ms"]
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}),
           flush=True)

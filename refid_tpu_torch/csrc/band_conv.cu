@@ -86,6 +86,7 @@
 //   encoder lookup live in hopper.cuh, shared with conv_int8.cu.
 
 #include "hopper.cuh"
+#include "launch.cuh"
 
 namespace {
 
@@ -451,10 +452,7 @@ int launch(const void* x, const void* wk, int h, int wp, int band, int rolls, vo
   const int m2 = (band - 2) * wp;
   const int tiles = (h / band) * ((m2 + C::kWindow - 9) / (C::kWindow - 8));
   int device = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err == cudaSuccess) {
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  }
+  cudaError_t err = device_sms(&device, &sms);
   if (err != cudaSuccess) return static_cast<int>(err);
   // rings, int8 windows, barriers, slack to align the base to 1024 bytes, and
   // 256 bytes for the two rows past the last window that wgmma reads for
@@ -462,7 +460,7 @@ int launch(const void* x, const void* wk, int h, int wp, int band, int rolls, vo
   const int smem = kAStages * kABytes + kBStages * kBBytes + (kMode == 1 ? 2 * kQBytes : 0) +
                    C::kWindow * 2 * kC + 2 * (kAStages + kBStages) * 8 + 1024 + 256;
   auto kernel = band_conv_kernel<kMode>;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  err = allow_dynamic_smem(reinterpret_cast<const void*>(kernel), device, smem);   // one size a mode
   if (err != cudaSuccess) return static_cast<int>(err);
   kernel<<<tiles < sms ? tiles : sms, kThreads, smem, stream>>>(
       tx, tw, to, static_cast<const unsigned char*>(x), wp, band, h / band, rolls,

@@ -14,7 +14,11 @@
 // * amax_kernel (dynamic mode): |x| as the float's bits (non-negative floats
 //   order as their bits; bf16 pairs as two halfwords, __vmaxu2), 16-byte
 //   loads four in flight, a grid of 8 blocks an SM, warp reductions and one
-//   atomicMax a block into a two-word state {amax bits, blocks done}.
+//   atomicMax a block into a two-word state {amax bits, blocks done}.  The
+//   amax pass alone (refid_amax_int8, a row shard's share of a group amax)
+//   runs it with kFinish: the last block moves the max into the caller's
+//   new (1,) buffer and zeroes the state, so that call is one launch (a
+//   zeroed result buffer would be a second, a fill, before it).
 // * quantize_kernel: a block transposes 32 channels x 256 pixels.  Each
 //   thread loads 16-byte vectors along a channel's pixels, quantizes them
 //   and writes their bytes into a [channel][pixel] byte tile in shared
@@ -88,7 +92,10 @@
 //   neighbouring pixels of one channel, and all 64 channels go through the
 //   staged tile at once (stmatrix without .trans; swap_epilogue()).
 
+#include <cstddef>
+
 #include "hopper.cuh"
+#include "launch.cuh"
 
 namespace {
 
@@ -148,10 +155,14 @@ __device__ __forceinline__ uint32_t scalar_bits(__nv_bfloat16 v) {
   return static_cast<uint32_t>(__bfloat16_as_ushort(v));
 }
 
-// state[0] |= max |x| as float bits (state is {amax bits, blocks done})
-template <typename T>
+// state[0] |= max |x| as float bits (state is {amax bits, blocks done}).
+// kFinish (the amax pass alone): the last block to add its max also moves
+// the total to *out and leaves the state zero for the next call, so the
+// pass is one launch; without it the quantize kernel reads and resets it.
+template <typename T, bool kFinish>
 __global__ void __launch_bounds__(256) amax_kernel(const T* __restrict__ x, long long total,
-                                                   int vec_ok, unsigned int* __restrict__ state) {
+                                                   int vec_ok, unsigned int* __restrict__ state,
+                                                   float* __restrict__ out) {
   constexpr int kV = 16 / static_cast<int>(sizeof(T));
   const T tag{};
   uint32_t m = 0;
@@ -181,7 +192,16 @@ __global__ void __launch_bounds__(256) amax_kernel(const T* __restrict__ x, long
   __syncthreads();
   if (warp == 0) {
     m = __reduce_max_sync(0xffffffffu, lane < 8 ? part[lane] : 0u);
-    if (lane == 0) atomicMax(state, m);
+    if (lane == 0) {
+      atomicMax(state, m);
+      if constexpr (kFinish) {
+        __threadfence();      // this block's max is in before it counts itself
+        if (atomicAdd(state + 1, 1u) == gridDim.x - 1) {   // every block's is in
+          *out = __uint_as_float(atomicExch(state, 0u));
+          state[1] = 0u;
+        }
+      }
+    }
   }
 }
 
@@ -283,21 +303,26 @@ __global__ void __launch_bounds__(256) quantize_kernel(const T* __restrict__ x,
   }
 }
 
-// max |x| over `total` elements into *state (as float bits; zero before)
+// max |x| over `total` elements into *state (as float bits; the state zero
+// before); with `out` (the amax pass alone) into *out, the state left zero
 template <typename T>
-int launch_amax(const T* xt, long long total, unsigned int* state, cudaStream_t stream) {
+int launch_amax(const T* xt, long long total, unsigned int* state, float* out,
+                cudaStream_t stream) {
   constexpr int kV = 16 / static_cast<int>(sizeof(T));
   const bool aligned = reinterpret_cast<uintptr_t>(xt) % 16 == 0;
   int device = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err == cudaSuccess) {
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  }
+  const cudaError_t err = device_sms(&device, &sms);
   if (err != cudaSuccess) return static_cast<int>(err);
   long long blocks = (total / kV + 255) / 256;
   if (blocks > 8LL * sms) blocks = 8LL * sms;
   if (blocks < 1) blocks = 1;
-  amax_kernel<T><<<static_cast<int>(blocks), 256, 0, stream>>>(xt, total, aligned, state);
+  if (out != nullptr) {
+    amax_kernel<T, true><<<static_cast<int>(blocks), 256, 0, stream>>>(xt, total, aligned,
+                                                                        state, out);
+  } else {
+    amax_kernel<T, false><<<static_cast<int>(blocks), 256, 0, stream>>>(xt, total, aligned,
+                                                                         state, nullptr);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -312,7 +337,7 @@ int launch_quantize(const void* x, int n, int c, int hw, int cp, int mode, float
   const bool aligned = reinterpret_cast<uintptr_t>(x) % 16 == 0;
   unsigned int* state = mode ? static_cast<unsigned int*>(amax_state) : nullptr;
   if (mode == 1) {
-    const int err = launch_amax(xt, static_cast<long long>(n) * c * hw, state, stream);
+    const int err = launch_amax(xt, static_cast<long long>(n) * c * hw, state, nullptr, stream);
     if (err != 0) return err;
   }
   const int ranges = (hw + kQPix - 1) / kQPix;
@@ -805,13 +830,11 @@ int launch_conv(const CUtensorMap& tx, const CUtensorMap& tw, const float* wscal
                 const float* xscale, const float* bias, const ConvGeom& g, int smem, void* out,
                 cudaStream_t stream) {
   int device = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err == cudaSuccess) {
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  }
+  cudaError_t err = device_sms(&device, &sms);
   if (err != cudaSuccess) return static_cast<int>(err);
   auto kernel = conv_int8_kernel<kBN, kOut, kChunk>;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  // the most any plan uses (smem <= kMaxSmem), set once per instantiation
+  err = allow_dynamic_smem(reinterpret_cast<const void*>(kernel), device, kMaxSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
   kernel<<<g.tiles < sms ? g.tiles : sms, kThreads, smem, stream>>>(tx, tw, wscale, xscale, bias,
                                                                     g, out);
@@ -874,17 +897,60 @@ extern "C" int refid_quantize_int8(const void* x, int dtype, int n, int c, int h
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// x (total) dense, float32 (dtype 0) or bf16 (1); amax one float32, zero
-// before the call: max |x| afterwards.  Launches on `stream`; returns
-// cudaGetLastError().
-extern "C" int refid_amax_int8(const void* x, int dtype, long long total, void* amax,
-                               void* stream) {
+// x (total) dense, float32 (dtype 0) or bf16 (1); amax_state two uint32,
+// zero before the call and left zero (the dynamic quantization's state of
+// the stream); amax one float32: max |x| afterwards, whatever it held.  One
+// launch on `stream`; returns cudaGetLastError().
+extern "C" int refid_amax_int8(const void* x, int dtype, long long total, void* amax_state,
+                               void* amax, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  auto* state = static_cast<unsigned int*>(amax);
-  if (total < 1 || amax == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  if (dtype == 0) return launch_amax(static_cast<const float*>(x), total, state, s);
-  if (dtype == 1) return launch_amax(static_cast<const __nv_bfloat16*>(x), total, state, s);
+  auto* state = static_cast<unsigned int*>(amax_state);
+  auto* out = static_cast<float*>(amax);
+  if (total < 1 || state == nullptr || out == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (dtype == 0) return launch_amax(static_cast<const float*>(x), total, state, out, s);
+  if (dtype == 1) {
+    return launch_amax(static_cast<const __nv_bfloat16*>(x), total, state, out, s);
+  }
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The conv's geometry and tile plan, as the wrapper passes them:
+// ops/int8_cuda.py::ConvArgs mirrors this struct field for field (23 4-byte
+// fields, in this order), and refid_conv_int8_abi reports its layout.
+struct ConvArgs {
+  int n, h, w, cp, co, kh, kw, stride, pad_h, pad_w, ho, wo, act;
+  float slope;
+  int out_dtype, bn, bw, bh, chunk, stages, resident, vector_store, shared;
+};
+#define CONV_ARGS_FIELDS(X)                                                                   \
+  X(n) X(h) X(w) X(cp) X(co) X(kh) X(kw) X(stride) X(pad_h) X(pad_w) X(ho) X(wo) X(act)     \
+  X(slope) X(out_dtype) X(bn) X(bw) X(bh) X(chunk) X(stages) X(resident) X(vector_store)    \
+  X(shared)
+#define CONV_ARGS_OFFSET(f) offsetof(ConvArgs, f),
+constexpr size_t kConvArgsOffsets[] = {CONV_ARGS_FIELDS(CONV_ARGS_OFFSET)};
+#undef CONV_ARGS_OFFSET
+constexpr int kConvArgsFields = sizeof(kConvArgsOffsets) / sizeof(kConvArgsOffsets[0]);
+
+constexpr bool conv_args_packed() {
+  for (int i = 0; i < kConvArgsFields; ++i) {
+    if (kConvArgsOffsets[i] != 4 * static_cast<size_t>(i)) return false;
+  }
+  return true;
+}
+static_assert(kConvArgsFields == 23 && sizeof(ConvArgs) == 23 * 4,
+              "ConvArgs: 23 fields of 4 bytes, as ops/int8_cuda.py::ConvArgs");
+static_assert(conv_args_packed(), "ConvArgs: fields in declaration order, 4 bytes apart");
+
+// ConvArgs's layout as compiled: abi[0] its size in bytes, then each field's
+// offset in declaration order, at most `cap` values; returns how many the
+// full layout has (24).
+extern "C" int refid_conv_int8_abi(long long* abi, int cap) {
+  for (int i = 0; i <= kConvArgsFields && i < cap; ++i) {
+    abi[i] = static_cast<long long>(i == 0 ? sizeof(ConvArgs) : kConvArgsOffsets[i - 1]);
+  }
+  return kConvArgsFields + 1;
 }
 
 // xq (n, h, w, cp) int8, wp (co, kh, kw, cp) int8, both 16-byte aligned;
@@ -892,18 +958,22 @@ extern "C" int refid_amax_int8(const void* x, int dtype, long long total, void* 
 // ho, wo) float32 (out_dtype 0) or bf16 (1), 16-byte aligned; pad_h rows of
 // zeros above and below, pad_w columns left and right.  act 0 none,
 // 1 relu, 2 max(y, y slope).  The tile plan (bn, bw, bh, chunk, stages,
-// resident, vector_store) comes from ops/int8_cuda.py::conv_plan; a plan
-// that does not fit returns cudaErrorInvalidValue.  Launches on `stream`;
-// returns cudaGetLastError(), or a code of its own if a tensor map could not
-// be encoded.
+// resident, vector_store, shared) comes from ops/int8_cuda.py::conv_plan;
+// a plan that does not fit returns cudaErrorInvalidValue.  The geometry and
+// the plan come as one ConvArgs, which the wrapper builds once per conv
+// shape.  Launches on `stream`; returns cudaGetLastError(), or a code of its
+// own if a tensor map could not be encoded.
 extern "C" int refid_conv_int8(const void* xq, const void* wp, const void* wscale,
-                               const void* xscale, const void* bias, int n, int h, int w, int cp,
-                               int co, int kh, int kw, int stride, int pad_h, int pad_w, int ho,
-                               int wo,
-                               int act, float slope, int out_dtype, void* out, void* stream,
-                               int bn, int bw, int bh, int chunk, int stages, int resident,
-                               int vector_store, int shared) {
+                               const void* xscale, const void* bias, void* out,
+                               const ConvArgs* args, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const ConvArgs& a = *args;
+  const int n = a.n, h = a.h, w = a.w, cp = a.cp, co = a.co, kh = a.kh, kw = a.kw;
+  const int stride = a.stride, pad_h = a.pad_h, pad_w = a.pad_w, ho = a.ho, wo = a.wo;
+  const int act = a.act, out_dtype = a.out_dtype;
+  const float slope = a.slope;
+  const int bn = a.bn, bw = a.bw, bh = a.bh, chunk = a.chunk, stages = a.stages;
+  const int resident = a.resident, vector_store = a.vector_store, shared = a.shared;
   const int out_bytes = out_dtype == 0 ? 4 : 2;
   if ((out_dtype != 0 && out_dtype != 1) || n < 1 || ho < 1 || wo < 1 || co < 1 ||
       (chunk != 32 && chunk != 64 && chunk != 128) || cp % chunk != 0 || bw * bh != kTile ||

@@ -60,6 +60,8 @@
 
 #include <cuda_runtime.h>
 
+#include "launch.cuh"
+
 namespace {
 
 // shared memory a block may use on sm_90, less room for static arrays
@@ -370,19 +372,20 @@ extern "C" int refid_voxelize(const float* events, int n, int bins, int width, i
   float4* rows = reinterpret_cast<float4*>(sorted);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
 
-  // The shared-memory limits are set to the most a block may use, the same
-  // value from every thread, so that concurrent calls (the loader's threads)
-  // never lower them under each other's launches.
+  // The shared-memory limits are set to the most a block may use, once a
+  // kernel and device (launch.cuh), so that concurrent calls (the loader's
+  // threads) never lower them under each other's launches.
+  int device = 0;
+  RETURN_IF_ERROR(cudaGetDevice(&device));
   if (chunks > 0) {
-    RETURN_IF_ERROR(cudaFuncSetAttribute(
-        voxel_sort_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxDynamic));
+    RETURN_IF_ERROR(allow_dynamic_smem(reinterpret_cast<const void*>(voxel_sort_kernel),
+                                       device, kMaxDynamic));
     const size_t sort_smem = sizeof(float4) * kSortChunk + sizeof(int) * (g.num_tiles + 1);
     voxel_sort_kernel<<<chunks, kSortThreads, sort_smem, s>>>(ev, n, g, rows, offsets);
     RETURN_IF_ERROR(cudaGetLastError());
   }
   const auto kernel = hwc ? voxel_tile_kernel<true> : voxel_tile_kernel<false>;
-  RETURN_IF_ERROR(cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       kMaxDynamic));
+  RETURN_IF_ERROR(allow_dynamic_smem(reinterpret_cast<const void*>(kernel), device, kMaxDynamic));
   kernel<<<g.num_tiles, kTileThreads, tile_smem, s>>>(ev, rows, offsets, chunks, g, grid);
   return static_cast<int>(cudaGetLastError());
 }

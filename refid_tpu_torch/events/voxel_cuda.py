@@ -45,7 +45,7 @@ from refid_tpu_torch.events.voxel import (
     MAX_SHARED_BYTES, SLAB_BYTES, SORT_CHUNK, TilePlan, check_event_buffer,
     check_host_events, voxel_tile_plan,
 )
-from refid_tpu_torch.ops.build import load, raise_on_error
+from refid_tpu_torch.ops.build import bind, current_stream, launch, load, raise_on_error
 
 __all__ = ["LAUNCHES", "GRID_LAUNCHES", "GRID_TIMES", "voxelize_cuda",
            "events_to_voxel_grid_cuda", "reset_grid_stats", "kernel_tile_plan"]
@@ -54,30 +54,25 @@ LAUNCHES = 0
 GRID_LAUNCHES = 0
 GRID_TIMES = {"upload_ms": 0.0, "kernel_ms": 0.0, "copy_ms": 0.0}
 _stats_lock = threading.Lock()
-_lib = None
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_SIGNATURES = {"refid_voxel_plan": [_I, _I, _I, _I, _P], "refid_voxel_sort_chunk": [],
+               "refid_voxelize": [_P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P]}
+_fns = {}        # C function name -> bound function, filled at first use
 
 
-def _library() -> ctypes.CDLL:
-    global _lib
-    if _lib is None:
-        lib = load("voxelize")
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.refid_voxel_plan.argtypes = [i, i, i, i, p]
-        lib.refid_voxel_sort_chunk.argtypes = []
-        lib.refid_voxelize.argtypes = [p, i, i, i, i, i, i, p, p, p, p]
-        for fn in (lib.refid_voxel_plan, lib.refid_voxel_sort_chunk, lib.refid_voxelize):
-            fn.restype = i
-        _lib = lib
-    return _lib
+def _bound(fn: str):
+    if not _fns:
+        _fns.update(bind("voxelize", _SIGNATURES))
+    return _fns[fn]
 
 
 def kernel_tile_plan(bins: int, width: int, height: int,
                      slab_bytes: int = SLAB_BYTES) -> TilePlan:
     """The kernels' own tile plan (``make_plan`` in the library), which
     ``voxel_tile_plan`` mirrors."""
-    lib = _library()
     plan = (ctypes.c_int * 4)()
-    raise_on_error(lib, lib.refid_voxel_plan(bins, width, height, slab_bytes, plan),
+    raise_on_error(load("voxelize"),
+                   _bound("refid_voxel_plan")(bins, width, height, slab_bytes, plan),
                    "voxel_plan")
     return TilePlan(*plan)
 
@@ -92,19 +87,18 @@ def _voxelize(events: torch.Tensor, n: int, bins: int, width: int, height: int,
     slab_floats = -(-plan.tile_rows * plan.tile_cols * bins // 32) * 32
     if 4 * slab_floats + 4 * (2 * chunks + 1) > MAX_SHARED_BYTES:
         raise ValueError(f"{n} events: too many chunks for the tile pass's shared memory")
-    lib = _library()
     shape = (height, width, bins) if hwc else (bins, height, width)
     grid = torch.empty(shape, dtype=torch.float32, device=events.device)
     offsets = torch.empty(max(chunks, 1) * (plan.num_tiles + 1), dtype=torch.int32,
                           device=events.device)
     rows = torch.empty((max(chunks, 1) * SORT_CHUNK, 4), dtype=torch.float32,
                        device=events.device)
-    with torch.cuda.device(events.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.refid_voxelize(events.data_ptr(), n, bins, width, height, int(hwc),
-                                 slab_bytes, offsets.data_ptr(), rows.data_ptr(),
-                                 grid.data_ptr(), stream)
-    raise_on_error(lib, err, "voxelize")
+    index = events.get_device()
+    fn = _fns.get("refid_voxelize") or _bound("refid_voxelize")
+    err = launch(fn, index, events.data_ptr(), n, bins, width, height, int(hwc), slab_bytes,
+                 offsets.data_ptr(), rows.data_ptr(), grid.data_ptr(), current_stream(index))
+    if err:
+        raise_on_error(load("voxelize"), err, "voxelize")
     return grid
 
 

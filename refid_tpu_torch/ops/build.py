@@ -15,6 +15,15 @@ Each ``csrc/<name>.c`` (host code, e.g. the PNG unfilter) compiles with
 the compiler and its flags: editing it rebuilds no CUDA library, and
 editing a ``.cu`` rebuilds no host library.  A missing compiler raises.
 
+The launch path that every kernel wrapper shares, per call: its checks,
+the bound C function (:func:`bind`: the library loaded and each function's
+``argtypes`` set once), the raw handle of the current stream
+(:func:`current_stream`, no ``torch.cuda.Stream`` object), the call itself
+with the device made current only when another one is (:func:`launch`),
+and :func:`raise_on_error` when the C launcher returns a CUDA error.  The C
+launchers keep the SM count and the shared-memory limit they set once a
+device (``csrc/launch.cuh``).
+
 Nothing here runs at import: the CPU tests import every module of the
 package on a machine without ``nvcc``.
 """
@@ -32,8 +41,10 @@ import time
 from pathlib import Path
 from typing import Dict, Iterable, Optional
 
+import torch
+
 __all__ = ["CSRC_DIR", "BUILD_DIR", "kernel_names", "build", "load", "raise_on_error",
-           "build_host", "load_host"]
+           "build_host", "load_host", "bind", "current_stream", "launch"]
 
 _PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PKG_DIR / "csrc"
@@ -116,6 +127,38 @@ def load(name: str) -> ctypes.CDLL:
             lib.refid_cuda_error_string.restype = ctypes.c_char_p
             _loaded[name] = lib
         return lib
+
+
+def bind(name: str, signatures: Dict[str, list]) -> Dict[str, ctypes._CFuncPtr]:
+    """Load ``csrc/<name>.cu``'s library and give each function of
+    ``signatures`` (``{function: argtypes}``) its ``argtypes`` and an int
+    (CUDA error code) ``restype``; returns ``{function: bound function}``.
+    A wrapper calls it once and keeps the result."""
+    lib = load(name)
+    fns = {}
+    for fn_name, argtypes in signatures.items():
+        fn = getattr(lib, fn_name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        fns[fn_name] = fn
+    return fns
+
+
+def current_stream(index: int) -> int:
+    """The raw ``cudaStream_t`` of CUDA device ``index``'s current stream:
+    ``torch.cuda.current_stream(index).cuda_stream`` without building a
+    ``torch.cuda.Stream``."""
+    return torch._C._cuda_getCurrentRawStream(index)
+
+
+def launch(fn, index: int, *args) -> int:
+    """``fn(*args)`` with CUDA device ``index`` current, which the C
+    launchers read; ``torch.cuda.device`` is entered only when another
+    device is current."""
+    if torch._C._cuda_getDevice() == index:
+        return fn(*args)
+    with torch.cuda.device(index):
+        return fn(*args)
 
 
 def _find_cc() -> list:

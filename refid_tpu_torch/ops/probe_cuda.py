@@ -4,7 +4,9 @@
 * :func:`passthrough_cuda` (P1) is the Hopper counterpart of
   ``scripts/probe_poison.py::pallas_op``: ``2x + 1`` over bands of rows.
 * :func:`passthrough_slice_cuda` (P2), of ``probe_poison.py::tiny_pallas``:
-  ``2x + 1`` in place on a strided 2-D view.
+  ``2x + 1`` in place on the ``(8, 128)`` window ``d[0, 0, :8, :128]``, read
+  from ``d``'s pointer and strides (no view is built: four indexing ops a
+  call cost more host time than the launch).
 * :func:`band_conv_cuda` (P3 and P4), of ``scripts/probe_band_conv.py::
   band_conv`` and ``band_conv_int8``: the width-folded 3x3 conv of one band
   at a time as 9 tap products.  Its host-side steps are plain functions the
@@ -13,8 +15,10 @@
   TMA box reads, the roll's wrap rows patched), mirroring the kernel.
 
 Each checks device, type, shape, contiguity and alignment, launches on the
-current stream, raises if the launch failed, and counts its launches in
-``PASSTHROUGH_LAUNCHES``, ``SLICE_LAUNCHES``, ``BAND_CONV_LAUNCHES`` or
+current stream through the shared launch path of ``ops/build.py`` (the C
+functions bound once, the raw stream handle, the device made current only
+when another one is), raises if the launch failed, and counts its launches
+in ``PASSTHROUGH_LAUNCHES``, ``SLICE_LAUNCHES``, ``BAND_CONV_LAUNCHES`` or
 ``BAND_CONV_INT8_LAUNCHES``.  The plain versions, and the dispatchers that
 choose between kernel and plain version by the tensor's device, are in
 ``refid_tpu_torch/probes/``.
@@ -26,7 +30,7 @@ import ctypes
 
 import torch
 
-from refid_tpu_torch.ops.build import load, raise_on_error
+from refid_tpu_torch.ops.build import bind, current_stream, launch, load, raise_on_error
 
 __all__ = ["PASSTHROUGH_LAUNCHES", "SLICE_LAUNCHES", "BAND_CONV_LAUNCHES",
            "BAND_CONV_INT8_LAUNCHES", "TILE_ROWS", "reset_launches", "passthrough_cuda",
@@ -37,7 +41,7 @@ PASSTHROUGH_LAUNCHES = 0
 SLICE_LAUNCHES = 0
 BAND_CONV_LAUNCHES = 0
 BAND_CONV_INT8_LAUNCHES = 0
-_libs = {}
+_fns = {}        # C function name -> bound function, filled at first launch
 # interior rows per tile (kWindow - 8 of Cfg<mode> in csrc/band_conv.cu), by
 # mode: 0 bf16, 1 bf16 x quantized in the kernel, 2 int8 x
 TILE_ROWS = {0: 248, 1: 120, 2: 248}
@@ -48,22 +52,26 @@ _SIGNATURES = {      # library -> {function: argtypes}; each returns a CUDA erro
                     "refid_passthrough_slice": [_P, _I, _I, _LL, _LL, _I, _P]},
     "band_conv": {"refid_band_conv": [_P, _P, _I, _I, _I, _I, _I, _P, _P]},
 }
+_LIBRARY = {fn: lib for lib, fns in _SIGNATURES.items() for fn in fns}
 
 
-def _library(name: str) -> ctypes.CDLL:
-    lib = _libs.get(name)
-    if lib is None:
-        lib = load(name)
-        for fn, argtypes in _SIGNATURES[name].items():
-            getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = _I
-        _libs[name] = lib
-    return lib
+def _bound(fn: str):
+    """The C function ``fn``, bound at its first launch."""
+    bound = _fns.get(fn)
+    if bound is None:
+        _fns.update(bind(_LIBRARY[fn], _SIGNATURES[_LIBRARY[fn]]))
+        bound = _fns[fn]
+    return bound
 
 
-def _require_cuda(t: torch.Tensor, what: str) -> None:
-    if t.device.type != "cuda":
+def _raise(err: int, fn: str) -> None:
+    raise_on_error(load(_LIBRARY[fn]), err, fn[len("refid_"):])
+
+
+def _device_index(t: torch.Tensor, what: str) -> int:
+    if not t.is_cuda:
         raise ValueError(f"{what} needs a CUDA tensor, got {t.device}")
+    return t.get_device()
 
 
 def reset_launches() -> None:
@@ -78,8 +86,9 @@ def passthrough_cuda(x: torch.Tensor, n_rows: int, band: int = 8) -> torch.Tenso
     short last band included).  Returns a new tensor of ``x``'s shape,
     strides and type."""
     global PASSTHROUGH_LAUNCHES
-    _require_cuda(x, "passthrough_cuda")
-    if x.dtype not in _DTYPE_CODE:
+    index = _device_index(x, "passthrough_cuda")
+    code = _DTYPE_CODE.get(x.dtype)
+    if code is None:
         raise TypeError(f"passthrough_cuda takes float32 or bfloat16, got {x.dtype}")
     if not (x.is_contiguous() or x.is_contiguous(memory_format=torch.channels_last)):
         raise ValueError("passthrough_cuda needs a contiguous or channels_last tensor")
@@ -89,37 +98,39 @@ def passthrough_cuda(x: torch.Tensor, n_rows: int, band: int = 8) -> torch.Tenso
     if x.numel() == 0:
         return y
     row_elems = x.numel() // n_rows
-    vec = (x.data_ptr() % 16 == 0 and y.data_ptr() % 16 == 0
-           and band * row_elems * x.element_size() % 16 == 0)
-    lib = _library("passthrough")
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.refid_passthrough(x.data_ptr(), n_rows, row_elems, band,
-                                    _DTYPE_CODE[x.dtype], int(vec), y.data_ptr(), stream)
-    raise_on_error(lib, err, "passthrough")
+    x_ptr, y_ptr = x.data_ptr(), y.data_ptr()
+    vec = x_ptr % 16 == 0 and y_ptr % 16 == 0 and band * row_elems * x.element_size() % 16 == 0
+    fn = _fns.get("refid_passthrough") or _bound("refid_passthrough")
+    err = launch(fn, index, x_ptr, n_rows, row_elems, band, code, int(vec), y_ptr,
+                 current_stream(index))
+    if err:
+        _raise(err, "refid_passthrough")
     PASSTHROUGH_LAUNCHES += 1
     return y
 
 
-def passthrough_slice_cuda(view: torch.Tensor) -> torch.Tensor:
-    """P2: ``view = 2 view + 1`` in place, for a 2-D float32 or bf16 CUDA
-    view of any strides; returns ``view``."""
+def passthrough_slice_cuda(d: torch.Tensor, rows: int = 8, cols: int = 128) -> torch.Tensor:
+    """P2: ``v = 2 v + 1`` in place on the window ``v = d[0, 0, :rows,
+    :cols]`` of a float32 or bf16 ``(N, C, H, W)`` CUDA tensor of any
+    strides (the window clipped to H x W, as the slice is); returns ``d``."""
     global SLICE_LAUNCHES
-    _require_cuda(view, "passthrough_slice_cuda")
-    if view.dtype not in _DTYPE_CODE or view.dim() != 2:
-        raise TypeError(f"passthrough_slice_cuda takes a 2-D float32 or bfloat16 view, "
-                        f"got {view.dim()}-D {view.dtype}")
-    rows, cols = view.shape
-    if rows * cols == 0:
-        return view
-    lib = _library("passthrough")
-    with torch.cuda.device(view.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.refid_passthrough_slice(view.data_ptr(), rows, cols, view.stride(0),
-                                          view.stride(1), _DTYPE_CODE[view.dtype], stream)
-    raise_on_error(lib, err, "passthrough_slice")
+    index = _device_index(d, "passthrough_slice_cuda")
+    code = _DTYPE_CODE.get(d.dtype)
+    if code is None or d.dim() != 4:
+        raise TypeError(f"passthrough_slice_cuda takes a 4-D float32 or bfloat16 tensor, "
+                        f"got {d.dim()}-D {d.dtype}")
+    n, c, h, w = d.shape
+    rows, cols = min(rows, h), min(cols, w)
+    if n * c == 0 or rows < 1 or cols < 1:
+        raise IndexError(f"no window d[0, 0, :{rows}, :{cols}] in {tuple(d.shape)}")
+    _, _, row_stride, col_stride = d.stride()
+    fn = _fns.get("refid_passthrough_slice") or _bound("refid_passthrough_slice")
+    err = launch(fn, index, d.data_ptr(), rows, cols, row_stride, col_stride, code,
+                 current_stream(index))
+    if err:
+        _raise(err, "refid_passthrough_slice")
     SLICE_LAUNCHES += 1
-    return view
+    return d
 
 
 def pack_taps(w: torch.Tensor) -> torch.Tensor:
@@ -166,7 +177,7 @@ def band_conv_cuda(x: torch.Tensor, w: torch.Tensor, band: int = 8, rolls: bool 
     ``(H, WP, 128)`` bf16 output.  Packs w with :func:`pack_taps` (one copy
     of 144 or 288 KB) and launches the TMA / wgmma kernel."""
     global BAND_CONV_LAUNCHES, BAND_CONV_INT8_LAUNCHES
-    _require_cuda(x, "band_conv_cuda")
+    index = _device_index(x, "band_conv_cuda")
     if w.device != x.device:
         raise ValueError(f"x on {x.device} but w on {w.device}")
     if x.dim() != 3 or x.shape[2] != 128 or tuple(w.shape) != (3, 3, 128, 128):
@@ -191,12 +202,11 @@ def band_conv_cuda(x: torch.Tensor, w: torch.Tensor, band: int = 8, rolls: bool 
         raise ValueError("x must fit the kernel's 32-bit row index")
     wk = pack_taps(w)
     out = torch.empty((h, wp, 128), dtype=torch.bfloat16, device=x.device)
-    lib = _library("band_conv")
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.refid_band_conv(x.data_ptr(), wk.data_ptr(), h, wp, band, int(rolls),
-                                  mode, out.data_ptr(), stream)
-    raise_on_error(lib, err, "band_conv")
+    fn = _fns.get("refid_band_conv") or _bound("refid_band_conv")
+    err = launch(fn, index, x.data_ptr(), wk.data_ptr(), h, wp, band, int(rolls), mode,
+                 out.data_ptr(), current_stream(index))
+    if err:
+        _raise(err, "refid_band_conv")
     if int8:
         BAND_CONV_INT8_LAUNCHES += 1
     else:

@@ -59,7 +59,7 @@ def passthrough(d: torch.Tensor, band: int = 8) -> torch.Tensor:
     rows of a band are then contiguous); on the CPU, the plain version."""
     if d.dim() != 4:
         raise ValueError(f"passthrough takes (N, C, H, W), got {tuple(d.shape)}")
-    if d.device.type == "cuda":
+    if d.is_cuda:
         if not d.is_contiguous(memory_format=torch.channels_last):
             raise ValueError("passthrough on the card needs a channels_last tensor")
         return probe_cuda.passthrough_cuda(d, d.shape[0] * d.shape[2], band)
@@ -76,10 +76,10 @@ def tiny_passthrough_reference(d: torch.Tensor) -> torch.Tensor:
 def tiny_passthrough(d: torch.Tensor) -> torch.Tensor:
     """P2: ``2 x + 1`` on the slice ``d[0, 0, :8, :128]`` of an ``(N, C, H, W)``
     tensor (the JAX script's ``d[0, :8, :128, 0]`` in NHWC), in place, where
-    the JAX script writes a new array; returns ``d``."""
-    if d.device.type == "cuda":
-        probe_cuda.passthrough_slice_cuda(d[0, 0, :8, :128])
-        return d
+    the JAX script writes a new array; returns ``d``.  On the card the
+    kernel reads the window from ``d``'s strides: no view is built."""
+    if d.is_cuda:
+        return probe_cuda.passthrough_slice_cuda(d)
     return tiny_passthrough_reference(d)
 
 

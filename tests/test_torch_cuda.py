@@ -89,7 +89,7 @@ def test_voxelize_kernel_rejects_misaligned_buffer(cuda):
 def test_kernel_tile_plan_matches_python(cuda, bins, w, h):
     from refid_tpu_torch.events.voxel import SORT_CHUNK, voxel_tile_plan
     assert voxel_cuda.kernel_tile_plan(bins, w, h) == voxel_tile_plan(bins, w, h)
-    assert voxel_cuda._library().refid_voxel_sort_chunk() == SORT_CHUNK
+    assert voxel_cuda._bound("refid_voxel_sort_chunk")() == SORT_CHUNK
 
 
 @pytest.mark.parametrize("fmt", [None, "CHW", "HWC"], ids=["k1", "k2_chw", "k2_hwc"])
@@ -599,3 +599,163 @@ def test_quantize_int8_device_amax_matches_plain(cuda, shape, dtype):
         assert int8_cuda.QUANTIZE_LAUNCHES == before + 1 and torch.equal(amax, kept)
         want, want_s = quant.quantize_int8_reference(x, amax=amax)
         assert torch.equal(got_s, want_s) and torch.equal(got, want)
+
+
+# ---- the launch path: ABI, amax in one launch, P1's band pieces, threads --------------
+
+def test_conv_int8_abi_matches_the_structure(cuda):
+    """``refid_conv_int8_abi`` (the C struct as compiled) against the
+    ctypes ``ConvArgs``: its size, then each field's offset."""
+    import ctypes
+
+    from refid_tpu_torch.ops import int8_cuda
+    fields = [name for name, _ in int8_cuda.ConvArgs._fields_]
+    out = (ctypes.c_longlong * 64)()
+    count = int8_cuda._bound("refid_conv_int8_abi")(out, 64)
+    assert list(out[:count]) == ([ctypes.sizeof(int8_cuda.ConvArgs)]
+                                 + [getattr(int8_cuda.ConvArgs, f).offset for f in fields])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", [(1, 256, 182, 640), (1, 3, 5, 7), (2, 32, 64, 64)])
+def test_amax_pass_is_one_launch_and_leaves_its_state_zero(cuda, shape, dtype):
+    """The amax pass alone: one kernel a call, a new result each call equal
+    to ``max |x|``, the stream's state zero after it (so that a dynamic
+    quantization on the same stream reads its own amax)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from refid_tpu_torch.ops import int8_cuda
+    from refid_tpu_torch.serve import quant
+    x = _act(19, *shape, dtype=dtype).to(cuda)
+    small = x * 0.25
+    int8_cuda.amax_int8_cuda(x)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        first = int8_cuda.amax_int8_cuda(x)
+        second = int8_cuda.amax_int8_cuda(small)
+        torch.cuda.synchronize()
+    launches = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    assert len(launches) == 2 and all("amax_kernel" in n for n in launches), launches
+    assert first is not second
+    assert torch.equal(first, x.float().abs().amax().reshape(1))
+    assert torch.equal(second, small.float().abs().amax().reshape(1))
+    stream = torch.cuda.current_stream().cuda_stream
+    assert not int8_cuda._AMAX_STATE[(x.get_device(), stream)].any()
+    got, got_s = quant.quantize_int8(small)
+    want, want_s = quant.quantize_int8_reference(small)
+    assert torch.equal(got_s, want_s) and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("shape,band", [((1, 64, 360, 640), 8), ((1, 64, 360, 640), 16),
+                                        ((2, 8, 9, 33), 8), ((1, 4, 3, 2), 8),
+                                        ((1, 128, 720, 640), 8), ((1, 1, 1000, 8), 1)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_passthrough_band_pieces_match_plain(cuda, shape, band, dtype):
+    """P1 with each band split over several blocks: short last bands, rows
+    shorter than a block's share, fewer rows than a band, one row a band."""
+    from refid_tpu_torch.probes import poison
+    d = _randn(3, *shape, scale=50).to(cuda, dtype).contiguous(
+        memory_format=torch.channels_last)
+    assert torch.equal(poison.passthrough(d, band), poison.passthrough_reference(d))
+
+
+@pytest.mark.parametrize("shape,channels_last", [((1, 64, 360, 640), True),
+                                                  ((2, 3, 5, 40), False),
+                                                  ((1, 1, 8, 128), False),
+                                                  ((1, 2, 9, 200), True)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_tiny_passthrough_window_from_strides(cuda, shape, channels_last, dtype):
+    """P2 reads ``d[0, 0, :8, :128]`` from ``d``'s strides, the window
+    clipped to H x W as the slice is, in either memory order."""
+    from refid_tpu_torch.probes import poison
+    d = _randn(4, *shape, scale=50).to(cuda, dtype)
+    if channels_last:
+        d = d.contiguous(memory_format=torch.channels_last)
+    want = poison.tiny_passthrough_reference(d.clone())
+    assert torch.equal(poison.tiny_passthrough(d), want)
+
+
+_THREAD_SCRIPT = r"""
+import sys, threading
+import torch
+from refid_tpu_torch.ops import int8_cuda, probe_cuda
+from refid_tpu_torch.events import voxel_cuda
+from refid_tpu_torch.events.voxel import voxelize_padded_reference
+from refid_tpu_torch.probes import band_conv as bc, poison
+from refid_tpu_torch.serve import quant
+
+cuda = torch.device("cuda")
+gen = torch.Generator().manual_seed(7)
+def act(*shape):
+    x = torch.randn(*shape, generator=gen)
+    return torch.maximum(x, 0.1 * x).to(cuda, torch.bfloat16)
+convs = []     # three instantiations, three shared-memory sizes
+for cin, cout, h, w, k, stride in ((64, 16, 24, 40, 3, 1), (128, 64, 33, 72, 3, 1),
+                                   (256, 128, 30, 64, 4, 2)):
+    x = act(1, cin, h, w)
+    weight = (torch.randn(cout, cin, k, k, generator=gen) / (cin * k * k) ** 0.5).to(cuda)
+    wp, wscale, b = quant.WeightCache().packed(weight, None)
+    xq, xs = quant.quantize_int8_reference(x)
+    args = (xq, wp, wscale, xs, b, stride, 1, 0.1, False, torch.bfloat16)
+    convs.append((args, quant.conv_int8_reference(*args)))
+xa = act(1, 32, 50, 70)
+d = act(1, 64, 40, 64).contiguous(memory_format=torch.channels_last)
+x3 = torch.randn(48, 40, 128, generator=gen).to(cuda, torch.bfloat16)
+w3 = (0.05 * torch.randn(3, 3, 128, 128, generator=gen)).to(cuda, torch.bfloat16)
+ev = torch.zeros(4096, 4)
+ev[:4000, 0] = torch.sort(torch.rand(4000, generator=gen) * 5e4).values
+ev[:4000, 1] = torch.randint(0, 160, (4000,), generator=gen).float()
+ev[:4000, 2] = torch.randint(0, 48, (4000,), generator=gen).float()
+ev[:4000, 3] = torch.randint(0, 2, (4000,), generator=gen).float()
+ev = ev.to(cuda)
+wants = {"amax": xa.float().abs().amax().reshape(1), "p1": poison.passthrough_reference(d),
+         "p3": bc.band_conv_reference(x3, w3, 8),
+         "k1": voxelize_padded_reference(ev, 4000, 5, 160, 48)}
+p3_floor = bc.STEP_FLOOR * float(wants["p3"].float().abs().max())
+torch.cuda.synchronize()
+faults = []
+def work(i):
+    stream = torch.cuda.Stream()
+    with torch.cuda.stream(stream):
+        for _ in range(3):
+            for args, want in convs[i % 3:] + convs[:i % 3]:
+                if not torch.equal(quant.conv_int8_packed(*args), want):
+                    faults.append(("conv", i))
+            got = {"amax": int8_cuda.amax_int8_cuda(xa), "p1": poison.passthrough(d),
+                   "p3": bc.band_conv(x3, w3, 8),
+                   "k1": voxel_cuda.voxelize_cuda(ev, 4000, 5, 160, 48)}
+            stream.synchronize()
+            for k, v in got.items():
+                if k == "k1":      # shared-memory float atomics: order varies, TOL
+                    same = (v - wants[k]).abs().max().item() <= 1e-4
+                elif k == "p3":    # float32 sums in another order: 2 bf16 steps
+                    same = bc.bf16_steps(v, wants[k], p3_floor).max().item() <= 2
+                else:
+                    same = torch.equal(v, wants[k])
+                if not same:
+                    faults.append((k, i))
+threads = [threading.Thread(target=work, args=(i,)) for i in range(4)]
+for t in threads:
+    t.start()
+for t in threads:
+    t.join(timeout=300)
+alive = [t for t in threads if t.is_alive()]
+print("OK" if not faults and not alive else f"faults {faults} alive {len(alive)}")
+"""
+
+
+def test_first_launches_from_threads_and_streams_hit_the_caches(cuda):
+    """In a fresh process, the first launch of every kernel comes from one
+    of four threads, each on its own stream: the SM counts and shared-memory
+    limits set once, the bound functions and the per-stream amax states
+    serve every thread, and each result equals its plain version."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+    repo = Path(__file__).resolve().parent.parent
+    out = subprocess.run([sys.executable, "-c", _THREAD_SCRIPT], cwd=repo,
+                         env={**os.environ, "PYTHONPATH": str(repo)}, capture_output=True,
+                         text=True, timeout=600)
+    assert out.stdout.strip().splitlines()[-1:] == ["OK"], out.stdout + out.stderr

@@ -109,8 +109,9 @@ def test_import_builds_nothing():
             " refid_tpu_torch.probes.poison, refid_tpu_torch.cli.test, refid_tpu_torch.eval.niqe,"
             " refid_tpu_torch.cli.demo, refid_tpu_torch.tasks.single,"
             " refid_tpu_torch.cli.create_lmdb, refid_tpu_torch.data.lmdb_util;"
-            "import refid_tpu_torch.data.img_util as i;"
-            "print(v._lib is None and p._libs == {} and i._lib is None, b._loaded == {})")
+            "import refid_tpu_torch.data.img_util as i, refid_tpu_torch.ops.int8_cuda as q;"
+            "print(v._fns == {} and p._fns == {} and q._fns == {} and i._lib is None,"
+            " b._loaded == {})")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.stdout.split() == ["True", "True"], out.stderr
