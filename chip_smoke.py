@@ -633,6 +633,13 @@ def phase_profile(pipe, request, window_ms, top=12):
     profile_window("profile", run, window_ms, top)
 
 
+def idle_share(busy_ms, wall_ms):
+    """The device's idle share of a wall time, from a profiled run's busy
+    time and unprofiled runs' wall time; unclamped, so that a busy time
+    above the wall time shows as a negative share."""
+    return 1.0 - busy_ms / wall_ms
+
+
 def profile_window(phase, run, window_ms, top=12):
     """``run()`` under torch.profiler: device time by kernel, and the
     device's idle share against the unprofiled wall time ``window_ms``."""
@@ -652,7 +659,7 @@ def profile_window(phase, run, window_ms, top=12):
     check(busy_ms > 0, "the profiler recorded no device time")
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])
     emit(phase, dtype="bf16", device_busy_ms=busy_ms, window_ms=window_ms,
-         idle_share=max(0.0, 1.0 - busy_ms / window_ms),
+         idle_share=idle_share(busy_ms, window_ms),
          kernel_launches=sum(n for _, n in by_name.values()),
          top=[{"kernel": name[:90], "ms": ms, "launches": n,
                "share": ms / busy_ms} for name, (ms, n) in ranked[:top]])
@@ -975,7 +982,7 @@ def phase_int8_serve(requests):
              bf16_db_vs_f32=bf16_db, calibrate_ms=calib_ms,
              calibrated_sites=None if pipe._int8_scales is None else len(pipe._int8_scales),
              max_memory_allocated=peak, profiled_device_busy_ms=busy,
-             idle_share=max(0.0, 1.0 - busy / ms),
+             idle_share=idle_share(busy, ms),
              int8_device_ms=int8_ms, int8_share=int8_ms / busy,
              int8_kernels={k: {"ms": v[0], "launches": v[1]} for k, v in mine.items()})
         del pipe, out
@@ -1210,7 +1217,7 @@ def phase_evhinet_serve(requests):
                   f"{len(requests) - 1} images of {EVHINET_SITES} sites")
             mine, busy = int8_share(lambda: run(requests[-1]), mode is True)
             int8_ms = sum(v[0] for v in mine.values())
-            row.update(profiled_device_busy_ms=busy, idle_share=max(0.0, 1.0 - busy / ms),
+            row.update(profiled_device_busy_ms=busy, idle_share=idle_share(busy, ms),
                        int8_device_ms=int8_ms, int8_share=int8_ms / busy,
                        int8_kernels={k: {"ms": v[0], "launches": v[1]} for k, v in mine.items()})
         rows[str(mode)] = row

@@ -4,7 +4,7 @@
 * :func:`passthrough_cuda` (P1) is the Hopper counterpart of
   ``scripts/probe_poison.py::pallas_op``: ``2x + 1`` over bands of rows.
 * :func:`passthrough_slice_cuda` (P2), of ``probe_poison.py::tiny_pallas``:
-  ``2x + 1`` in place on the ``(8, 128)`` window ``d[0, 0, :8, :128]``, read
+  ``2x + 1`` in place on the :data:`WINDOW` ``d[0, 0, :8, :128]``, read
   from ``d``'s pointer and strides (no view is built: four indexing ops a
   call cost more host time than the launch).
 * :func:`band_conv_cuda` (P3 and P4), of ``scripts/probe_band_conv.py::
@@ -33,7 +33,7 @@ import torch
 from refid_tpu_torch.ops.build import bind, current_stream, launch, load, raise_on_error
 
 __all__ = ["PASSTHROUGH_LAUNCHES", "SLICE_LAUNCHES", "BAND_CONV_LAUNCHES",
-           "BAND_CONV_INT8_LAUNCHES", "TILE_ROWS", "reset_launches", "passthrough_cuda",
+           "BAND_CONV_INT8_LAUNCHES", "TILE_ROWS", "WINDOW", "reset_launches", "passthrough_cuda",
            "passthrough_slice_cuda", "pack_taps", "tile_schedule", "tile_source_rows",
            "band_conv_cuda"]
 
@@ -45,6 +45,8 @@ _fns = {}        # C function name -> bound function, filled at first launch
 # interior rows per tile (kWindow - 8 of Cfg<mode> in csrc/band_conv.cu), by
 # mode: 0 bf16, 1 bf16 x quantized in the kernel, 2 int8 x
 TILE_ROWS = {0: 248, 1: 120, 2: 248}
+# P2's window, rows x columns: the TPU script's d[0, :8, :128, 0]
+WINDOW = (8, 128)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {      # library -> {function: argtypes}; each returns a CUDA error code
@@ -109,10 +111,11 @@ def passthrough_cuda(x: torch.Tensor, n_rows: int, band: int = 8) -> torch.Tenso
     return y
 
 
-def passthrough_slice_cuda(d: torch.Tensor, rows: int = 8, cols: int = 128) -> torch.Tensor:
-    """P2: ``v = 2 v + 1`` in place on the window ``v = d[0, 0, :rows,
-    :cols]`` of a float32 or bf16 ``(N, C, H, W)`` CUDA tensor of any
-    strides (the window clipped to H x W, as the slice is); returns ``d``."""
+def passthrough_slice_cuda(d: torch.Tensor) -> torch.Tensor:
+    """P2: ``v = 2 v + 1`` in place on the window ``v = d[0, 0, :8, :128]``
+    (:data:`WINDOW`) of a float32 or bf16 ``(N, C, H, W)`` CUDA tensor of
+    any strides (the window clipped to H x W, as the slice is); returns
+    ``d``."""
     global SLICE_LAUNCHES
     index = _device_index(d, "passthrough_slice_cuda")
     code = _DTYPE_CODE.get(d.dtype)
@@ -120,7 +123,7 @@ def passthrough_slice_cuda(d: torch.Tensor, rows: int = 8, cols: int = 128) -> t
         raise TypeError(f"passthrough_slice_cuda takes a 4-D float32 or bfloat16 tensor, "
                         f"got {d.dim()}-D {d.dtype}")
     n, c, h, w = d.shape
-    rows, cols = min(rows, h), min(cols, w)
+    rows, cols = min(WINDOW[0], h), min(WINDOW[1], w)
     if n * c == 0 or rows < 1 or cols < 1:
         raise IndexError(f"no window d[0, 0, :{rows}, :{cols}] in {tuple(d.shape)}")
     _, _, row_stride, col_stride = d.stride()

@@ -2,14 +2,12 @@
 """The kernels' launch path on one card: what each wrapper costs the host
 per call, where that time goes, and the floors beside it.
 
-    python3 tools/launch_path.py [--tree DIR] [--calls N] [--serve]
+    python3 tools/launch_path.py [--calls N]
 
-DIR is a tree of this repository (default: this checkout), for example the
-parent commit unpacked with ``git archive`` into a directory that
-``.gitignore`` lists; its ``refid_tpu_torch`` is imported and its kernels
-are built, so two trees are compared by running this script once for each,
-in turns, on one card.  ``chip_smoke.py``'s ``launch_path`` phase calls
-:func:`measure` on the checkout it runs from.
+It measures the ``refid_tpu_torch`` of the checkout it sits in and builds
+that checkout's kernels; two commits are compared by unpacking each (``git
+archive``) and running each one's copy of this script in turns on one card.
+``chip_smoke.py``'s ``launch_path`` phase calls :func:`measure`.
 
 For each wrapper (P1 and P2 through the poison probe's dispatchers, P3,
 P4, K1, K2, Q8 static, dynamic and from a device amax, the amax pass alone,
@@ -19,8 +17,8 @@ C8) at its main-path or probe shape:
   synchronize after (the card is not the pacer: fewer launches than the
   queue holds), the median and the spread of 5 such runs;
 * ``split_us``: the same clock around each step alone, ``--calls`` times:
-  ``stream`` (making the device current and reading the current stream, as
-  the tree's wrappers do), ``ctypes`` (the C launcher called with the
+  ``stream`` (``ops/build.py``'s ``launch`` and ``current_stream``: the
+  device made current when another one is, the raw stream handle), ``ctypes`` (the C launcher called with the
   arguments the wrapper passed, captured beforehand; it holds the launch
   and the launcher's runtime queries), ``queries`` (those queries, from
   their cost in C), ``plan`` (the conv's tile plan, or the voxelizer's),
@@ -35,10 +33,7 @@ the per-call slice of ``d``) and ``torch.add(one, d, alpha=2)`` for P1, each
 held bit for bit against its kernel and timed against it in turns
 (``paired``: CUDA events a call, 5 rounds of kernel then library, the
 medians, so that the host's noise falls on both); an empty kernel's host
-and device time; the runtime queries' cost in C.  The floors come from this
-checkout's ``csrc/launch_floor.cu`` whatever DIR is.  ``--serve`` adds the
-tree's ``chip_smoke.py`` int8 serving and EVHINet phases and prints the
-idle share of each int8 window and image they profile.
+and device time (``csrc/launch_floor.cu``); the runtime queries' cost in C.
 
 Prints the card's name and power limit, then one JSON line.  Needs one CUDA
 card.
@@ -48,7 +43,6 @@ import argparse
 import contextlib
 import ctypes
 import gc
-import importlib.util
 import json
 import os
 import statistics
@@ -58,21 +52,13 @@ import time
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 REPEATS = 5
-# each launcher's runtime queries a call, by tree: "lean" keeps them
-# (csrc/launch.cuh), "per_call" is the launchers before that (they asked
-# each call); names index the floor library's query costs
-QUERIES = {
-    "per_call": {"P1": [], "P2": [], "P3": ["device", "sms", "smem"],
-                 "P4": ["device", "sms", "smem"], "K1": ["smem", "smem"],
-                 "K2": ["smem", "smem"], "Q8_static": [], "Q8_dynamic": ["device", "sms"],
-                 "Q8_device_amax": [], "amax": ["device", "sms"],
-                 "C8": ["device", "sms", "smem"]},
-    "lean": {"P1": ["device_sms"], "P2": [], "P3": ["device_sms", "cached_smem"],
-             "P4": ["device_sms", "cached_smem"], "K1": ["device", "cached_smem", "cached_smem"],
-             "K2": ["device", "cached_smem", "cached_smem"], "Q8_static": [],
-             "Q8_dynamic": ["device_sms"], "Q8_device_amax": [], "amax": ["device_sms"],
-             "C8": ["device_sms", "cached_smem"]},
-}
+# each launcher's runtime queries a call (csrc/launch.cuh keeps the SM
+# count and the shared-memory limit); names index the floor library's costs
+QUERIES = {"P1": ["device_sms"], "P2": [], "P3": ["device_sms", "cached_smem"],
+           "P4": ["device_sms", "cached_smem"], "K1": ["device", "cached_smem", "cached_smem"],
+           "K2": ["device", "cached_smem", "cached_smem"], "Q8_static": [],
+           "Q8_dynamic": ["device_sms"], "Q8_device_amax": [], "amax": ["device_sms"],
+           "C8": ["device_sms", "cached_smem"]}
 QUERY_NAMES = ("device", "sms", "smem", "device_sms", "cached_smem")
 
 
@@ -83,13 +69,10 @@ def smi_line():
 
 
 def floor_library():
-    """This checkout's ``csrc/launch_floor.cu``, built and loaded through
-    this checkout's ``ops/build.py`` (whatever tree is imported)."""
-    spec = importlib.util.spec_from_file_location(
-        "launch_floor_build", os.path.join(HERE, "refid_tpu_torch", "ops", "build.py"))
-    module = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(module)
-    lib = module.load("launch_floor")
+    """``csrc/launch_floor.cu``'s library, its two functions bound."""
+    from refid_tpu_torch.ops import build
+
+    lib = build.load("launch_floor")
     lib.refid_launch_floor_empty.argtypes = [ctypes.c_void_p]
     lib.refid_launch_floor_empty.restype = ctypes.c_int
     lib.refid_launch_floor_queries.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_double)]
@@ -190,9 +173,9 @@ def recording(lib, fn_name, modules):
             d[fn_name] = original
 
 
-def measure(calls=200, tree=HERE):
-    """The launch path of the ``refid_tpu_torch`` imported (see the module
-    docstring); returns one dict."""
+def measure(calls=200):
+    """The launch path of this checkout's ``refid_tpu_torch`` (see the
+    module docstring); returns one dict."""
     import numpy as np
     import torch
 
@@ -204,7 +187,6 @@ def measure(calls=200, tree=HERE):
 
     cuda = torch.device("cuda")
     index = torch.cuda.current_device()
-    lean = hasattr(build, "current_stream")
     t0 = time.perf_counter()
     built = build.build()
     build_s = {"seconds": time.perf_counter() - t0,
@@ -285,16 +267,10 @@ def measure(calls=200, tree=HERE):
     if err:
         raise RuntimeError(f"launch_floor queries failed: CUDA error {err}")
     query_ns = dict(zip(QUERY_NAMES, qns))
-    version = "lean" if lean else "per_call"
     modules = [probe_cuda, int8_cuda, voxel_cuda]
 
-    if lean:
-        def stream_step():
-            return build.launch(int, index, build.current_stream(index))
-    else:
-        def stream_step():
-            with torch.cuda.device(cuda):
-                return torch.cuda.current_stream().cuda_stream
+    def stream_step():
+        return build.launch(int, index, build.current_stream(index))
 
     stream_us = host_us(stream_step, calls, sync=False)["median"]
     rows = {}
@@ -311,7 +287,7 @@ def measure(calls=200, tree=HERE):
         alloc_us = host_us(lambda: [torch.empty(s, dtype=t, device=cuda) for s, t in outs],
                            calls, sync=False)["median"] if outs else 0.0
         plan_us = host_us(plan, calls, sync=False)["median"] if plan else 0.0
-        queries_us = sum(query_ns[q] for q in QUERIES[version][name]) / 1e3
+        queries_us = sum(query_ns[q] for q in QUERIES[name]) / 1e3
         rows[name] = {
             "shape": shapes[name], "calls": n_calls, "host_us": total,
             "split_us": {"stream": stream_us, "ctypes": ctypes_us, "queries": queries_us,
@@ -357,78 +333,23 @@ def measure(calls=200, tree=HERE):
                                "library_ms": p2_library}, calls),
               "P1": paired_ms({"kernel_ms": lambda: poison.passthrough(d),
                                "library_ms": lambda: torch.add(one, d, alpha=2)}, calls // 2)}
-    return {"tree": os.path.abspath(tree), "launch_path": version, "build": build_s,
+    return {"build": build_s,
             "wrappers": rows, "floors": floors, "paired": paired, "bit_equal": bit_equal,
             "query_ns": query_ns, "calls": calls}
 
 
-def serve_idle_shares():
-    """The tree's ``chip_smoke.py`` int8 serving and EVHINet serving phases,
-    as its ``main`` runs them; returns each profiled int8 window's and
-    image's idle share (1 - profiled device busy / unprofiled wall time)."""
-    import numpy as np
-
-    import chip_smoke as cs
-
-    lines = []
-    emit = cs.emit
-
-    def recording_emit(phase, **fields):
-        lines.append({"phase": phase, **fields})
-        emit(phase, **fields)
-
-    cs.emit = recording_emit
-    try:
-        rng = np.random.RandomState(2)
-        requests = [(rng.rand(cs.HEIGHT, cs.WIDTH, 3).astype(np.float32),
-                     rng.rand(cs.HEIGHT, cs.WIDTH, 3).astype(np.float32),
-                     cs.random_events(rng, cs.FULL_EVENTS, cs.WIDTH, cs.HEIGHT))
-                    for _ in range(4)]
-        cs.set_tf32(False)
-        cs.phase_int8_serve(requests)
-        del requests
-        rng = np.random.RandomState(8)
-        ev_requests = [(rng.rand(cs.HEIGHT, cs.WIDTH, 3).astype(np.float32),
-                        cs.random_events(rng, cs.EV_EVENTS, cs.WIDTH, cs.HEIGHT))
-                       for _ in range(cs.EVHINET_IMAGES)]
-        cs.phase_evhinet_serve(ev_requests)
-    finally:
-        cs.emit = emit
-    idle = {}
-    for line in lines:
-        if line["phase"] == "int8_serve":
-            idle[f"window int8={line['mode']}"] = {
-                "ms": line["mean_ms_per_window"], "busy_ms": line["profiled_device_busy_ms"],
-                "idle_share": 1 - line["profiled_device_busy_ms"] / line["mean_ms_per_window"]}
-        elif line["phase"] == "evhinet_serve":
-            for mode, row in line["modes"].items():
-                if "profiled_device_busy_ms" in row:
-                    idle[f"evhinet int8={mode}"] = {
-                        "ms": row["mean_ms_per_image"], "busy_ms": row["profiled_device_busy_ms"],
-                        "idle_share": 1 - row["profiled_device_busy_ms"] / row["mean_ms_per_image"]}
-    return idle
-
-
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--tree", default=HERE, help="the tree whose refid_tpu_torch is measured")
     ap.add_argument("--calls", type=int, default=200)
-    ap.add_argument("--serve", action="store_true",
-                    help="also the tree's int8 serving phases and their idle shares")
     args = ap.parse_args(argv)
     import torch
 
     if not torch.cuda.is_available():
         print("launch_path: needs a CUDA card", file=sys.stderr)
         return 1
-    tree = os.path.abspath(args.tree)
-    sys.path.insert(0, tree)
-    os.chdir(tree)
+    sys.path.insert(0, HERE)
     print(smi_line(), flush=True)
-    result = measure(args.calls, tree)
-    if args.serve:
-        result["serve_idle"] = serve_idle_shares()
-    print(json.dumps({"launch_path": result}), flush=True)
+    print(json.dumps({"launch_path": measure(args.calls)}), flush=True)
     return 0
 
 
