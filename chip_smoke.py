@@ -52,6 +52,12 @@ random weights:
   through the train CLI's ``main`` in float32 and bf16 with validations and
   its TensorBoard file read back, and one item of each deblur dataset and
   of BS-ERGB built on the card against the CPU;
+* released-checkpoint evaluation (K2, ``quantize_int8``, ``conv_int8``):
+  ``scripts/eval_released_torch.py`` on the seeded weights saved as
+  ``.pth`` files, the flagship through ``Test_Final_1skip.yml`` in float
+  (equal to the test CLI's results) and both int8 modes, EVHINet tiled in
+  float (equal to the test CLI's) and int8, and the HighREV option file
+  ``Test_UND_Final_1skip.yml`` on a HighREV-layout copy of the tree;
 * the padded-capacity voxelizer entry (K1) at the serving shape;
 * the probes (P1-P4): ``python -m refid_tpu_torch.probes.band_conv``'s and
   ``python -m refid_tpu_torch.probes.poison``'s ``main`` at the serving
@@ -140,6 +146,11 @@ FULL_EVENTS = 1 << 20
 OPTIONS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "options")
 RECIPE = os.path.join(OPTIONS, "train", "GoPro", "Final_bidirectionEncoder_XXNet_1attenfusion.yml")
 EVAL_OPTIONS = os.path.join(OPTIONS, "test", "GoPro", "Test_Final_1skip.yml")
+HIGHREV_OPTIONS = os.path.join(OPTIONS, "test", "HighREV", "Test_UND_Final_1skip.yml")
+EVAL_RELEASED = os.path.join(os.path.dirname(OPTIONS), "scripts", "eval_released_torch.py")
+RELEASED_ITEMS = 2                 # the flagship's items (all of the tree's test split)
+RELEASED_INT8_DB = 1.0             # int8 PSNR within this of float (the JAX script's test)
+TABLE_HEADER = "| Metric | Value | Hardware | Source |"
 TRAIN_ITERS = 8
 VAL_FREQ = 4                  # validations after iterations 4 and 8
 PADDED_EVENTS = (1 << 20) - 48576     # 10**6 events: the entry pads them to 2**20
@@ -814,14 +825,40 @@ def int_mm_taps(xq, wp):
     return probe_bc.library_conv_int8(xq[0], wp.permute(1, 2, 3, 0).contiguous())
 
 
+def quantize_per_tensor_cell(x, scale):
+    """``torch.quantize_per_tensor(x, scale, 0, torch.qint8)``, the one-call
+    library quantizer nearest to Q8 at a static scale: its ms (on ``x``, or
+    on ``x`` in float32 where it refuses ``x``'s dtype, as it refuses bf16),
+    and how its values compare with Q8's (it leaves NCHW and clamps to -128,
+    Q8 writes NHWC with padded channels and clamps to -127)."""
+    def call(xin):
+        return torch.quantize_per_tensor(xin, scale, 0, torch.qint8)
+
+    xin = x
+    try:
+        lib = call(xin)
+    except (RuntimeError, NotImplementedError):
+        xin = x.float()
+        lib = call(xin)
+    got = torch.int_repr(lib).permute(0, 2, 3, 1).int()
+    want = quant.quantize_int8(x, scale)[0][..., :x.shape[1]].int()
+    diff = (got - want).abs()
+    return {"static_library_ms": time_ms(lambda: call(xin), 50, CUDA),
+            "static_library_call": "torch.quantize_per_tensor(x, scale, 0, torch.qint8)",
+            "static_library_input": str(xin.dtype).removeprefix("torch."),
+            "static_library_layout": "NCHW", "static_library_equal": bool(diff.max() == 0),
+            "static_library_mismatches": int((diff > 0).sum()),
+            "static_library_max_abs_diff": int(diff.max())}
+
+
 def phase_int8_kernel_timing():
     """Both kernels at the INT8_TIMED shapes (bf16 input, dynamic scale, bias,
     leaky 0.1, bf16 out): CUDA events per call, device time from the
     profiler, the plain versions, the bound, TOP/s, cuDNN's bf16
     channels_last conv with the same epilogue and nine ``torch._int_mm``
-    taps; the quantization static too.  Returns ``{"quantize_int8": ...,
-    "conv_int8": ...}`` at INT8_TIMED[0], with every shape's figures in the
-    phase's line."""
+    taps; the quantization static too, beside ``torch.quantize_per_tensor``.
+    Returns ``{"quantize_int8": ..., "conv_int8": ...}`` at INT8_TIMED[0],
+    with every shape's figures in the phase's line."""
     shapes = {}
     for name in INT8_TIMED:
         cin, cout, h, w, k, stride = INT8_CONV_SHAPES[name]
@@ -853,7 +890,8 @@ def phase_int8_kernel_timing():
                                                 "amax_kernel"),
              "static_ms": time_ms(lambda: quant.quantize_int8(x, 0.02), 50, CUDA),
              "static_device_ms": kernel_device_ms(lambda: quant.quantize_int8(x, 0.02), 20,
-                                                  "quantize_kernel")}
+                                                  "quantize_kernel"),
+             **quantize_per_tensor_cell(x, 0.02)}
         q["device_ms"] = q["quantize_device_ms"] + q["amax_device_ms"]
         q["static_bound_share"] = q["bound_ms"] / q["static_ms"]
         c = {"ms": time_ms(conv, 50, CUDA),
@@ -1270,14 +1308,14 @@ def phase_evhinet_eval(data_root, work, state):
     """``cli.test`` (``run``) on the synthetic tree's single-image items,
     untiled with its images saved and in EVHINET_CROP tiles, then
     ``cli.demo`` on one blurred frame and one event window.  Returns K2's
-    launches."""
+    launches and the results by ``crop_size``."""
     import yaml
 
     weights = os.path.join(work, "evhinet.pth")
     torch.save({"params": state}, weights)
     set_tf32(True)      # PyTorch's defaults
     torch.backends.cuda.matmul.allow_tf32 = False
-    total = 0
+    total, by_crop = 0, {}
     for crop in (None, EVHINET_CROP):
         path, name = write_single_image_options(work, data_root, weights, crop)
         voxel_cuda.reset_grid_stats()
@@ -1301,6 +1339,7 @@ def phase_evhinet_eval(data_root, work, state):
         check(launches == items, f"evhinet eval: K2 launched {launches} times for {items} items")
         check(saved == (items if crop is None else 0), f"evhinet eval saved {saved} images")
         total += launches
+        by_crop[crop] = results
         del task
 
     out = os.path.join(work, "demo.png")
@@ -1326,7 +1365,121 @@ def phase_evhinet_eval(data_root, work, state):
           == (HEIGHT, WIDTH, 3) and bool(torch.isfinite(task.demo_output).all()),
           f"demo wrote {written.shape}")
     check(voxel_cuda.GRID_LAUNCHES == 1, f"demo: K2 launched {voxel_cuda.GRID_LAUNCHES} times")
-    return total + voxel_cuda.GRID_LAUNCHES
+    return total + voxel_cuda.GRID_LAUNCHES, by_crop
+
+
+def released_psnr(results):
+    return results.get("total_psnr", results.get("psnr", math.nan))
+
+
+def released_run(script, work, smi, options, pth, dataroot, max_items=None, int8=None):
+    """One ``scripts/eval_released_torch.py`` run in this process (``run``,
+    which its ``main`` calls): the one dataset's results, items and kernel
+    launches; the printed table checked (header, one row, the card's name
+    and power limit in its Hardware cell); its stderr passes through."""
+    import contextlib
+    import io
+
+    label = f"{os.path.splitext(os.path.basename(options))[0]}_{int8 or 'float'}"
+    argv = ["--pth", pth, "--config", options, "--dataroot", dataroot,
+            "--root", os.path.join(work, "released", label)]
+    argv += ["--max-items", str(max_items)] if max_items else []
+    argv += ["--int8", int8] if int8 else []
+    voxel_cuda.reset_grid_stats()
+    q0, c0 = int8_cuda.QUANTIZE_LAUNCHES, int8_cuda.CONV_LAUNCHES
+    torch.cuda.reset_peak_memory_stats()
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        task = script.run(argv)
+    seconds = time.perf_counter() - t0
+    launches = {"voxel_grid": voxel_cuda.GRID_LAUNCHES,
+                "quantize_int8": int8_cuda.QUANTIZE_LAUNCHES - q0,
+                "conv_int8": int8_cuda.CONV_LAUNCHES - c0}
+    (name, results), = task.results.items()
+    timing, items = task.test_timing[name], task.test_timing[name]["items"]
+    rows = [line for line in out.getvalue().splitlines() if line.startswith("|")]
+    emit("eval_released", options=os.path.relpath(options, os.path.dirname(OPTIONS)),
+         mode=int8 or "float", frame=[HEIGHT, WIDTH], items=items, results=results,
+         predict_ms_per_item=timing["predict_ms"] / max(items, 1),
+         metric_ms_per_item=timing["metric_ms"] / max(items, 1),
+         save_ms_per_item=timing["save_ms"] / max(items, 1),
+         max_memory_allocated=torch.cuda.max_memory_allocated(), launches=launches,
+         seconds=seconds, table=rows, nvidia_smi=smi)
+    check(items > 0 and all(math.isfinite(v) for v in results.values()),
+          f"eval_released {label}: results {results} over {items} items")
+    check(len(rows) == 3 and rows[0] == TABLE_HEADER and rows[2].split(" | ")[2] == smi,
+          f"eval_released {label}: table {rows}, the card {smi!r}")
+    return results, items, launches
+
+
+def phase_eval_released(work, data_root, highrev, state, evhinet_pth, eval_results,
+                        evhinet_tiled):
+    """``scripts/eval_released_torch.py`` on the card, each run in this
+    process: ``state`` saved as a released ``{"params": ...}`` checkpoint
+    through Test_Final_1skip.yml on the synthetic tree in float (equal to
+    ``eval``'s results), ``--int8`` and ``--int8 scale0`` (within
+    RELEASED_INT8_DB of float, not equal to it, C8 and Q8 launched);
+    EVHINet's checkpoint tiled in float (equal to ``evhinet_eval``'s tiled
+    results) and ``--int8``; Test_UND_Final_1skip.yml on the HighREV-layout
+    tree, one item.  K2 launches once an item the loader reads.  Returns
+    the launches of K2, Q8 and C8."""
+    spec = importlib.util.spec_from_file_location("eval_released_torch", EVAL_RELEASED)
+    script = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(script)
+    smi = smi_line()
+    pth = os.path.join(work, "released_flagship.pth")
+    torch.save({"params": state}, pth)
+    total = {"voxel_grid": 0, "quantize_int8": 0, "conv_int8": 0}
+
+    def add(launches):
+        for k, v in launches.items():
+            total[k] += v
+
+    float_res, items, launches = released_run(script, work, smi, EVAL_OPTIONS, pth, data_root,
+                                              RELEASED_ITEMS)
+    add(launches)
+    diff = max(abs(float_res[k] - eval_results[k]) for k in eval_results)
+    check(float_res.keys() == eval_results.keys() and diff <= METRIC_TOL,
+          f"eval_released float {float_res} differs from eval's {eval_results}")
+    check(launches["voxel_grid"] == items == RELEASED_ITEMS,
+          f"eval_released float: K2 launched {launches['voxel_grid']} times for {items} items")
+    for mode in ("true", "scale0"):
+        res, items, launches = released_run(script, work, smi, EVAL_OPTIONS, pth, data_root,
+                                            RELEASED_ITEMS, int8=mode)
+        add(launches)
+        gap = released_psnr(res) - released_psnr(float_res)
+        check(abs(gap) <= RELEASED_INT8_DB and res != float_res,
+              f"eval_released int8={mode}: {res} against float {float_res}")
+        check(launches["voxel_grid"] == items and launches["quantize_int8"] > 0
+              and launches["conv_int8"] > 0,
+              f"eval_released int8={mode}: launches {launches} for {items} items")
+
+    options, _ = write_single_image_options(work, data_root, evhinet_pth, EVHINET_CROP)
+    ev_float, items, launches = released_run(script, work, smi, options, evhinet_pth, data_root)
+    add(launches)
+    diff = max(abs(ev_float[k] - evhinet_tiled[k]) for k in evhinet_tiled)
+    check(ev_float.keys() == evhinet_tiled.keys() and diff <= METRIC_TOL,
+          f"eval_released EVHINet tiled {ev_float} differs from evhinet_eval's {evhinet_tiled}")
+    check(launches["voxel_grid"] == items,
+          f"eval_released EVHINet: K2 launched {launches['voxel_grid']} times for {items} items")
+    ev_int8, items, launches = released_run(script, work, smi, options, evhinet_pth, data_root,
+                                            int8="true")
+    add(launches)
+    check(abs(released_psnr(ev_int8) - released_psnr(ev_float)) <= RELEASED_INT8_DB
+          and ev_int8 != ev_float, f"eval_released EVHINet int8: {ev_int8} against {ev_float}")
+    check(launches["voxel_grid"] == items and launches["quantize_int8"] > 0
+          and launches["conv_int8"] > 0,
+          f"eval_released EVHINet int8: launches {launches} for {items} items")
+
+    # the test split of the HighREV-layout tree is its train video
+    os.symlink(os.path.join(highrev, "train"), os.path.join(highrev, "test"))
+    _, items, launches = released_run(script, work, smi, HIGHREV_OPTIONS, pth, highrev, 1)
+    add(launches)
+    # the test loader reads one item ahead of the one evaluated
+    check(items == 1 and 1 <= launches["voxel_grid"] <= 2,
+          f"eval_released HighREV: K2 launched {launches['voxel_grid']} times for {items} items")
+    return total
 
 
 def write_gopro_tree(root, seed=0, num_blur=4, num_gt=48, num_windows=47,
@@ -1538,7 +1691,8 @@ def phase_metric_parity(data_root):
 def phase_eval(data_root, work, state):
     """The test CLI's entry (``cli.test.run``, which ``main`` calls) on
     ``Test_Final_1skip.yml`` with its dataroot set to the synthetic tree and
-    its weights to a checkpoint of ``state``; returns the K2 launches."""
+    its weights to a checkpoint of ``state``; returns the K2 launches and
+    the results."""
     import yaml
 
     models = os.path.join(work, "eval_models")
@@ -1573,7 +1727,7 @@ def phase_eval(data_root, work, state):
           f"eval results {results} over {items} items")
     check(launches == items, f"eval: K2 launched {launches} times for {items} items")
     check(saved == items * 23, f"eval saved {saved} images for {items} items")
-    return launches
+    return launches, results
 
 
 def median_ms(fn, repeats):
@@ -1876,11 +2030,11 @@ def layout_trees(data_root, work):
     return highrev, bsergb
 
 
-def phase_datasets(data_root, work):
-    """One item of each deblur dataset and of BS-ERGB at 1280x720, built on
-    the card (K2) and on the CPU (the plain voxelizer) from one seed: images
-    equal, voxels within KERNEL_TOL.  Returns K2's launches."""
-    highrev, bsergb = layout_trees(data_root, work)
+def phase_datasets(data_root, highrev, bsergb):
+    """One item of each deblur dataset and of BS-ERGB at 1280x720 (the trees
+    of :func:`layout_trees`), built on the card (K2) and on the CPU (the
+    plain voxelizer) from one seed: images equal, voxels within KERNEL_TOL.
+    Returns K2's launches."""
     deblur = {"num_end_interpolation": 11, "num_inter_interpolation": 1}
     cases = [("DeblurGoProEventRecurrentDataset", data_root, deblur),
              ("DeblurUNDEventRecurrentDataset", highrev, deblur),
@@ -3123,12 +3277,21 @@ def main():
         phase_train_profile(task, batch)            # ... and ends here
         del task, batch
         phase_metric_parity(data_root)
-        grid_launches += phase_eval(data_root, work, state)   # the eval path
+        eval_k2, eval_results = phase_eval(data_root, work, state)   # the eval path
+        grid_launches += eval_k2
         t0 = time.perf_counter()
-        evhinet_k2 = phase_evhinet_eval(data_root, work, evhinet_state(1, filled=True))
+        evhinet_k2, evhinet_results = phase_evhinet_eval(data_root, work,
+                                                         evhinet_state(1, filled=True))
         emit("evhinet_eval_path", voxel_grid_launches=evhinet_k2,
              seconds=time.perf_counter() - t0)
         grid_launches += serve_k2 + evhinet_k2
+        t0 = time.perf_counter()                   # released-checkpoint evaluation
+        highrev, bsergb = layout_trees(data_root, work)
+        released_launches = phase_eval_released(
+            work, data_root, highrev, state, os.path.join(work, "evhinet.pth"), eval_results,
+            evhinet_results[EVHINET_CROP])
+        emit("eval_released_path", launches=released_launches, seconds=time.perf_counter() - t0)
+        grid_launches += released_launches["voxel_grid"]
         t0 = time.perf_counter()                   # the IO and training tail
         grid_launches += phase_png(data_root, work)
         phase_evhinet_train_parity(evhinet_state(1, filled=True))
@@ -3136,7 +3299,7 @@ def main():
         torch.backends.cuda.matmul.allow_tf32 = False
         for dtype in ("f32", "bf16"):
             grid_launches += phase_evhinet_train(data_root, work, dtype)
-        grid_launches += phase_datasets(data_root, work)
+        grid_launches += phase_datasets(data_root, highrev, bsergb)
         emit("io_train_tail", seconds=time.perf_counter() - t0)
 
         t0 = time.perf_counter()
@@ -3216,7 +3379,7 @@ def main():
         "source": "refid_tpu_torch/csrc/conv_int8.cu",
         "replaces": "refid_tpu/serve/quant.py:147",
         "launches": int8_launches["quantize_int8"] + evhinet_launches["quantize_int8"]
-        + spatial_launches["quantize_int8"],
+        + spatial_launches["quantize_int8"] + released_launches["quantize_int8"],
         "max_abs_err": max(int8_errs["quantize_int8"], evhinet_errs["quantize_int8"],
                            shard_errs["quantize_int8"]),
         **int8_timing["quantize_int8"]}, {
@@ -3224,7 +3387,7 @@ def main():
         "source": "refid_tpu_torch/csrc/conv_int8.cu",
         "replaces": "refid_tpu/serve/quant.py:147",
         "launches": int8_launches["conv_int8"] + evhinet_launches["conv_int8"]
-        + spatial_launches["conv_int8"],
+        + spatial_launches["conv_int8"] + released_launches["conv_int8"],
         "max_abs_err": max(int8_errs["conv_int8"], evhinet_errs["conv_int8"],
                            shard_errs["conv_int8"]),
         **int8_timing["conv_int8"]}]

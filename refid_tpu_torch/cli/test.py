@@ -19,6 +19,8 @@ rank 0 writes the log file and the images.
 :func:`main` returns ``{dataset name: results}``; :func:`run`, which it
 calls, returns the task with those results in ``task.results`` and each
 loader's timing (``validate``'s ``val_timing``) in ``task.test_timing``.
+:func:`evaluate` is ``run`` after the arguments: it evaluates options
+already parsed (``scripts/eval_released_torch.py`` calls it).
 """
 
 from __future__ import annotations
@@ -32,7 +34,7 @@ from refid_tpu_torch.data.loader import build_dataset, build_loader
 from refid_tpu_torch.parallel.mesh import add_distributed_args, join_from_args, rank, rank_device
 from refid_tpu_torch.tasks import build_task
 
-__all__ = ["main", "parse_args", "run"]
+__all__ = ["evaluate", "main", "parse_args", "run"]
 
 
 def parse_args(argv=None):
@@ -50,6 +52,35 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
+def evaluate(opt: dict, device, save_img: bool = False, max_items=None, logger=None):
+    """Validate every dataset of the parsed test options ``opt`` in sorted
+    order on ``device``, with the weights at ``path.pretrain_network_g``.
+    Returns the task, its results in ``task.results`` and each loader's
+    timing in ``task.test_timing``."""
+    loaders = []
+    for phase, dataset_opt in sorted(opt["datasets"].items()):
+        ds = build_dataset(dataset_opt, device)
+        loaders.append((dataset_opt, build_loader(ds, dataset_opt, False)))
+        if logger:
+            logger.info(f"test set {dataset_opt.get('name', phase)}: {len(ds)} items")
+
+    task = build_task(opt, device)
+    pretrain = opt["path"].get("pretrain_network_g")
+    if not pretrain:
+        raise ValueError("path.pretrain_network_g is required for testing")
+    task.load_pretrained(pretrain)
+    if logger:
+        logger.info(f"loaded weights from {pretrain}")
+
+    task.results, task.test_timing = {}, {}
+    for dataset_opt, loader in loaders:
+        name = dataset_opt.get("name", "test")
+        task.results[name] = task.validate(loader, dataset_opt, save_img=save_img,
+                                           logger=logger, max_items=max_items)
+        task.test_timing[name] = dict(task.val_timing)
+    return task
+
+
 def run(argv=None):
     args = parse_args(argv)
     join_from_args(args)
@@ -60,28 +91,8 @@ def run(argv=None):
     logger = get_root_logger(
         log_file=f"{opt['path']['log']}/test_{opt['name']}.log" if lead else None)
     logger.info(dict2str(opt))
-
-    loaders = []
-    for phase, dataset_opt in sorted(opt["datasets"].items()):
-        ds = build_dataset(dataset_opt, device)
-        loaders.append((dataset_opt, build_loader(ds, dataset_opt, False)))
-        logger.info(f"test set {dataset_opt.get('name', phase)}: {len(ds)} items")
-
-    task = build_task(opt, device)
-    pretrain = opt["path"].get("pretrain_network_g")
-    if not pretrain:
-        raise ValueError("path.pretrain_network_g is required for testing")
-    task.load_pretrained(pretrain)
-    logger.info(f"loaded weights from {pretrain}")
-
     save_img = (args.save_img or (opt.get("val") or {}).get("save_img", False)) and lead
-    task.results, task.test_timing = {}, {}
-    for dataset_opt, loader in loaders:
-        name = dataset_opt.get("name", "test")
-        task.results[name] = task.validate(loader, dataset_opt, save_img=save_img,
-                                           logger=logger, max_items=args.max_items)
-        task.test_timing[name] = dict(task.val_timing)
-    return task
+    return evaluate(opt, device, save_img=save_img, max_items=args.max_items, logger=logger)
 
 
 def main(argv=None):

@@ -25,6 +25,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from refid_tpu_torch.core.device import resolve_device
+
 __all__ = ["InceptionV3Features", "convert_torch_state_dict",
            "load_patched_inception_v3", "extract_inception_features"]
 
@@ -185,9 +187,11 @@ def convert_torch_state_dict(sd) -> Dict[str, torch.Tensor]:
 
 def load_patched_inception_v3(weights_path: str, resize_input: bool = True,
                               normalize_input: bool = False,
-                              device="cpu") -> InceptionV3Features:
+                              device="cuda") -> InceptionV3Features:
     """The extractor with the pt_inception ``.pth`` state_dict at
-    ``weights_path``, in eval mode on ``device``."""
+    ``weights_path``, in eval mode on ``device`` (default the card; without
+    one it raises before reading the weights: pass ``device="cpu"``)."""
+    device = resolve_device(device)
     sd = torch.load(weights_path, map_location="cpu", weights_only=True)
     if "state_dict" in sd:
         sd = sd["state_dict"]

@@ -253,7 +253,7 @@ def test_inception_features_match_jax(tmp_path, resize, normalize, shape):
     path = tmp_path / "pt_inception.pth"
     torch.save(sd, path)
     model = inception.load_patched_inception_v3(str(path), resize_input=resize,
-                                                normalize_input=normalize)
+                                                normalize_input=normalize, device="cpu")
     x = np.random.RandomState(14).rand(*shape).astype(np.float32)
     got = inception.extract_inception_features([x[:2], x[2:]][:len(x) // 2 or 1], model)
     want = np.asarray(jax_inception.inception_v3_features(
@@ -264,3 +264,19 @@ def test_inception_features_match_jax(tmp_path, resize, normalize, shape):
     np.testing.assert_allclose(got / scale, want / scale, rtol=0, atol=1e-4)
     assert set(inception.convert_torch_state_dict(sd)) == {
         k for k in model.state_dict() if not k.endswith("num_batches_tracked")}
+
+
+def test_inception_loader_defaults_to_the_card(tmp_path, monkeypatch):
+    """Like the JAX extractor, which runs on the default device, the loader
+    builds on the card unless asked for the CPU; without a card it raises
+    before it reads the weights."""
+    import inspect
+    from refid_tpu_torch.eval import inception
+    default = inspect.signature(inception.load_patched_inception_v3).parameters["device"]
+    assert default.default == "cuda"
+    read = []
+    monkeypatch.setattr(inception.torch, "load", lambda *a, **k: read.append(a))
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="cuda"):
+            inception.load_patched_inception_v3(str(tmp_path / "absent.pth"))
+        assert read == []

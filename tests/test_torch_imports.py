@@ -1,8 +1,9 @@
 """refid_tpu_torch stands alone: it imports with jax, flax and refid_tpu blocked
 (and with cv2 and yaml blocked: the port reads PNG itself, and yaml is needed
-only when an option file is parsed), and no module of it (nor chip_smoke.py)
-names them in an import statement; lmdb, mc, wandb, requests, dlib and tqdm
-are imported only inside the functions that use them."""
+only when an option file is parsed), and no module of it (nor chip_smoke.py,
+nor scripts/eval_released_torch.py) names them in an import statement; lmdb,
+mc, wandb, requests, dlib and tqdm are imported only inside the functions that
+use them."""
 
 import ast
 import os
@@ -69,7 +70,8 @@ def _imported_modules(path):
             yield node.module
 
 
-@pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"],
+@pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
+                         + sorted((REPO / "scripts").glob("*_torch.py")),
                          ids=lambda p: str(p.relative_to(REPO)))
 def test_no_import_names_the_jax_package(path):
     bad = [m for m in _imported_modules(path)
