@@ -465,7 +465,8 @@ def voxelization_device_ms(fn, iters):
     """Device time of one voxelization, from torch.profiler over ``iters``
     calls of ``fn()``: each device activity but the copies (the sort and
     tile kernels), averaged over the records the profiler kept, then
-    summed; and those averages by name."""
+    summed; those averages by name; and the copies' averages by direction
+    (``HtoD``, ``DtoH``; none where the call copies nothing)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -475,17 +476,23 @@ def voxelization_device_ms(fn, iters):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    us = {}
+    us, copies = {}, {}
     for e in prof.events():
-        if e.device_type == DeviceType.CUDA and not e.name.startswith("Memcpy"):
-            name = e.name.replace("(anonymous namespace)::", "").replace("void ", "")
-            name = name.split("(")[0].strip()
-            us.setdefault(name, []).append(e.time_range.elapsed_us())
+        if e.device_type != DeviceType.CUDA:
+            continue
+        if e.name.startswith("Memcpy"):        # "Memcpy HtoD (Pinned -> Device)"
+            copies.setdefault(e.name.split()[1], []).append(e.time_range.elapsed_us())
+            continue
+        name = e.name.replace("(anonymous namespace)::", "").replace("void ", "")
+        name = name.split("(")[0].strip()
+        us.setdefault(name, []).append(e.time_range.elapsed_us())
     by_name = {name: sum(v) / len(v) / 1e3 for name, v in us.items()}
     check(all(any(k in name for name in by_name) for k in ("voxel_sort_kernel", "voxel_tile_kernel"))
-          and max(map(len, us.values())) <= iters,
+          and max(map(len, us.values())) <= iters
+          and all(len(v) <= iters for v in copies.values()),
           f"profiler saw {({k: len(v) for k, v in us.items()})} for {iters} voxelizations")
-    return sum(by_name.values()), by_name
+    return (sum(by_name.values()), by_name,
+            {way: sum(v) / len(v) / 1e3 for way, v in copies.items()})
 
 
 def phase_kernel_timing(events, skewed, n_valid):
@@ -502,8 +509,8 @@ def phase_kernel_timing(events, skewed, n_valid):
         return lambda: voxel_cuda._voxelize(ev_d, n_valid, BINS, WIDTH, HEIGHT, slab_bytes=slab)
 
     ms, skewed_ms = time_ms(run(ev_d), 50, CUDA), time_ms(run(sk_d), 50, CUDA)
-    device_ms, by_kernel = voxelization_device_ms(run(ev_d), 20)
-    skewed_device_ms, skewed_by_kernel = voxelization_device_ms(run(sk_d), 20)
+    device_ms, by_kernel, _ = voxelization_device_ms(run(ev_d), 20)
+    skewed_device_ms, skewed_by_kernel, _ = voxelization_device_ms(run(sk_d), 20)
     slab_trial = {slab: voxelization_device_ms(run_slab(slab), 20)[0] for slab in SLAB_TRIAL}
     plain_ms = time_ms(lambda: voxelize_padded_reference(ev_d, n_valid, BINS, WIDTH, HEIGHT),
                        20, CUDA)
@@ -522,40 +529,40 @@ def phase_kernel_timing(events, skewed, n_valid):
 
 def phase_grid_kernel_timing(events, skewed, calls=20):
     """K2 at the datasets' shape (2**20 events, 24 bins, 720x1280, HWC):
-    the wrapper's own CUDA-event split of upload, voxelization (binning and
-    tile pass) and the copy back to pinned host memory, the host-clock wall
-    time of a call, the profiler's device time per voxelization, the same
-    for the skewed stream (every event in 8 rows), and the plain version on
-    the card."""
+    the voxelization (binning and tile pass) on an uploaded buffer by CUDA
+    events per call, the profiler's device time of the upload and of the
+    copy back to pinned host memory, the host-clock wall time of a whole
+    call, the profiler's device time per voxelization, the same for the
+    skewed stream (every event in 8 rows), and the plain version on the
+    card."""
     def run(ev):
         return lambda: voxel_cuda.events_to_voxel_grid_cuda(ev, BINS, WIDTH, HEIGHT, "HWC")
 
-    def per_call(ev):
-        for _ in range(3):
-            run(ev)()
-        voxel_cuda.reset_grid_stats()
-        t0 = time.perf_counter()
-        for _ in range(calls):
-            run(ev)()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / calls
-        return {k: v / calls for k, v in voxel_cuda.GRID_TIMES.items()}, wall_ms
+    def kernel(ev_d):
+        return lambda: voxel_cuda._voxelize(ev_d, ev_d.shape[0], BINS, WIDTH, HEIGHT, True)
 
-    (per, wall_ms), (skewed_per, _) = per_call(events), per_call(skewed)
-    device_ms, by_kernel = voxelization_device_ms(run(events), 10)
-    skewed_device_ms, _ = voxelization_device_ms(run(skewed), 10)
-    ev_d = torch.from_numpy(events).cuda()
+    for _ in range(3):
+        run(events)()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        run(events)()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / calls
+    ev_d, sk_d = torch.from_numpy(events).cuda(), torch.from_numpy(skewed).cuda()
+    ms, skewed_ms = time_ms(kernel(ev_d), calls, CUDA), time_ms(kernel(sk_d), calls, CUDA)
+    device_ms, by_kernel, copies = voxelization_device_ms(run(events), 10)
+    skewed_device_ms = voxelization_device_ms(run(skewed), 10)[0]
     plain_ms = time_ms(lambda: events_to_voxel_grid_reference(
         ev_d, BINS, WIDTH, HEIGHT, "HWC"), 10, CUDA)
     n = events.shape[0]
     bytes_moved = n * 16 + BINS * HEIGHT * WIDTH * 4
-    timing = {"ms": per["kernel_ms"], "plain_ms": plain_ms,
+    timing = {"ms": ms, "plain_ms": plain_ms,
               **bound(bytes_moved, n * 16, F32_OPS_PER_S), "library_ms": None,
               "device_ms": device_ms}
     timing["bound_share"] = timing["bound_ms"] / timing["ms"]
     emit("kernel_timing", kernel="voxel_grid", events=n, format="HWC",
-         bytes=bytes_moved, upload_ms=per["upload_ms"], copy_ms=per["copy_ms"],
+         bytes=bytes_moved, upload_ms=copies["HtoD"], copy_ms=copies["DtoH"],
          wall_ms=wall_ms, device_ms_by_kernel=by_kernel,
-         skewed_ms=skewed_per["kernel_ms"], skewed_device_ms=skewed_device_ms, **timing)
+         skewed_ms=skewed_ms, skewed_device_ms=skewed_device_ms, **timing)
     return timing
 
 
@@ -1616,8 +1623,6 @@ def phase_train(data_root, work, dtype):
     check(items > 0 and val_items > 0 and launches == items + val_items,
           f"{dtype} training: K2 launched {launches} times for {items} + {val_items} items")
     per_item = {k: v / items for k, v in timing.items()}
-    per_item.update({k.replace("_ms", "_cuda_ms"): v / launches
-                     for k, v in voxel_cuda.GRID_TIMES.items()})
     emit("train", dtype=dtype, iters=TRAIN_ITERS, crop=opt["datasets"]["train"]["gt_size"],
          t=23, losses=losses, step_ms=step_ms,
          mean_step_ms_after_first=sum(step_ms[1:]) / len(step_ms[1:]),

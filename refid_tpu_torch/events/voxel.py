@@ -53,6 +53,7 @@ import numpy as np
 import torch
 
 from refid_tpu_torch.core.device import resolve_device
+from refid_tpu_torch.core.timer import span
 
 __all__ = ["voxelize_padded", "voxelize_padded_reference", "voxel_norm",
            "pad_events", "next_capacity", "events_to_voxel_grid_padded",
@@ -319,30 +320,34 @@ def events_to_voxel_grid(events, num_bins: int, width: int, height: int,
     events into a float32 numpy grid, ``(bins, h, w)`` for ``CHW`` or
     ``(h, w, bins)`` for ``HWC``.  ``device`` ``'cuda'`` (the default) runs
     the CUDA kernel and raises without a CUDA device; ``'cpu'`` runs the
-    plain version."""
+    plain version.  The voxelization, copy back included, is the profiler
+    span ``refid.events.k2``."""
     events = np.ascontiguousarray(events, dtype=np.float32)
     check_host_events(events, num_bins, width, height, return_format)
     device = torch.device(device)
-    if device.type == "cuda":
-        from refid_tpu_torch.events.voxel_cuda import events_to_voxel_grid_cuda
-        return events_to_voxel_grid_cuda(events, num_bins, width, height,
-                                         return_format, device)
-    if device.type == "cpu":
-        return events_to_voxel_grid_reference(
-            torch.from_numpy(events), num_bins, width, height,
-            return_format).numpy()
+    with span("refid.events.k2"):
+        if device.type == "cuda":
+            from refid_tpu_torch.events.voxel_cuda import events_to_voxel_grid_cuda
+            return events_to_voxel_grid_cuda(events, num_bins, width, height,
+                                             return_format, device)
+        if device.type == "cpu":
+            return events_to_voxel_grid_reference(
+                torch.from_numpy(events), num_bins, width, height,
+                return_format).numpy()
     raise ValueError(f"no voxelizer for device {device}")
 
 
 def voxel_norm_np(voxel: np.ndarray) -> np.ndarray:
-    """Numpy twin of :func:`voxel_norm` for host pipelines."""
-    nonzero = voxel != 0
-    num_nonzeros = nonzero.sum()
-    if num_nonzeros > 0:
-        mean = voxel.sum() / num_nonzeros
-        stddev = np.sqrt((voxel ** 2).sum() / num_nonzeros - mean ** 2)
-        voxel = np.where(nonzero, (voxel - mean) / stddev, 0.0).astype(voxel.dtype)
-    return voxel
+    """Numpy twin of :func:`voxel_norm` for host pipelines; the profiler
+    span ``refid.events.voxel_norm``."""
+    with span("refid.events.voxel_norm"):
+        nonzero = voxel != 0
+        num_nonzeros = nonzero.sum()
+        if num_nonzeros > 0:
+            mean = voxel.sum() / num_nonzeros
+            stddev = np.sqrt((voxel ** 2).sum() / num_nonzeros - mean ** 2)
+            voxel = np.where(nonzero, (voxel - mean) / stddev, 0.0).astype(voxel.dtype)
+        return voxel
 
 
 def event_reverse(events: np.ndarray) -> np.ndarray:

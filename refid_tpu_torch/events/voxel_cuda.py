@@ -23,10 +23,9 @@ streams share nothing.
   memory, voxelizes on the current stream, and copies the grid back into
   pinned memory that the returned array keeps alive.  Plain version:
   ``events/voxel.py::events_to_voxel_grid_reference``.  ``GRID_LAUNCHES``
-  counts its voxelizations (the training datasets call it once per item),
-  and ``GRID_TIMES`` sums, over those calls, the upload, the voxelization
-  (sort plus tile pass), and the copy back, in milliseconds of CUDA
-  events.
+  counts its voxelizations (the training datasets call it once per item).
+  It records no timing events: the upload, kernel and copy-back split is
+  read from the profiler's device activities.
 
 Each plain version is held against its kernel on the card by
 ``chip_smoke.py`` and ``tests/test_torch_cuda.py``.  The counters are
@@ -47,12 +46,11 @@ from refid_tpu_torch.events.voxel import (
 )
 from refid_tpu_torch.ops.build import bind, current_stream, launch, load, raise_on_error
 
-__all__ = ["LAUNCHES", "GRID_LAUNCHES", "GRID_TIMES", "voxelize_cuda",
+__all__ = ["LAUNCHES", "GRID_LAUNCHES", "voxelize_cuda",
            "events_to_voxel_grid_cuda", "reset_grid_stats", "kernel_tile_plan"]
 
 LAUNCHES = 0
 GRID_LAUNCHES = 0
-GRID_TIMES = {"upload_ms": 0.0, "kernel_ms": 0.0, "copy_ms": 0.0}
 _stats_lock = threading.Lock()
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {"refid_voxel_plan": [_I, _I, _I, _I, _P], "refid_voxel_sort_chunk": [],
@@ -123,12 +121,10 @@ def voxelize_cuda(events: torch.Tensor, n_valid: int, bins: int, width: int,
 
 
 def reset_grid_stats() -> None:
-    """Set ``GRID_LAUNCHES`` and ``GRID_TIMES`` to zero."""
+    """Set ``GRID_LAUNCHES`` to zero."""
     global GRID_LAUNCHES
     with _stats_lock:
         GRID_LAUNCHES = 0
-        for key in GRID_TIMES:
-            GRID_TIMES[key] = 0.0
 
 
 def events_to_voxel_grid_cuda(events: np.ndarray, num_bins: int, width: int,
@@ -153,23 +149,14 @@ def events_to_voxel_grid_cuda(events: np.ndarray, num_bins: int, width: int,
     if n == 0:   # as the TPU entry: no launch, an empty grid
         return np.zeros(shape, np.float32)
     with torch.cuda.device(device):
-        stream = torch.cuda.current_stream()
-        marks = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
-        marks[0].record(stream)
         # pinned staging rows (16-byte aligned), then a copy the host need
         # not wait for
         staged = torch.from_numpy(np.ascontiguousarray(events)).pin_memory()
         ev = staged.to(device, non_blocking=True)
-        marks[1].record(stream)
         grid = _voxelize(ev, n, num_bins, width, height, hwc)
-        marks[2].record(stream)
         host = torch.empty(shape, dtype=torch.float32, pin_memory=True)
         host.copy_(grid, non_blocking=True)
-        marks[3].record(stream)
-        marks[3].synchronize()
+        torch.cuda.current_stream().synchronize()
     with _stats_lock:
         GRID_LAUNCHES += 1
-        GRID_TIMES["upload_ms"] += marks[0].elapsed_time(marks[1])
-        GRID_TIMES["kernel_ms"] += marks[1].elapsed_time(marks[2])
-        GRID_TIMES["copy_ms"] += marks[2].elapsed_time(marks[3])
     return host.numpy()

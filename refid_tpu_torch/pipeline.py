@@ -5,7 +5,9 @@ Per request: the events are padded to a power-of-two capacity on the
 device, voxelized there (the CUDA kernel on a CUDA device), packed into the
 26-channel image input and the adjacent-bin pairs, and run through
 :class:`FinalBidirectionAttenfusion` under ``torch.inference_mode``.  Only
-the compact event list and the two frames cross the bus.
+the compact event list and the two frames cross the bus.  A request is the
+profiler span ``refid.vfi.request`` (``core/timer.py::span``) and its
+stages ``refid.vfi.pad``, ``.voxelize``, ``.pack`` and ``.network``.
 
 The public layout is the JAX package's: frames ``(h, w, 3)`` RGB in [0, 1],
 events ``(N, 4)`` ``[t, x, y, p]`` sorted by t, output ``(t, h, w, 3)``.
@@ -42,6 +44,7 @@ import torch
 import torch.nn as nn
 
 from refid_tpu_torch.core.device import resolve_device
+from refid_tpu_torch.core.timer import span
 from refid_tpu_torch.events.voxel import (
     next_capacity, pad_events, voxel_norm, voxelize_padded,
 )
@@ -138,18 +141,22 @@ class BlurVFIPipeline:
 
     def _run(self, blur0, blur1, events, capacity, q) -> torch.Tensor:
         h, w = blur0.shape[:2]
-        ev, n_ev = self._pad_events(events, capacity)
-        vox = voxelize_padded(ev, n_ev, self.num_bins, w, h)   # (bins, h, w)
-        if self.norm_voxel:
-            vox = voxel_norm(vox)
-        lq = self._make_lq(vox, self._frame(blur0), self._frame(blur1))[None]
-        pairs = torch.stack([vox[:-1], vox[1:]], 1)[None]     # (1, t, 2, h, w)
-        if self.mesh is None or self.mesh.spatial == 1:
-            return self.model(lq, pairs, q)[0].permute(0, 2, 3, 1)
-        plan = self.last_plan = SpatialPlan(self.mesh, h, self.model.row_block)
-        with spatial_scope(plan):
-            out = self.model(plan.shard(lq), plan.shard(pairs), q)[0]
-        return plan.gather(out).permute(0, 2, 3, 1)
+        with span("refid.vfi.pad"):
+            ev, n_ev = self._pad_events(events, capacity)
+        with span("refid.vfi.voxelize"):
+            vox = voxelize_padded(ev, n_ev, self.num_bins, w, h)   # (bins, h, w)
+            if self.norm_voxel:
+                vox = voxel_norm(vox)
+        with span("refid.vfi.pack"):
+            lq = self._make_lq(vox, self._frame(blur0), self._frame(blur1))[None]
+            pairs = torch.stack([vox[:-1], vox[1:]], 1)[None]     # (1, t, 2, h, w)
+        with span("refid.vfi.network"):
+            if self.mesh is None or self.mesh.spatial == 1:
+                return self.model(lq, pairs, q)[0].permute(0, 2, 3, 1)
+            plan = self.last_plan = SpatialPlan(self.mesh, h, self.model.row_block)
+            with spatial_scope(plan):
+                out = self.model(plan.shard(lq), plan.shard(pairs), q)[0]
+            return plan.gather(out).permute(0, 2, 3, 1)
 
     def _quant_state(self) -> Optional[QuantState]:
         if not self.int8:
@@ -168,7 +175,8 @@ class BlurVFIPipeline:
         """blur frames (h, w, 3) RGB [0, 1]; events (N, 4) [t, x, y, p]
         sorted by t.  Returns the (2m+n, h, w, 3) sharp frames on the
         pipeline's device."""
-        return self._run(blur0, blur1, events, capacity, self._quant_state())
+        with span("refid.vfi.request"):
+            return self._run(blur0, blur1, events, capacity, self._quant_state())
 
     @torch.inference_mode()
     def calibrate(self, blur0, blur1, events, capacity: Optional[int] = None,

@@ -53,6 +53,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 from torch.nn.modules.utils import _pair
 
+from refid_tpu_torch.core.timer import span
 from refid_tpu_torch.parallel import spatial
 
 __all__ = ["K_DEPTH", "PRODUCTION_SHAPE_DB", "PRODUCTION_DB_GATE", "PRODUCTION_DB_CARD",
@@ -276,25 +277,27 @@ def conv_int8(p, x, stride=1, padding=0, slope=None, relu=False, out_dtype=None,
     site runs ``exact(x)`` (default: the float conv and its activation, the
     int8-off path).  ``out_dtype`` defaults to the autocast dtype where
     autocast is on, else float32: the dtype of the conv it replaces.  Under
-    an active spatial plan ``x`` is this rank's rows (module docstring)."""
-    mode, xscale = ("dynamic", None) if q is None else q.resolve(x)
-    if mode == "exact":
-        return exact(x) if exact is not None else _exact(p, x, stride, padding, slope, relu)
-    weight, bias = _params(p)
-    cache = q.weights if q is not None else WeightCache()
-    wp, wscale, b = cache.packed(weight, bias)
-    plan = spatial.active()
-    amax = None
-    if plan is not None and xscale is None:
-        amax = plan.group_max(amax_int8(x))
-    xq, s = quantize_int8(x.contiguous(), xscale, amax)
-    pad = _pair(padding)
-    kh = weight.shape[2]
-    if plan is not None and kh > 1:
-        xq = plan.exchange_nhwc(xq, pad[0], kh - stride - pad[0])
-        pad = (0, pad[1])
-    return conv_int8_packed(xq, wp, wscale, s, b, stride, pad, slope, relu,
-                            _output_dtype(x, out_dtype))
+    an active spatial plan ``x`` is this rank's rows (module docstring).
+    Each call is the profiler span ``refid.int8.site``."""
+    with span("refid.int8.site"):
+        mode, xscale = ("dynamic", None) if q is None else q.resolve(x)
+        if mode == "exact":
+            return exact(x) if exact is not None else _exact(p, x, stride, padding, slope, relu)
+        weight, bias = _params(p)
+        cache = q.weights if q is not None else WeightCache()
+        wp, wscale, b = cache.packed(weight, bias)
+        plan = spatial.active()
+        amax = None
+        if plan is not None and xscale is None:
+            amax = plan.group_max(amax_int8(x))
+        xq, s = quantize_int8(x.contiguous(), xscale, amax)
+        pad = _pair(padding)
+        kh = weight.shape[2]
+        if plan is not None and kh > 1:
+            xq = plan.exchange_nhwc(xq, pad[0], kh - stride - pad[0])
+            pad = (0, pad[1])
+        return conv_int8_packed(xq, wp, wscale, s, b, stride, pad, slope, relu,
+                                _output_dtype(x, out_dtype))
 
 
 class QuantState:

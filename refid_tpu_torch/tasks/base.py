@@ -49,6 +49,7 @@ import torch
 
 from refid_tpu_torch.core.checkpoint import CheckpointManager
 from refid_tpu_torch.core.device import resolve_device
+from refid_tpu_torch.core.timer import span
 from refid_tpu_torch.core.registry import ARCHS, MODELS
 from refid_tpu_torch.eval import metrics as metric_module
 from refid_tpu_torch.models import archs as _archs  # noqa: F401 (registers archs)
@@ -246,9 +247,12 @@ class RestorationTaskBase:
         when it keeps them; ``val.int8`` the int8 forward, where the frame's
         sides are multiples of the network's ``int8_side``.  With
         ``mesh.spatial > 1`` each rank of the spatial group runs its rows of
-        the frame and every rank returns the whole output."""
-        lq_t, vox_t = (to_nchw(torch.from_numpy(np.ascontiguousarray(a, np.float32))
-                               .to(self.device)) for a in (lq, voxel))
+        the frame and every rank returns the whole output.  The upload is
+        the profiler span ``refid.task.upload``, the network call
+        ``refid.task.network``."""
+        with span("refid.task.upload"):
+            lq_t, vox_t = (to_nchw(torch.from_numpy(np.ascontiguousarray(a, np.float32))
+                                   .to(self.device)) for a in (lq, voxel))
         q = None
         k = self.net.int8_side
         if self.int8 and lq_t.shape[-2] % k == 0 and lq_t.shape[-1] % k == 0:
@@ -261,7 +265,7 @@ class RestorationTaskBase:
         training = self.net.training
         self.net.eval()
         try:
-            with torch.inference_mode(), spatial_scope(plan):
+            with torch.inference_mode(), spatial_scope(plan), span("refid.task.network"):
                 if use_ema and tr is not None and tr.ema is not None:
                     out = torch.func.functional_call(self.net, tr.ema, (lq_t, vox_t, q))
                 else:

@@ -14,9 +14,10 @@ in 8 rows, as ``chip_smoke.py`` makes them):
 * K1, ``voxelize_cuda`` (CHW): CUDA events per call over 50 calls, and the
   device time per call from torch.profiler (every device activity of the
   call, each averaged over the records kept, summed);
-* K2, ``events_to_voxel_grid_cuda`` (HWC): the wrapper's own
-  ``GRID_TIMES["kernel_ms"]`` per call over 20 calls, and the device time
-  per call as for K1, copies excluded.
+* K2, ``events_to_voxel_grid_cuda`` (HWC): the voxelization of an
+  uploaded buffer (the sort and tile kernels the wrapper launches) by CUDA
+  events per call over 20 calls, and the device time per call as for K1,
+  copies excluded.
 
 It prints the card's name and power limit, one JSON line per run, and a
 last line with each tree's runs side by side.  Needs one CUDA card.
@@ -89,12 +90,10 @@ def child():
 
         result[f"k1_{name}_ms"] = time_ms(k1, 50, cuda)
         result[f"k1_{name}_device_ms"] = device_ms(k1, 20)
-        for _ in range(3):
-            k2()
-        voxel_cuda.reset_grid_stats()
-        for _ in range(20):
-            k2()
-        result[f"k2_{name}_ms"] = voxel_cuda.GRID_TIMES["kernel_ms"] / 20
+        def k2_kernel():
+            return voxel_cuda._voxelize(ev_d, EVENTS, BINS, WIDTH, HEIGHT, True)
+
+        result[f"k2_{name}_ms"] = time_ms(k2_kernel, 20, cuda)
         result[f"k2_{name}_device_ms"] = device_ms(k2, 10)
     print(json.dumps(result), flush=True)
 
