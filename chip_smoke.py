@@ -34,7 +34,9 @@ random weights:
   with 2**20 events in ``int8=True``, ``"scale0"`` and ``"static"``
   (calibrated on another window) under bf16 autocast, each against the
   float32 window;
-* single-image deblurring (K2, ``quantize_int8``, ``conv_int8``): the
+* single-image deblurring (K2, the normalisation VN, ``quantize_int8``,
+  ``conv_int8``): VN (``voxel_norm_np`` on K2's page-locked grid) against
+  the numpy chain at 720x1280x6, the
   full-width EVHINet card against CPU at 256x256, both int8 kernels against
   their plain versions at EVHINet's 14 int8 site shapes, 1280x720 images
   (6-bin voxels from K2) in float32, bf16, int8 ``True`` and ``"static"``
@@ -118,7 +120,7 @@ from refid_tpu_torch.eval.metrics import calculate_psnr, calculate_ssim
 from refid_tpu_torch.events import voxel_cuda
 from refid_tpu_torch.events.voxel import (
     events_to_voxel_grid, events_to_voxel_grid_padded, events_to_voxel_grid_reference,
-    pad_events, voxel_norm_np, voxelize_padded_reference,
+    pad_events, voxel_norm, voxel_norm_np, voxelize_padded_reference,
 )
 from refid_tpu_torch.models import archs as _archs  # noqa: F401 (registers the archs)
 from refid_tpu_torch.models.convert import known_unused_keys, load_state
@@ -134,10 +136,11 @@ from refid_tpu_torch.tasks.base import to_nchw
 from refid_tpu_torch.train.losses import charbonnier_loss
 from refid_tpu_torch.train.trainer import Trainer
 
-# H100 SXM peaks (NVIDIA data sheet): HBM rate, float32 non-tensor rate, and
-# dense tensor-core rates in bf16 and int8
+# H100 SXM peaks (NVIDIA data sheet): HBM rate, float32 and float64 non-tensor
+# rates, and dense tensor-core rates in bf16 and int8
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+F64_OPS_PER_S = 34e12
 BF16_OPS_PER_S = 989e12
 INT8_OPS_PER_S = 1979e12
 
@@ -159,6 +162,9 @@ OVERFIT_STEPS = 10
 # the voxelizers' shared-memory f32 atomics add a tile's votes in varying
 # order; a cell sums a few votes of |v| <= 1
 KERNEL_TOL = 1e-4
+# the card normalisation against the numpy chain: the card sums in float64,
+# numpy in float32 (test_torch_data.py::test_voxel_helpers_match_jax's tolerance)
+NORM_RTOL, NORM_ATOL = 1e-6, 1e-7
 SLAB_TRIAL = (30720, 61440, 122880)   # tile budgets timed beside the default (K1)
 PARITY_DB = 60.0
 CUDA = torch.device("cuda")
@@ -461,34 +467,46 @@ def phase_grid_kernel_check():
     return max(errs.values()), main, skewed
 
 
+def device_records(fn, iters, kernel):
+    """``(name, us)`` of each device activity over ``iters`` calls of
+    ``fn()`` under torch.profiler, after one call outside it.  The profiler
+    may drop some device records of a long session, or all of a session's
+    after earlier sessions: profile again (up to three sessions) while it
+    kept no record of a kernel whose name holds ``kernel``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        records = [(e.name, e.time_range.elapsed_us()) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA]
+        if any(kernel in name for name, _ in records):
+            break
+    return records
+
+
 def voxelization_device_ms(fn, iters):
     """Device time of one voxelization, from torch.profiler over ``iters``
     calls of ``fn()``: each device activity but the copies (the sort and
     tile kernels), averaged over the records the profiler kept, then
     summed; those averages by name; and the copies' averages by direction
     (``HtoD``, ``DtoH``; none where the call copies nothing)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
     us, copies = {}, {}
-    for e in prof.events():
-        if e.device_type != DeviceType.CUDA:
+    for name, t in device_records(fn, iters, "voxel_tile_kernel"):
+        if name.startswith("Memcpy"):          # "Memcpy HtoD (Pinned -> Device)"
+            copies.setdefault(name.split()[1], []).append(t)
             continue
-        if e.name.startswith("Memcpy"):        # "Memcpy HtoD (Pinned -> Device)"
-            copies.setdefault(e.name.split()[1], []).append(e.time_range.elapsed_us())
-            continue
-        name = e.name.replace("(anonymous namespace)::", "").replace("void ", "")
+        name = name.replace("(anonymous namespace)::", "").replace("void ", "")
         name = name.split("(")[0].strip()
-        us.setdefault(name, []).append(e.time_range.elapsed_us())
+        us.setdefault(name, []).append(t)
     by_name = {name: sum(v) / len(v) / 1e3 for name, v in us.items()}
     check(all(any(k in name for name in by_name) for k in ("voxel_sort_kernel", "voxel_tile_kernel"))
-          and max(map(len, us.values())) <= iters
+          and max(map(len, us.values()), default=0) <= iters
           and all(len(v) <= iters for v in copies.values()),
           f"profiler saw {({k: len(v) for k, v in us.items()})} for {iters} voxelizations")
     return (sum(by_name.values()), by_name,
@@ -563,6 +581,117 @@ def phase_grid_kernel_timing(events, skewed, calls=20):
          bytes=bytes_moved, upload_ms=copies["HtoD"], copy_ms=copies["DtoH"],
          wall_ms=wall_ms, device_ms_by_kernel=by_kernel,
          skewed_ms=skewed_ms, skewed_device_ms=skewed_device_ms, **timing)
+    return timing
+
+
+def phase_norm_kernel_check():
+    """VN (``voxel_norm_np`` on K2's page-locked grid, ``csrc/voxel_norm.cu``)
+    against the numpy chain (``voxel_norm_np`` of a pageable copy) at the
+    single-image items' 720x1280x6 grid, HWC and CHW, within NORM_RTOL /
+    NORM_ATOL: one launch a card call and none for the pageable copy, the
+    same bits on a second call, the input unchanged; K2's output reads
+    page-locked and ``np.zeros`` not; an all-zero page-locked grid comes
+    back as the same object.  Returns VN's launches, its max |diff| and the
+    HWC grid."""
+    rng = np.random.RandomState(9)
+    events = random_events(rng, EV_EVENTS, WIDTH, HEIGHT)
+    voxel_cuda.reset_norm_stats()
+    errs, excess, grids = {}, {}, {}
+    for fmt in ("HWC", "CHW"):
+        grid = voxel_cuda.events_to_voxel_grid_cuda(events, EV_BINS, WIDTH, HEIGHT, fmt)
+        check(torch.from_numpy(grid).is_pinned(), f"voxel_norm {fmt}: K2's grid is pageable")
+        kept = grid.copy()
+        before = voxel_cuda.NORM_LAUNCHES
+        want = voxel_norm_np(kept)                   # pageable: the numpy chain
+        check(voxel_cuda.NORM_LAUNCHES == before, f"voxel_norm {fmt}: a pageable grid launched")
+        got, again = voxel_norm_np(grid), voxel_norm_np(grid)
+        check(voxel_cuda.NORM_LAUNCHES == before + 2,
+              f"voxel_norm {fmt}: {voxel_cuda.NORM_LAUNCHES - before} launches for 2 calls")
+        check(got is not grid and got.dtype == np.float32 and got.shape == grid.shape
+              and torch.from_numpy(got).is_pinned(), f"voxel_norm {fmt}: result {got.shape}")
+        check(np.array_equal(grid.view(np.uint32), kept.view(np.uint32)),
+              f"voxel_norm {fmt}: the input was modified")
+        check(np.array_equal(got.view(np.uint32), again.view(np.uint32)),
+              f"voxel_norm {fmt}: two calls differ")
+        diff = np.abs(got.astype(np.float64) - want)
+        errs[fmt] = float(diff.max())
+        excess[fmt] = float((diff - (NORM_ATOL + NORM_RTOL * np.abs(want))).max())
+        check(excess[fmt] <= 0, f"voxel_norm {fmt}: max|diff| {errs[fmt]} beyond rtol "
+              f"{NORM_RTOL} / atol {NORM_ATOL} (by {excess[fmt]})")
+        grids[fmt] = grid
+    shape = (HEIGHT, WIDTH, EV_BINS)
+    zeros = torch.zeros(shape, dtype=torch.float32, pin_memory=True).numpy()
+    check(not torch.from_numpy(np.zeros(shape, np.float32)).is_pinned(),
+          "np.zeros reads page-locked")
+    check(voxel_norm_np(zeros) is zeros, "voxel_norm: an all-zero grid came back as another")
+    launches = voxel_cuda.NORM_LAUNCHES
+    check(launches == 5, f"voxel_norm: {launches} launches for 5 card calls")
+    emit("kernel_check", kernel="voxel_norm", max_abs_err=errs, rtol=NORM_RTOL,
+         atol=NORM_ATOL, excess_over_tol=excess, nonzero_cells=int((grids["HWC"] != 0).sum()),
+         launches=launches)
+    return launches, max(errs.values()), grids["HWC"]
+
+
+def phase_norm_kernel_timing(grid, calls=200):
+    """VN at the 720x1280x6 grid: its two kernels on an uploaded grid (CUDA
+    events per call, the profiler's device time by kernel); the whole call
+    (upload, kernels, copy back into page-locked memory, the wait) on the
+    host clock, with its copies' device time; the numpy chain on the host
+    clock; and the plain version on the card, ``voxel_norm`` (PyTorch ops)
+    in float64 on the uploaded grid, by CUDA events and as a whole call
+    that uploads and copies back as the wrapper does, timed in turns with
+    the wrapper.  The largest |diff| between the two card versions."""
+    grid_d = torch.from_numpy(grid).cuda()
+    pageable = grid.copy()
+
+    def torch_chain():
+        out = voxel_norm(torch.from_numpy(grid).to(CUDA, non_blocking=True).double()).float()
+        host = torch.empty(grid.shape, dtype=torch.float32, pin_memory=True)
+        host.copy_(out, non_blocking=True)
+        torch.cuda.current_stream().synchronize()
+        return host.numpy()
+
+    def wall_ms(fn, n):
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        return (time.perf_counter() - t0) * 1e3 / n
+
+    ms = time_ms(lambda: voxel_cuda._voxel_norm(grid_d), calls, CUDA)
+    plain_ms = time_ms(lambda: voxel_norm(grid_d.double()).float(), calls, CUDA)
+    for fn in (lambda: voxel_cuda.voxel_norm_cuda(grid), torch_chain):
+        fn()
+    walls = {"wrapper": [], "torch_chain": []}
+    for _ in range(5):                              # in turns, 20 calls each
+        walls["wrapper"].append(wall_ms(lambda: voxel_cuda.voxel_norm_cuda(grid), 20))
+        walls["torch_chain"].append(wall_ms(torch_chain, 20))
+    numpy_ms = wall_ms(lambda: voxel_norm_np(pageable), 5)
+    chain_err = float(np.abs(voxel_cuda.voxel_norm_cuda(grid) - torch_chain()).max())
+    us = {}       # copies by their full name: the grid's and the count's readback differ
+    for name, t in device_records(lambda: voxel_cuda.voxel_norm_cuda(grid), 20,
+                                  "voxel_norm_apply_kernel"):
+        if not name.startswith("Memcpy"):
+            name = name.replace("(anonymous namespace)::", "").split("(")[0]
+        us.setdefault(name, []).append(t)
+    by_name = {k: sum(v) / len(v) / 1e3 for k, v in us.items()}
+    parts = {"stats": "voxel_norm_stats_kernel", "apply": "voxel_norm_apply_kernel"}
+    found = {k: [n for n in us if part in n] for k, part in parts.items()}
+    check(all(len(v) == 1 and len(us[v[0]]) <= 20 for v in found.values()),
+          f"profiler saw {({k: len(v) for k, v in us.items()})} for 20 normalisations")
+    by_kernel = {k: by_name[v[0]] for k, v in found.items()}
+
+    def copy_ms(way):                # the largest copy that way: the grid's
+        return max((v for n, v in by_name.items() if way in n), default=None)
+    n = grid.size
+    bytes_moved = 2 * n * 4              # the grid read once, the result written once
+    timing = {"ms": ms, "plain_ms": plain_ms, **bound(bytes_moved, 8 * n, F64_OPS_PER_S),
+              "library_ms": None, "device_ms": sum(by_kernel.values())}
+    timing["bound_share"] = timing["bound_ms"] / ms
+    emit("kernel_timing", kernel="voxel_norm", shape=list(grid.shape), bytes=bytes_moved,
+         device_ms_by_kernel=by_kernel, upload_ms=copy_ms("HtoD"),
+         copy_ms=copy_ms("DtoH"), device_ms_by_name=by_name, wall_ms=statistics.median(walls["wrapper"]),
+         torch_chain_wall_ms=statistics.median(walls["torch_chain"]), wall_ms_in_turns=walls,
+         numpy_ms=numpy_ms, torch_chain_max_abs_diff=chain_err, **timing)
     return timing
 
 
@@ -1201,13 +1330,17 @@ def phase_evhinet_serve(requests):
     median, spread), dB against the float32 image, peak memory, the bf16
     image's device time by kernel and the int8 kernels' share of a profiled
     image.  Each request's K2 grid is held against its plain version.
-    Returns the int8 kernels' launches over the path, K2's launches and max
-    |diff|, each mode's dB and the int8 modes below PRODUCTION_DB_GATE."""
+    Each request's voxel is normalised on the card (VN).  Returns the int8
+    kernels' launches over the path, K2's launches and max |diff|, VN's
+    launches, each mode's dB and the int8 modes below PRODUCTION_DB_GATE."""
     state = evhinet_state(0, filled=False)
     set_tf32(False)
     voxel_cuda.reset_grid_stats()                  # the EVHINet serving path starts here
+    voxel_cuda.reset_norm_stats()
     int8_cuda.reset_launches()
     voxels = [evhinet_voxel(ev, WIDTH, HEIGHT) for _, ev in requests]
+    vn = voxel_cuda.NORM_LAUNCHES
+    check(vn == len(requests), f"evhinet serving: VN launched {vn} times for {len(requests)}")
     k2_err = max(err for _, err in voxels)
     check(k2_err <= KERNEL_TOL, f"evhinet serving: K2 max|diff| {k2_err} > {KERNEL_TOL}")
     requests = [(img, vox) for (img, _), (vox, _) in zip(requests, voxels)]
@@ -1277,7 +1410,7 @@ def phase_evhinet_serve(requests):
          wf=EVHINET_NET["wf"], images_timed=len(requests) - 2, modes=rows, db_vs_f32=dbs,
          db_gate=quant.PRODUCTION_DB_GATE, conv_flops=conv_flops, int8_sites=len(shapes),
          int8_site_ops=int8_ops, voxel_grid_launches=k2, voxel_grid_max_abs_err=k2_err,
-         voxel_grid_tol=KERNEL_TOL, launches=launches)
+         voxel_grid_tol=KERNEL_TOL, voxel_norm_launches=vn, launches=launches)
     check(len(shapes) == EVHINET_SITES and set(shapes) == set(EVHINET_INT8_SHAPES.values()),
           f"evhinet int8 sites {shapes}")
     check(k2 == len(requests), f"evhinet serving: K2 launched {k2} times for {len(requests)}")
@@ -1285,7 +1418,7 @@ def phase_evhinet_serve(requests):
     check(all(v == expected for v in launches.values()),
           f"evhinet int8 path launches {launches}, expected {expected} each")
     low = [m for m in ("True", "static") if dbs[m] < quant.PRODUCTION_DB_GATE]
-    return launches, k2, k2_err, dbs, low
+    return launches, k2, k2_err, vn, dbs, low
 
 
 def write_single_image_options(work, data_root, weights, crop):
@@ -1314,18 +1447,20 @@ def write_single_image_options(work, data_root, weights, crop):
 def phase_evhinet_eval(data_root, work, state):
     """``cli.test`` (``run``) on the synthetic tree's single-image items,
     untiled with its images saved and in EVHINET_CROP tiles, then
-    ``cli.demo`` on one blurred frame and one event window.  Returns K2's
-    launches and the results by ``crop_size``."""
+    ``cli.demo`` on one blurred frame and one event window; each item's
+    whole grid is normalised on the card (VN), once an item.  Returns K2's
+    and VN's launches and the results by ``crop_size``."""
     import yaml
 
     weights = os.path.join(work, "evhinet.pth")
     torch.save({"params": state}, weights)
     set_tf32(True)      # PyTorch's defaults
     torch.backends.cuda.matmul.allow_tf32 = False
-    total, by_crop = 0, {}
+    total, vn, by_crop = 0, 0, {}
     for crop in (None, EVHINET_CROP):
         path, name = write_single_image_options(work, data_root, weights, crop)
         voxel_cuda.reset_grid_stats()
+        voxel_cuda.reset_norm_stats()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         task = test_cli.run(["-opt", path, "--root", work])
@@ -1339,13 +1474,17 @@ def phase_evhinet_eval(data_root, work, state):
              metric_ms_per_item=timing["metric_ms"] / max(items, 1),
              save_ms_per_item=timing["save_ms"] / max(items, 1), images_saved=saved,
              max_memory_allocated=torch.cuda.max_memory_allocated(),
-             voxel_grid_launches=launches, seconds=seconds)
+             voxel_grid_launches=launches, voxel_norm_launches=voxel_cuda.NORM_LAUNCHES,
+             seconds=seconds)
         check(items == 4 and all(math.isfinite(results.get(k, math.nan))
                                  for k in ("psnr", "ssim")),
               f"evhinet eval results {results} over {items} items")
         check(launches == items, f"evhinet eval: K2 launched {launches} times for {items} items")
+        check(voxel_cuda.NORM_LAUNCHES == items,
+              f"evhinet eval: VN launched {voxel_cuda.NORM_LAUNCHES} times for {items} items")
         check(saved == (items if crop is None else 0), f"evhinet eval saved {saved} images")
         total += launches
+        vn += voxel_cuda.NORM_LAUNCHES
         by_crop[crop] = results
         del task
 
@@ -1362,17 +1501,19 @@ def phase_evhinet_eval(data_root, work, state):
     with open(path, "w") as f:
         yaml.safe_dump(demo_opt, f)
     voxel_cuda.reset_grid_stats()
+    voxel_cuda.reset_norm_stats()
     t0 = time.perf_counter()
     task = demo_cli.main(["-opt", path, "--root", work])
     seconds = time.perf_counter() - t0
     written = imread(out, float32=False, rgb=False)
     emit("evhinet_demo", frame=[HEIGHT, WIDTH], seconds=seconds, output=list(written.shape),
-         voxel_grid_launches=voxel_cuda.GRID_LAUNCHES)
+         voxel_grid_launches=voxel_cuda.GRID_LAUNCHES, voxel_norm_launches=voxel_cuda.NORM_LAUNCHES)
     check(written.shape == (HEIGHT, WIDTH, 3) and tuple(task.demo_output.shape)
           == (HEIGHT, WIDTH, 3) and bool(torch.isfinite(task.demo_output).all()),
           f"demo wrote {written.shape}")
     check(voxel_cuda.GRID_LAUNCHES == 1, f"demo: K2 launched {voxel_cuda.GRID_LAUNCHES} times")
-    return total + voxel_cuda.GRID_LAUNCHES, by_crop
+    check(voxel_cuda.NORM_LAUNCHES == 1, f"demo: VN launched {voxel_cuda.NORM_LAUNCHES} times")
+    return total + voxel_cuda.GRID_LAUNCHES, vn + voxel_cuda.NORM_LAUNCHES, by_crop
 
 
 def released_psnr(results):
@@ -1393,6 +1534,7 @@ def released_run(script, work, smi, options, pth, dataroot, max_items=None, int8
     argv += ["--max-items", str(max_items)] if max_items else []
     argv += ["--int8", int8] if int8 else []
     voxel_cuda.reset_grid_stats()
+    voxel_cuda.reset_norm_stats()
     q0, c0 = int8_cuda.QUANTIZE_LAUNCHES, int8_cuda.CONV_LAUNCHES
     torch.cuda.reset_peak_memory_stats()
     out = io.StringIO()
@@ -1400,7 +1542,7 @@ def released_run(script, work, smi, options, pth, dataroot, max_items=None, int8
     with contextlib.redirect_stdout(out):
         task = script.run(argv)
     seconds = time.perf_counter() - t0
-    launches = {"voxel_grid": voxel_cuda.GRID_LAUNCHES,
+    launches = {"voxel_grid": voxel_cuda.GRID_LAUNCHES, "voxel_norm": voxel_cuda.NORM_LAUNCHES,
                 "quantize_int8": int8_cuda.QUANTIZE_LAUNCHES - q0,
                 "conv_int8": int8_cuda.CONV_LAUNCHES - c0}
     (name, results), = task.results.items()
@@ -1429,15 +1571,15 @@ def phase_eval_released(work, data_root, highrev, state, evhinet_pth, eval_resul
     RELEASED_INT8_DB of float, not equal to it, C8 and Q8 launched);
     EVHINet's checkpoint tiled in float (equal to ``evhinet_eval``'s tiled
     results) and ``--int8``; Test_UND_Final_1skip.yml on the HighREV-layout
-    tree, one item.  K2 launches once an item the loader reads.  Returns
-    the launches of K2, Q8 and C8."""
+    tree, one item.  K2 launches once an item the loader reads, and VN once
+    an EVHINet item.  Returns the launches of K2, VN, Q8 and C8."""
     spec = importlib.util.spec_from_file_location("eval_released_torch", EVAL_RELEASED)
     script = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(script)
     smi = smi_line()
     pth = os.path.join(work, "released_flagship.pth")
     torch.save({"params": state}, pth)
-    total = {"voxel_grid": 0, "quantize_int8": 0, "conv_int8": 0}
+    total = {"voxel_grid": 0, "voxel_norm": 0, "quantize_int8": 0, "conv_int8": 0}
 
     def add(launches):
         for k, v in launches.items():
@@ -1468,15 +1610,16 @@ def phase_eval_released(work, data_root, highrev, state, evhinet_pth, eval_resul
     diff = max(abs(ev_float[k] - evhinet_tiled[k]) for k in evhinet_tiled)
     check(ev_float.keys() == evhinet_tiled.keys() and diff <= METRIC_TOL,
           f"eval_released EVHINet tiled {ev_float} differs from evhinet_eval's {evhinet_tiled}")
-    check(launches["voxel_grid"] == items,
-          f"eval_released EVHINet: K2 launched {launches['voxel_grid']} times for {items} items")
+    check(launches["voxel_grid"] == launches["voxel_norm"] == items,
+          f"eval_released EVHINet: K2 / VN launched {launches['voxel_grid']} / "
+          f"{launches['voxel_norm']} times for {items} items")
     ev_int8, items, launches = released_run(script, work, smi, options, evhinet_pth, data_root,
                                             int8="true")
     add(launches)
     check(abs(released_psnr(ev_int8) - released_psnr(ev_float)) <= RELEASED_INT8_DB
           and ev_int8 != ev_float, f"eval_released EVHINet int8: {ev_int8} against {ev_float}")
-    check(launches["voxel_grid"] == items and launches["quantize_int8"] > 0
-          and launches["conv_int8"] > 0,
+    check(launches["voxel_grid"] == launches["voxel_norm"] == items
+          and launches["quantize_int8"] > 0 and launches["conv_int8"] > 0,
           f"eval_released EVHINet int8: launches {launches} for {items} items")
 
     # the test split of the HighREV-layout tree is its train video
@@ -2132,23 +2275,8 @@ def kernel_device_ms(fn, iters, name_part):
     """Device time per launch of the kernels whose name holds ``name_part``
     over ``iters`` calls of ``fn()``, from torch.profiler: for a kernel
     whose calls the host cannot launch as fast as the card runs them."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    # the profiler may drop some device records of a long session, or all of
-    # a session's after earlier sessions: average those it kept, and profile
-    # again (up to three sessions) when it kept none
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-        us = [e.time_range.elapsed_us() for e in prof.events()
-              if e.device_type == DeviceType.CUDA and name_part in e.name]
-        if us:
-            break
+    # averaged over the records the profiler kept (device_records)
+    us = [t for name, t in device_records(fn, iters, name_part) if name_part in name]
     check(0 < len(us) <= iters, f"profiler saw {len(us)} {name_part} launches for {iters} calls")
     return sum(us) / len(us) / 1e3
 
@@ -2989,8 +3117,9 @@ def spatial_evhinet(mesh):
     rng = np.random.RandomState(23)
     img = rng.rand(HEIGHT, WIDTH, 3).astype(np.float32)
     voxel_cuda.GRID_LAUNCHES = 0                 # this rank's item voxelized here
+    voxel_cuda.reset_norm_stats()
     vox, _ = evhinet_voxel(random_events(rng, EV_EVENTS, WIDTH, HEIGHT), WIDTH, HEIGHT)
-    grids = voxel_cuda.GRID_LAUNCHES
+    grids, norms = voxel_cuda.GRID_LAUNCHES, voxel_cuda.NORM_LAUNCHES
     x, v = (to_nchw(torch.from_numpy(a[None]).cuda()) for a in (img, vox))
     with torch.no_grad():
         want = net(x, v)
@@ -3005,14 +3134,15 @@ def spatial_evhinet(mesh):
     return {"forward_db": parity_db(want, got), "bit_equal": bool(torch.equal(want, got)),
             "max_abs_err": float((want - got).abs().max()), "exchanges": plan.exchanges,
             "reductions": plan.reductions, **step_parity(ref, upd),
-            "voxel_grid_launches": grids, "seconds": time.perf_counter() - t_phase}
+            "voxel_grid_launches": grids, "voxel_norm_launches": norms,
+            "seconds": time.perf_counter() - t_phase}
 
 
 def phase_spatial(work):
     """spatial_parity, spatial_serve, spatial_int8, spatial_ablation and
     spatial_evhinet: SPATIAL_RANKS gloo ranks on the one card (spawned).
     Fails where gloo does not carry the halo's collectives for CUDA tensors.
-    Returns the launches of K1, K2 and the two int8 kernels in the ranks."""
+    Returns the launches of K1, K2, VN and the two int8 kernels in the ranks."""
     import torch.multiprocessing as mp
 
     t_phase = time.perf_counter()
@@ -3115,14 +3245,15 @@ def phase_spatial_others(ranks):
          step=SPATIAL_EVHINET_STEP, forward_min_db=SPATIAL_FORWARD_DB, update_min_db=PARITY_DB,
          per_rank=ev)
     check(all(e["forward_db"] >= SPATIAL_FORWARD_DB and step_ok(e)
-              and e["voxel_grid_launches"] == 1 for e in ev),
+              and e["voxel_grid_launches"] == e["voxel_norm_launches"] == 1 for e in ev),
           f"spatial_evhinet: {[(e['forward_db'], e['update_db']) for e in ev]} dB "
           f"(bars {SPATIAL_FORWARD_DB} / {PARITY_DB}), loss / grad norm relative errors "
           f"{[(e['loss_rel_err'], e['grad_norm_rel_err']) for e in ev]} (bar "
-          f"{SPATIAL_STEP_RTOL}) or K2 not once a rank")
+          f"{SPATIAL_STEP_RTOL}) or K2 / VN not once a rank")
     return {"voxelize_int8": sum(r["launches"]["voxelize"] for r in int8)
             + sum(s["voxelize_launches"] for s in served),
             "voxel_grid": sum(e["voxel_grid_launches"] for e in ev),
+            "voxel_norm": sum(e["voxel_norm_launches"] for e in ev),
             "conv_int8": sum(r["launches"]["conv_int8"] for r in int8),
             "quantize_int8": sum(r["launches"]["quantize_int8"] for r in int8)}
 
@@ -3213,6 +3344,9 @@ def main():
     timing = phase_kernel_timing(events, skewed, n_valid)
     grid_err, grid_events, grid_skewed = phase_grid_kernel_check()
     grid_timing = phase_grid_kernel_timing(grid_events, grid_skewed)
+    norm_launches, norm_err, norm_grid = phase_norm_kernel_check()
+    norm_timing = phase_norm_kernel_timing(norm_grid)
+    del norm_grid
 
     model = FinalBidirectionAttenfusion(RefidConfig())
     fill_random(model, seed=0)
@@ -3254,10 +3388,12 @@ def main():
     rng = np.random.RandomState(8)
     ev_requests = [(rng.rand(HEIGHT, WIDTH, 3).astype(np.float32),
                     random_events(rng, EV_EVENTS, WIDTH, HEIGHT)) for _ in range(EVHINET_IMAGES)]
-    evhinet_launches, serve_k2, serve_k2_err, evhinet_db, evhinet_low = \
+    evhinet_launches, serve_k2, serve_k2_err, serve_vn, evhinet_db, evhinet_low = \
         phase_evhinet_serve(ev_requests)
     emit("evhinet_path", launches=evhinet_launches, voxel_grid_launches=serve_k2,
-         db_vs_f32=evhinet_db, seconds=time.perf_counter() - t0)
+         voxel_norm_launches=serve_vn, db_vs_f32=evhinet_db,
+         seconds=time.perf_counter() - t0)
+    norm_launches += serve_vn
     del ev_requests
     launches += phase_voxel_grid_padded()        # K1's other entry, its own path
 
@@ -3285,10 +3421,11 @@ def main():
         eval_k2, eval_results = phase_eval(data_root, work, state)   # the eval path
         grid_launches += eval_k2
         t0 = time.perf_counter()
-        evhinet_k2, evhinet_results = phase_evhinet_eval(data_root, work,
-                                                         evhinet_state(1, filled=True))
+        evhinet_k2, evhinet_vn, evhinet_results = phase_evhinet_eval(
+            data_root, work, evhinet_state(1, filled=True))
         emit("evhinet_eval_path", voxel_grid_launches=evhinet_k2,
-             seconds=time.perf_counter() - t0)
+             voxel_norm_launches=evhinet_vn, seconds=time.perf_counter() - t0)
+        norm_launches += evhinet_vn
         grid_launches += serve_k2 + evhinet_k2
         t0 = time.perf_counter()                   # released-checkpoint evaluation
         highrev, bsergb = layout_trees(data_root, work)
@@ -3297,6 +3434,7 @@ def main():
             evhinet_results[EVHINET_CROP])
         emit("eval_released_path", launches=released_launches, seconds=time.perf_counter() - t0)
         grid_launches += released_launches["voxel_grid"]
+        norm_launches += released_launches["voxel_norm"]
         t0 = time.perf_counter()                   # the IO and training tail
         grid_launches += phase_png(data_root, work)
         phase_evhinet_train_parity(evhinet_state(1, filled=True))
@@ -3336,6 +3474,7 @@ def main():
         spatial_launches = phase_spatial(work)       # K1, K2, C8, Q8 in each rank
         launches += spatial_launches["voxelize"] + spatial_launches["voxelize_int8"]
         grid_launches += spatial_launches["voxel_grid"]
+        norm_launches += spatial_launches["voxel_norm"]
         emit("distribution_path", seconds=time.perf_counter() - t0)
 
     def rate_entry(variant, plain_ms, library, kernel):
@@ -3360,6 +3499,10 @@ def main():
         "replaces": "refid_tpu/events/voxel_pallas.py:129",
         "launches": grid_launches, "max_abs_err": max(grid_err, serve_k2_err),
         **grid_timing}, {
+        "name": "voxel_norm", "route": "cuda",
+        "source": "refid_tpu_torch/csrc/voxel_norm.cu",
+        "replaces": "refid_tpu/events/voxel.py:195",
+        "launches": norm_launches, "max_abs_err": norm_err, **norm_timing}, {
         "name": "passthrough", "route": "cuda",
         "source": "refid_tpu_torch/csrc/passthrough.cu",
         "replaces": "scripts/probe_poison.py:56",
@@ -3396,12 +3539,15 @@ def main():
         "max_abs_err": max(int8_errs["conv_int8"], evhinet_errs["conv_int8"],
                            shard_errs["conv_int8"]),
         **int8_timing["conv_int8"]}]
-    # each wrapper's host time a call, from the launch_path phase; P2's launch
-    # floor there, an empty kernel's device time
+    # each wrapper's host time a call, from the launch_path phase (VN's whole
+    # call is its timing's wall_ms); P2's launch floor there, an empty
+    # kernel's device time
     wrappers = {"voxelize": "K1", "voxel_grid": "K2", "passthrough": "P1",
                 "passthrough_slice": "P2", "band_conv": "P3", "band_conv_int8": "P4",
                 "quantize_int8": "Q8_dynamic", "conv_int8": "C8"}
     for k in kernels:
+        if k["name"] not in wrappers:
+            continue
         k["host_us"] = launch_path["wrappers"][wrappers[k["name"]]]["host_us"]["median"]
         if k["name"] == "passthrough_slice":
             k["launch_floor_device_ms"] = \

@@ -338,9 +338,26 @@ def events_to_voxel_grid(events, num_bins: int, width: int, height: int,
 
 
 def voxel_norm_np(voxel: np.ndarray) -> np.ndarray:
-    """Numpy twin of :func:`voxel_norm` for host pipelines; the profiler
-    span ``refid.events.voxel_norm``."""
+    """Numpy twin of :func:`voxel_norm` for host pipelines (the JAX
+    package's ``voxel_norm_np``); the profiler span
+    ``refid.events.voxel_norm``.
+
+    A C-contiguous float32 grid in page-locked host memory, as every grid
+    K2 returns (:func:`events_to_voxel_grid` on a CUDA device), is
+    normalised on the card (``voxel_cuda.voxel_norm_cuda``, inside the span
+    ``refid.events.voxel_norm_card``): the grid was on the card a moment
+    before, and the numpy chain's ten passes over fresh host memory take
+    tens of milliseconds at 720p against two copies and two launches.  The
+    card keeps numpy's float64 formula and sums in float64 (numpy sums in
+    float32), so the two agree to about a float32 ulp; the result lies in
+    page-locked memory too.  Every other input (pageable memory, a view,
+    float64, no CUDA device) takes the numpy chain."""
     with span("refid.events.voxel_norm"):
+        if (voxel.dtype == np.float32 and voxel.flags.c_contiguous
+                and torch.cuda.is_available() and torch.from_numpy(voxel).is_pinned()):
+            from refid_tpu_torch.events.voxel_cuda import voxel_norm_cuda
+            with span("refid.events.voxel_norm_card"):
+                return voxel_norm_cuda(voxel)
         nonzero = voxel != 0
         num_nonzeros = nonzero.sum()
         if num_nonzeros > 0:

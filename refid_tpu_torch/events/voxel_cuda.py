@@ -26,6 +26,13 @@ streams share nothing.
   counts its voxelizations (the training datasets call it once per item).
   It records no timing events: the upload, kernel and copy-back split is
   read from the profiler's device activities.
+* :func:`voxel_norm_cuda` (``csrc/voxel_norm.cu``, its own library) is the
+  card path of ``events/voxel.py::voxel_norm_np``, which replaces no TPU
+  kernel: a C-contiguous float32 grid in page-locked host memory (as K2
+  returns it) is copied up, normalised over its nonzero cells in numpy's
+  float64 formula by a statistics kernel and an apply kernel, and copied
+  back into fresh pinned memory.  Plain version: ``voxel_norm_np``'s numpy
+  chain.  ``NORM_LAUNCHES`` counts its normalisations.
 
 Each plain version is held against its kernel on the card by
 ``chip_smoke.py`` and ``tests/test_torch_cuda.py``.  The counters are
@@ -46,16 +53,19 @@ from refid_tpu_torch.events.voxel import (
 )
 from refid_tpu_torch.ops.build import bind, current_stream, launch, load, raise_on_error
 
-__all__ = ["LAUNCHES", "GRID_LAUNCHES", "voxelize_cuda",
-           "events_to_voxel_grid_cuda", "reset_grid_stats", "kernel_tile_plan"]
+__all__ = ["LAUNCHES", "GRID_LAUNCHES", "NORM_LAUNCHES", "voxelize_cuda",
+           "events_to_voxel_grid_cuda", "reset_grid_stats", "kernel_tile_plan",
+           "voxel_norm_cuda", "reset_norm_stats"]
 
 LAUNCHES = 0
 GRID_LAUNCHES = 0
+NORM_LAUNCHES = 0
 _stats_lock = threading.Lock()
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {"refid_voxel_plan": [_I, _I, _I, _I, _P], "refid_voxel_sort_chunk": [],
                "refid_voxelize": [_P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P]}
 _fns = {}        # C function name -> bound function, filled at first use
+_norm_fns = {}   # the same for csrc/voxel_norm.cu
 
 
 def _bound(fn: str):
@@ -160,3 +170,53 @@ def events_to_voxel_grid_cuda(events: np.ndarray, num_bins: int, width: int,
     with _stats_lock:
         GRID_LAUNCHES += 1
     return host.numpy()
+
+
+def reset_norm_stats() -> None:
+    """Set ``NORM_LAUNCHES`` to zero."""
+    global NORM_LAUNCHES
+    with _stats_lock:
+        NORM_LAUNCHES = 0
+
+
+def _voxel_norm(grid: torch.Tensor):
+    """The two kernels on a contiguous float32 CUDA grid of at least one
+    float, on the current stream, not counted in ``NORM_LAUNCHES``; returns
+    the normalised grid and the float64 scratch, whose last three words get
+    ``{count, mean, std}``."""
+    if not _norm_fns:
+        _norm_fns.update(bind("voxel_norm", {"refid_voxel_norm_scratch": [],
+                                             "refid_voxel_norm": [_P, ctypes.c_longlong, _P,
+                                                                  _P, _P]}))
+    out = torch.empty_like(grid)
+    scratch = torch.empty(_norm_fns["refid_voxel_norm_scratch"](), dtype=torch.float64,
+                          device=grid.device)
+    index = grid.get_device()
+    err = launch(_norm_fns["refid_voxel_norm"], index, grid.data_ptr(), grid.numel(),
+                 scratch.data_ptr(), out.data_ptr(), current_stream(index))
+    if err:
+        raise_on_error(load("voxel_norm"), err, "voxel_norm")
+    return out, scratch
+
+
+def voxel_norm_cuda(voxel: np.ndarray) -> np.ndarray:
+    """``voxel_norm_np`` of a C-contiguous float32 grid in page-locked host
+    memory, on the current CUDA device and stream: a new float32 array in
+    page-locked memory, or ``voxel`` itself when it holds no nonzero cell.
+    ``voxel`` is not modified.  Blocks until the result is on the host."""
+    global NORM_LAUNCHES
+    if not isinstance(voxel, np.ndarray) or voxel.dtype != np.float32:
+        raise TypeError("voxel must be a float32 numpy array")
+    if not voxel.flags.c_contiguous:
+        raise ValueError("voxel must be C-contiguous")
+    src = torch.from_numpy(voxel)
+    if not src.is_pinned():
+        raise ValueError("voxel must lie in page-locked host memory")
+    out, scratch = _voxel_norm(src.to(torch.device("cuda", torch.cuda.current_device()),
+                                      non_blocking=True))
+    host = torch.empty(voxel.shape, dtype=torch.float32, pin_memory=True)
+    host.copy_(out, non_blocking=True)
+    count = scratch[-3].item()      # a read on the same stream: waits for the copy too
+    with _stats_lock:
+        NORM_LAUNCHES += 1
+    return host.numpy() if count else voxel

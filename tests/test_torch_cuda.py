@@ -14,7 +14,9 @@ import torch
 
 from chip_smoke import INT8_EDGE_SHAPES
 from refid_tpu_torch.events import voxel_cuda
-from refid_tpu_torch.events.voxel import voxelize_padded, voxelize_padded_reference
+from refid_tpu_torch.events.voxel import (
+    voxel_norm_np, voxelize_padded, voxelize_padded_reference,
+)
 
 pytestmark = pytest.mark.gpu
 
@@ -213,6 +215,116 @@ def test_padded_entry_runs_k1(cuda, fmt):
     want = events_to_voxel_grid_padded(ev, 24, 1280, 720, fmt, device="cpu")
     assert got.shape == want.shape
     assert (got.cpu() - want).abs().max().item() <= TOL
+
+
+# ---- the voxel grid's normalisation (csrc/voxel_norm.cu) ----
+
+def _numpy_chain(v):
+    """``voxel_norm_np``'s numpy chain, written out: the plain version."""
+    nonzero = v != 0
+    count = nonzero.sum()
+    if count == 0:
+        return v
+    with np.errstate(divide="ignore", invalid="ignore"):
+        mean = v.sum() / count
+        std = np.sqrt((v ** 2).sum() / count - mean ** 2)
+        return np.where(nonzero, (v - mean) / std, 0.0).astype(v.dtype)
+
+
+def _page_locked(array):
+    host = torch.empty(array.shape, dtype=torch.from_numpy(array).dtype, pin_memory=True)
+    host.copy_(torch.from_numpy(array))
+    return host.numpy()
+
+
+@pytest.mark.parametrize("fmt,bins,w,h", [("HWC", 6, 1280, 720), ("CHW", 6, 1280, 720),
+                                          ("CHW", 5, 97, 31)])     # 15035 floats: a ragged tail
+def test_voxel_norm_card_matches_numpy(cuda, fmt, bins, w, h):
+    """K2's grid (page-locked) is normalised on the card, one launch a call,
+    within ``test_voxel_helpers_match_jax``'s tolerance of the numpy chain
+    (which sums in float32), the same bits on a second call, its input left
+    as it was."""
+    grid = voxel_cuda.events_to_voxel_grid_cuda(_stream(6, 1 << 19, w, h), bins, w, h, fmt)
+    assert torch.from_numpy(grid).is_pinned()
+    kept = grid.copy()
+    want = _numpy_chain(grid)
+    before = voxel_cuda.NORM_LAUNCHES
+    got = voxel_norm_np(grid)
+    again = voxel_norm_np(grid)
+    assert voxel_cuda.NORM_LAUNCHES == before + 2
+    assert got is not grid and got.dtype == np.float32 and got.shape == grid.shape
+    assert torch.from_numpy(got).is_pinned()
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-7)
+    assert np.array_equal(got.view(np.uint32), again.view(np.uint32))
+    assert np.array_equal(grid.view(np.uint32), kept.view(np.uint32))
+
+
+@pytest.mark.parametrize("case", ["zeros", "single"])
+def test_voxel_norm_card_edge_cases(cuda, case):
+    """An all-zero grid comes back as the same object (its count read from
+    the card); a single nonzero cell gives numpy's NaN there (std 0, so 0 /
+    0).  1.5 squares exactly in float32, so numpy's float32 sums are exact
+    too and both chains see std == 0."""
+    grid = _page_locked(np.zeros((720, 1280, 6), np.float32))
+    if case == "single":
+        grid[300, 700, 2] = 1.5
+    want = _numpy_chain(grid)
+    before = voxel_cuda.NORM_LAUNCHES
+    got = voxel_norm_np(grid)
+    assert voxel_cuda.NORM_LAUNCHES == before + 1
+    assert (got is grid) == (case == "zeros")
+    np.testing.assert_array_equal(got, want)          # NaN where numpy has NaN
+    assert np.isnan(got).sum() == (case == "single")
+
+
+def test_voxel_norm_card_only_for_page_locked_contiguous_float32(cuda):
+    """A pageable copy, a cropped view of a page-locked grid and a
+    page-locked float64 grid take the numpy chain; the wrapper refuses a
+    pageable grid."""
+    grid = voxel_cuda.events_to_voxel_grid_cuda(_stream(7, 1 << 16, 160, 48), 6, 160, 48, "HWC")
+    assert torch.from_numpy(grid).is_pinned()
+    assert not torch.from_numpy(np.zeros((48, 160, 6), np.float32)).is_pinned()
+    for other in (grid.copy(), grid[4:40, 8:150], _page_locked(grid.astype(np.float64))):
+        before = voxel_cuda.NORM_LAUNCHES
+        got = voxel_norm_np(other)
+        assert voxel_cuda.NORM_LAUNCHES == before
+        np.testing.assert_array_equal(got, _numpy_chain(other))
+    with pytest.raises(ValueError, match="page-locked"):
+        voxel_cuda.voxel_norm_cuda(grid.copy())
+
+
+def test_voxel_norm_card_from_loader_threads(cuda):
+    """The loader's threads, each on a stream of its own: every grid comes
+    back with the bits one thread alone gives, and every call is counted."""
+    from concurrent.futures import ThreadPoolExecutor
+    grids = [voxel_cuda.events_to_voxel_grid_cuda(_stream(s, 50000, 320, 96), 6, 320, 96, "HWC")
+             for s in range(8)]
+    want = [voxel_norm_np(g) for g in grids]
+
+    def work(g):
+        torch.cuda.set_stream(torch.cuda.Stream(cuda))
+        return voxel_norm_np(g)
+
+    before = voxel_cuda.NORM_LAUNCHES
+    with ThreadPoolExecutor(4) as pool:
+        got = list(pool.map(work, grids * 4))
+    assert voxel_cuda.NORM_LAUNCHES == before + 32
+    for g, w in zip(got, want * 4):
+        assert np.array_equal(g.view(np.uint32), w.view(np.uint32))
+
+
+def test_voxel_norm_card_span_inside_the_normalisation(cuda):
+    from torch.profiler import ProfilerActivity, profile
+    grid = voxel_cuda.events_to_voxel_grid_cuda(_stream(8, 1 << 16, 160, 48), 6, 160, 48, "HWC")
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        voxel_norm_np(grid)
+        voxel_norm_np(grid.copy())
+    spans = sorted(((e.name, e.time_range.start, e.time_range.end) for e in prof.events()
+                    if e.name.startswith("refid.events.voxel_norm")), key=lambda s: (s[1], -s[2]))
+    assert [s[0] for s in spans] == ["refid.events.voxel_norm", "refid.events.voxel_norm_card",
+                                     "refid.events.voxel_norm"]
+    (_, a, b), (_, c, d) = spans[:2]
+    assert a <= c and d <= b
 
 
 # ---- probe kernels P1-P4 (refid_tpu_torch/probes) ----

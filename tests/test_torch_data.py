@@ -28,7 +28,7 @@ from refid_tpu_torch.data.loader import (
     EnlargedIndexSampler, PrefetchLoader, build_dataset, build_loader,
 )
 from refid_tpu_torch.data.mp_loader import ProcessPrefetchLoader
-from refid_tpu_torch.events import voxel
+from refid_tpu_torch.events import voxel, voxel_cuda
 from tests.synthetic_data import make_gopro_tree
 
 torch.set_num_threads(1)
@@ -101,6 +101,25 @@ def test_empty_and_equal_stamps():
     assert not got[1:].any()
     np.testing.assert_allclose(got, jax_voxel.events_to_voxel_grid(ev, 4, 8, 6),
                                atol=2e-6)
+
+
+@pytest.mark.parametrize("case", ["pageable", "view", "float64", "zeros"])
+def test_voxel_norm_np_host_path(case):
+    """Grids outside page-locked memory, views and float64 grids take the
+    numpy chain (no card launch), bit for bit the JAX package's; an all-zero
+    grid comes back as the same object in both."""
+    rng = np.random.RandomState(2)
+    vox = rng.randn(12, 10, 6).astype(np.float32)
+    vox[vox < 0.3] = 0
+    vox = {"pageable": vox, "view": vox[2:10, ::-1], "float64": vox.astype(np.float64),
+           "zeros": np.zeros_like(vox)}[case]
+    voxel_cuda.reset_norm_stats()
+    got = voxel.voxel_norm_np(vox)
+    assert voxel_cuda.NORM_LAUNCHES == 0
+    want = jax_voxel.voxel_norm_np(vox)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    np.testing.assert_array_equal(got, want)
+    assert (got is vox) == (case == "zeros") == (want is vox)
 
 
 def test_host_voxelizer_checks_arguments():

@@ -230,6 +230,18 @@ def test_wrapper_raises_before_it_launches(wrapper, case):
         call()
 
 
+@pytest.mark.parametrize("case,exc,reason", [("pageable", ValueError, "page-locked"),
+                                             ("float64", TypeError, "float32"),
+                                             ("view", ValueError, "contiguous")])
+def test_voxel_norm_wrapper_raises_before_it_launches(case, exc, reason):
+    """``voxel_norm_cuda`` takes only a C-contiguous float32 grid in
+    page-locked memory (a pageable one is all the CPU can make)."""
+    grid = np.ones((8, 12, 6), np.float32)
+    voxel = {"pageable": grid, "float64": grid.astype(np.float64), "view": grid[:, ::2]}[case]
+    with pytest.raises(exc, match=reason):
+        voxel_cuda.voxel_norm_cuda(voxel)
+
+
 def test_p2_wrapper_raises_without_a_window():
     """``d[0, 0, :8, :128]`` of a tensor with no image or channel raises, as
     the slice does on the CPU."""
