@@ -1,14 +1,15 @@
 """Arch utility ops and the EICA block (NCHW), mirroring
 ``refid_tpu/models/arch_util.py`` (upstream basicsr ``arch_util.py``).
 
-Library functions with no caller in either package:
+Library functions with no caller in the JAX package:
   * flow_warp        — bilinear warping by optical flow, zeros outside
   * resize_flow      — flow resampling with its magnitudes rescaled
   * pixel_unshuffle / pixel_shuffle — space-to-depth and back, in the JAX
     functions' channel order: output channel ``(dy * s + dx) * c + ch``
     (``nn.PixelShuffle`` orders them ``ch * s * s + dy * s + dx``)
   * MutualAttention + EventImageChannelAttentionTransformerBlock ("EICA") —
-    channel-attention cross-modal transformer
+    channel-attention cross-modal transformer (its caller in this package:
+    ``models/efnet.py``, at upstream EFNet's settings)
   * SpatialCrossAttention — token-space cross attention with an optional
     spatial reduction of the key/value source
 """
@@ -102,15 +103,18 @@ class MutualAttention(nn.Module):
 
 class EventImageChannelAttentionTransformerBlock(nn.Module):
     """EICA: cross-modal channel attention and an MLP, each with a residual,
-    LayerNorm (over channels) before each."""
+    LayerNorm (over channels) before each.  ``nn.LayerNorm`` over the
+    channels of a pixel is upstream's ``'WithBias'`` LayerNorm (biased
+    variance, ``eps`` inside the root, a scale and a bias); the defaults
+    (factor 2, eps 1e-6) are the JAX block's, EFNet passes 4 and 1e-5."""
 
     def __init__(self, dim: int, num_heads: int, ffn_expansion_factor: int = 2,
-                 bias: bool = False):
+                 bias: bool = False, eps: float = 1e-6):
         super().__init__()
-        self.norm1_image = nn.LayerNorm(dim, eps=1e-6)
-        self.norm1_event = nn.LayerNorm(dim, eps=1e-6)
+        self.norm1_image = nn.LayerNorm(dim, eps=eps)
+        self.norm1_event = nn.LayerNorm(dim, eps=eps)
         self.attn = MutualAttention(dim, num_heads, bias)
-        self.norm2 = nn.LayerNorm(dim, eps=1e-6)
+        self.norm2 = nn.LayerNorm(dim, eps=eps)
         self.fc1 = nn.Linear(dim, dim * ffn_expansion_factor)
         self.fc2 = nn.Linear(dim * ffn_expansion_factor, dim)
 

@@ -22,6 +22,9 @@ implements the intended semantics, and so does this one (the breakage map in
   reads ``img_chn`` channels but is fed one frame's half; here it reads the
   half.  NoAtten's unused SE fusions are absent.
 
+``EFNet`` (upstream EFNet_arch.py) has no JAX counterpart; it is held to
+the benchmark's plain reference (``models/efnet.py``).
+
 ``compute_dtype: bfloat16`` maps to bf16 autocast with float32 parameters.
 """
 
@@ -30,10 +33,12 @@ from __future__ import annotations
 import torch
 
 from refid_tpu_torch.core.registry import ARCHS
+from refid_tpu_torch.models.efnet import EFNet
 from refid_tpu_torch.models.evhinet import EVHINet
 from refid_tpu_torch.models.refid import FinalBidirectionAttenfusion, RefidConfig
 
 __all__ = ["final_bidirection_attenfusion", "final_bidirection", "single_multiconnect_evhinet",
+           "efnet",
            "unet_recurrent", "unet_decoder_recurrent", "bidir_unet_recurrent",
            "unet_decoder_recurrent_bidir", "unet_decoder_recurrent_allbidir",
            "unet_ps_decoder_recurrent", "unet_decoder_recurrent_siamese",
@@ -112,6 +117,18 @@ def single_multiconnect_evhinet(opt: dict) -> EVHINet:
                    hin_left=opt.get("hin_position_left", 0),
                    hin_right=opt.get("hin_position_right", 4),
                    dtype=_compute_dtype(opt))
+
+
+@ARCHS.register("EFNet")
+def efnet(opt: dict) -> EFNet:
+    """Event-image fusion with cross-modal attention, two stages
+    (upstream EFNet_arch.py)."""
+    return EFNet(in_chn=opt.get("in_chn", 3), ev_chn=opt.get("ev_chn", 6),
+                 wf=opt.get("wf", 64), depth=opt.get("depth", 3),
+                 num_heads=tuple(opt.get("num_heads", (1, 2, 4))),
+                 ffn_expansion_factor=opt.get("ffn_expansion_factor", 4),
+                 fuse_before_downsample=opt.get("fuse_before_downsample", True),
+                 relu_slope=opt.get("relu_slope", 0.2), dtype=_compute_dtype(opt))
 
 
 # --- the ablation lineages ----------------------------------------------------

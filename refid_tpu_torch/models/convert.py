@@ -22,6 +22,12 @@ resblocks ignores them, as the JAX converter does.
 upstream builds and never runs; :func:`load_state` ignores keys outside the
 port's EVHINet, naming them in the log, as the JAX converter reads only the
 stage-1 keys.
+
+An upstream EFNet checkpoint (recognised by its ``image_event_transformer``
+keys) loads into the port's :class:`EFNet` under upstream's names, but for
+EICA's: its ``WithBias`` LayerNorms' ``norm1_*.body.`` and its MLP's
+``ffn.fc1`` / ``ffn.fc2`` are the port block's ``norm1_*.`` and ``fc1`` /
+``fc2``.
 """
 
 from __future__ import annotations
@@ -33,6 +39,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from refid_tpu_torch.models.efnet import EFNet
 from refid_tpu_torch.models.evhinet import EVHINet
 from refid_tpu_torch.models.recurrent import RecurrentEncoderStage
 from refid_tpu_torch.models.refid import RefidConfig
@@ -40,6 +47,8 @@ from refid_tpu_torch.models.refid import RefidConfig
 __all__ = ["state_dict_from_jax", "evhinet_state_dict_from_jax", "known_unused_keys",
            "load_state"]
 
+_EICA_NAMES = ((".norm1_image.body.", ".norm1_image."), (".norm1_event.body.", ".norm1_event."),
+               (".ffn.fc", ".fc"))
 _ATTEN_CONVS = ("conv1", "conv2", "conv1_e", "conv2_e", "conv3", "conv4",
                 "conv5", "conv_y_side")
 
@@ -233,13 +242,27 @@ def known_unused_keys(model: nn.Module) -> set:
     return keys
 
 
+def _efnet_port_name(key: str) -> str:
+    for upstream, port in _EICA_NAMES:
+        key = key.replace(upstream, port)
+    return key
+
+
 def load_state(model: nn.Module, state_dict: Mapping[str, torch.Tensor]) -> None:
     """Load ``state_dict`` into ``model``; only known-unused keys may be
     missing.  No key may be unexpected, except upstream's dead bottleneck
     ``resblocks.*`` where the network has none, and in an EVHINet checkpoint
     (``conv_ev1.`` keys) the keys outside the port's EVHINet (upstream's
-    stage-2 modules); both are ignored and named in the log."""
-    is_evhinet = any(k.startswith("conv_ev1.") for k in state_dict)
+    stage-2 modules); both are ignored and named in the log.  An EFNet
+    checkpoint (``image_event_transformer`` keys) loads whole, EICA's keys
+    renamed to the port block's."""
+    is_efnet = any(".image_event_transformer." in k for k in state_dict)
+    if is_efnet != isinstance(model, EFNet):
+        raise ValueError(f"{'an' if is_efnet else 'no'} EFNet checkpoint "
+                         f"(image_event_transformer keys) for a {type(model).__name__} network")
+    if is_efnet:
+        state_dict = {_efnet_port_name(k): v for k, v in state_dict.items()}
+    is_evhinet = not is_efnet and any(k.startswith("conv_ev1.") for k in state_dict)
     if is_evhinet != isinstance(model, EVHINet):
         raise ValueError(f"{'an' if is_evhinet else 'no'} EVHINet checkpoint (conv_ev1.* "
                          f"keys) for a {type(model).__name__} network")

@@ -15,7 +15,8 @@ Reference quirks kept:
     as the JAX network concatenates ``event[:, i]`` along channels;
   * the last encoder stage never gets the event filter, so the last event
     block (``down_path_ev.2`` at the default geometry) feeds nothing;
-  * only SAM's ``conv2(x) + x_img`` reaches the output.
+  * only SAM's ``conv2(x) + x_img`` reaches the output (``SAM.full``, the
+    whole head, is EFNet's).
 XLA drops the dead code that this implies; eager PyTorch would run it, so
 the forward does not compute the last event block, nor the downsample of
 the last event block it does compute, nor SAM's ``conv1`` / ``conv3``.  Their
@@ -128,14 +129,17 @@ class HINConvBlock(nn.Module):
 
 
 class EVConvBlock(HINConvBlock):
-    """The event branch's HIN block: also lifts its full-resolution output to
-    the (weight, bias) filter of ``2 * out_size`` channels by a 1x1
-    ``conv_before_merge``.  :meth:`forward` returns (output, filter)."""
+    """The event branch's HIN block: also lifts its full-resolution output by
+    a 1x1 ``conv_before_merge`` to ``merge_size`` channels (default ``2 *
+    out_size``: EVHINet's (weight, bias) filter; EFNet's event feature has
+    ``out_size``).  :meth:`forward` returns (output, lifted output)."""
 
     def __init__(self, in_size: int, out_size: int, downsample: bool,
-                 relu_slope: float = 0.2, use_hin: bool = True):
+                 relu_slope: float = 0.2, use_hin: bool = True,
+                 merge_size: Optional[int] = None):
         super().__init__(in_size, out_size, downsample, relu_slope, use_hin)
-        self.conv_before_merge = nn.Conv2d(out_size, 2 * out_size, 1, 1, 0)
+        self.conv_before_merge = nn.Conv2d(
+            out_size, 2 * out_size if merge_size is None else merge_size, 1, 1, 0)
 
     def forward(self, x, q=None):
         out = super().forward(x, q=q)
@@ -154,8 +158,8 @@ class UpBlock(nn.Module):
 
 class SAM(nn.Module):
     """Supervised attention head.  The single-stage network returns only
-    ``conv2(x) + x_img``; ``conv1`` and ``conv3`` (the attention branch) are
-    kept for the checkpoint and never run."""
+    ``conv2(x) + x_img`` (:meth:`forward`); ``conv1`` and ``conv3`` (the
+    attention branch) run only in a two-stage network (:meth:`full`)."""
 
     def __init__(self, n_feat: int):
         super().__init__()
@@ -165,6 +169,12 @@ class SAM(nn.Module):
 
     def forward(self, x, x_img):
         return self.conv2(x) + x_img
+
+    def full(self, x, x_img):
+        """Upstream's whole head: (``conv1(x) * sigmoid(conv3(img)) + x``,
+        ``img``) with ``img = conv2(x) + x_img``."""
+        img = self.forward(x, x_img)
+        return self.conv1(x) * torch.sigmoid(self.conv3(img)) + x, img
 
 
 class EVHINet(nn.Module):
