@@ -1,5 +1,11 @@
-"""REFID network — FinalBidirectionAttenfusion (NCHW) and its ablation
+"""REFID network — FinalBidirectionAttenfusion (NCHW shapes) and its ablation
 lineages, mirroring ``refid_tpu/models/refid.py``.
+
+The network runs in the memory format of its input: given channels_last
+``x`` and ``event[:, k]`` (and weights), every activation, the zero
+recurrent states included, stays channels_last, which is the layout of
+cuDNN's bf16 conv kernels on sm_90; the output frames then stack as
+``(b, t, h, w, c)`` in memory.
 
 The two temporal loops are Python loops over the voxel-bin pairs (the JAX
 package's ``nn.scan``s): first backward over t, then forward.  Module names
@@ -166,6 +172,11 @@ def _validate(cfg: RefidConfig) -> None:
         raise ValueError("the siamese lineage is unidirectional (siamese arch :140)")
 
 
+def _is_channels_last(x: torch.Tensor) -> bool:
+    """``x`` is laid out channels_last, and not also plainly contiguous."""
+    return x.is_contiguous(memory_format=torch.channels_last) and not x.is_contiguous()
+
+
 def int8_applicable(cfg: Optional[RefidConfig]) -> bool:
     """True iff int8 serving applies: exactly the configurations that the
     JAX serving forward replays (``refid_tpu/pipeline.py::
@@ -190,10 +201,11 @@ INT8_NEEDS = ("the production architecture that the JAX serving forward replays:
 class FinalBidirectionAttenfusion(nn.Module):
     """Event-recurrent UNet for blurry VFI, bidirectional in the flagship.
 
-    Inputs (NCHW): ``x`` ``(b, img_chn, h, w)``, or ``(b, 2, c, h, w)``
-    concatenated along channels; ``event`` ``(b, t, ev_chn, h, w)`` adjacent
-    voxel-bin pairs.  Output ``(b, t, out_chn, h, w)``.  ``h`` and ``w`` must
-    be multiples of ``2**num_encoders``.
+    Inputs (NCHW shapes, either memory format): ``x`` ``(b, img_chn, h,
+    w)``, or ``(b, 2, c, h, w)`` concatenated along channels; ``event``
+    ``(b, t, ev_chn, h, w)`` adjacent voxel-bin pairs.  Output ``(b, t,
+    out_chn, h, w)``.  ``h`` and ``w`` must be multiples of
+    ``2**num_encoders``.
 
     Under an active spatial plan (``parallel/spatial.py::spatial_scope``)
     ``x`` and ``event`` are this rank's rows of the frame and so is the
@@ -256,18 +268,23 @@ class FinalBidirectionAttenfusion(nn.Module):
     def _zero_states(self, b, h, w, like):
         """Encoder states (at the pre-down resolution for ``then_down``, the
         post-down one for the k5/s2 stages; ConvLSTM's a (hidden, cell)
-        pair) and decoder states (post-upsample)."""
+        pair) and decoder states (post-upsample), in ``like``'s dtype and
+        memory format."""
         cfg = self.cfg
         ne, out = cfg.num_encoders, cfg.encoder_out_sizes
         shift = 0 if cfg.encoder_stage == "then_down" else 1
 
+        fmt = torch.channels_last if _is_channels_last(like) else torch.contiguous_format
+
+        def zeros(c, s):
+            return torch.empty(b, c, h // 2 ** s, w // 2 ** s, dtype=like.dtype,
+                               device=like.device, memory_format=fmt).zero_()
+
         def enc(i):
-            z = like.new_zeros(b, out[i], h // 2 ** (i + shift), w // 2 ** (i + shift))
+            z = zeros(out[i], i + shift)
             return (z, z) if cfg.recurrent_cell == "convlstm" else z
 
-        dec = tuple(like.new_zeros(b, out[ne - i - 1] // 2,
-                                   h // 2 ** (ne - i - 1), w // 2 ** (ne - i - 1))
-                    for i in range(ne))
+        dec = tuple(zeros(out[ne - i - 1] // 2, ne - i - 1) for i in range(ne))
         return tuple(enc(i) for i in range(ne)), dec
 
     @staticmethod
@@ -449,4 +466,6 @@ class FinalBidirectionAttenfusion(nn.Module):
             outs.append(frame)
         if q is not None:
             q.finish()
+        if _is_channels_last(outs[0]):   # (b, t, h, w, c) in memory
+            return torch.stack([o.permute(0, 2, 3, 1) for o in outs], 1).permute(0, 1, 4, 2, 3)
         return torch.stack(outs, 1)

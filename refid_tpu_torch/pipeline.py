@@ -9,6 +9,17 @@ the compact event list and the two frames cross the bus.  A request is the
 profiler span ``refid.vfi.request`` (``core/timer.py::span``) and its
 stages ``refid.vfi.pad``, ``.voxelize``, ``.pack`` and ``.network``.
 
+A float pipeline without a spatial plan serves in channels_last: every conv
+of that path is cuDNN's, whose bf16 kernels on sm_90 are NHWC, so an NCHW
+network pays a layout pass into and out of each conv.  At construction the
+network's 4-D weights are converted once; each request packs the image
+input as ``(h, w, c)`` in memory, straight from the HWC frames and the
+bins, and the pairs as ``(t, h, w, 2)``, so that every ``event[:, k]`` is
+a channels_last view; the model call is then also the span
+``refid.vfi.channels_last``.  The int8 modes (C8 and Q8 read NCHW) and
+spatial plans serve NCHW, with the weights converted back to it if another
+pipeline converted them; calibration packs NCHW too.
+
 The public layout is the JAX package's: frames ``(h, w, 3)`` RGB in [0, 1],
 events ``(N, 4)`` ``[t, x, y, p]`` sorted by t, output ``(t, h, w, 3)``.
 
@@ -77,7 +88,9 @@ class BlurVFIPipeline:
     group (module docstring); ``last_plan`` then holds the last window's
     :class:`~refid_tpu_torch.parallel.spatial.SpatialPlan` and its exchange
     counts.  ``device`` defaults to ``'cuda'`` and raises when no CUDA
-    device is present.
+    device is present.  ``channels_last`` says whether the pipeline serves
+    in that memory format: True without int8 and without a spatial split
+    (module docstring).
     """
 
     def __init__(self, model_or_state: Union[nn.Module, Mapping[str, torch.Tensor]],
@@ -96,6 +109,7 @@ class BlurVFIPipeline:
         self.mesh = mesh
         self.last_plan = None
         self.int8 = int8
+        self.channels_last = not int8 and (mesh is None or mesh.spatial == 1)
         self._int8_scales = None        # calibrated amaxes (headroom applied)
         self._int8_raw_amax = None
         self._int8_rms = None
@@ -114,18 +128,20 @@ class BlurVFIPipeline:
         else:
             model = FinalBidirectionAttenfusion(cfg)
             load_state(model, model_or_state)
-        self.model = model.to(self.device).eval()
+        fmt = torch.channels_last if self.channels_last else torch.contiguous_format
+        self.model = model.to(self.device, memory_format=fmt).eval()
 
     # --- task-specific hooks (overridden by SharpVFIPipeline) --------------
 
     def _derive_num_bins(self, m: int, n: int) -> int:
         return 2 * m + n + 1
 
-    def _make_lq(self, vox, frame0, frame1):
+    def _lq_blocks(self, vox, frame0, frame1):
         """Blur-VFI packing: the two blurred frames, each followed by its
-        intra-exposure voxel bins (channels-first)."""
+        intra-exposure voxel bins, as ``(c, h, w)`` blocks in channel
+        order."""
         m, n = self.m, self.n
-        return torch.cat([frame0, vox[1:m], frame1, vox[m + 2 + n:]], 0)
+        return [frame0, vox[1:m], frame1, vox[m + 2 + n:]]
 
     def _pad_events(self, events, capacity: Optional[int]) -> Tuple[torch.Tensor, int]:
         """Pad to ``capacity`` rows (default: the next power of two, at least
@@ -135,7 +151,7 @@ class BlurVFIPipeline:
         return pad_events(events, capacity, self.device)
 
     def _frame(self, frame) -> torch.Tensor:
-        """(h, w, 3) -> (3, h, w) float32 on the device."""
+        """(h, w, 3) -> a (3, h, w) view, float32 on the device."""
         frame = torch.as_tensor(np.asarray(frame, dtype=np.float32))
         return frame.to(self.device).permute(2, 0, 1)
 
@@ -147,10 +163,20 @@ class BlurVFIPipeline:
             vox = voxelize_padded(ev, n_ev, self.num_bins, w, h)   # (bins, h, w)
             if self.norm_voxel:
                 vox = voxel_norm(vox)
+        channels_last = self.channels_last and q is None
         with span("refid.vfi.pack"):
-            lq = self._make_lq(vox, self._frame(blur0), self._frame(blur1))[None]
-            pairs = torch.stack([vox[:-1], vox[1:]], 1)[None]     # (1, t, 2, h, w)
+            blocks = self._lq_blocks(vox, self._frame(blur0), self._frame(blur1))
+            if channels_last:     # (h, w, c) and (t, h, w, 2) in memory
+                lq = torch.cat([b.permute(1, 2, 0) for b in blocks], -1).permute(2, 0, 1)
+                pairs = torch.stack([vox[:-1], vox[1:]], -1).permute(0, 3, 1, 2)
+            else:
+                lq = torch.cat(blocks, 0)
+                pairs = torch.stack([vox[:-1], vox[1:]], 1)
+            lq, pairs = lq[None], pairs[None]                     # pairs (1, t, 2, h, w)
         with span("refid.vfi.network"):
+            if channels_last:
+                with span("refid.vfi.channels_last"):
+                    return self.model(lq, pairs, q)[0].permute(0, 2, 3, 1)
             if self.mesh is None or self.mesh.spatial == 1:
                 return self.model(lq, pairs, q)[0].permute(0, 2, 3, 1)
             plan = self.last_plan = SpatialPlan(self.mesh, h, self.model.row_block)
@@ -265,6 +291,6 @@ class SharpVFIPipeline(BlurVFIPipeline):
     def _derive_num_bins(self, m: int, n: int) -> int:
         return n + 1   # sharp stream: the window ends ARE the inputs
 
-    def _make_lq(self, vox, frame0, frame1):
+    def _lq_blocks(self, vox, frame0, frame1):
         zeros = vox.new_zeros((10,) + vox.shape[1:])
-        return torch.cat([frame0, zeros, frame1, zeros], 0)
+        return [frame0, zeros, frame1, zeros]

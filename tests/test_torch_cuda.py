@@ -628,6 +628,99 @@ def test_int8_pipeline_on_the_card_matches_the_cpu(cuda, mode):
     assert parity_db(want, got) >= parity_db(exact, got) + 10.0
 
 
+# --- the float VFI pipeline in channels_last ------------------------------
+
+def _layout_kernels_in_the_network(pipe, request):
+    """The names of the layout kernels (``portbench/metrics/
+    layout_kernels.txt``) that ops inside the span ``refid.vfi.network``
+    launch, in one profiled request."""
+    from pathlib import Path
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    path = Path(__file__).resolve().parent.parent / "portbench/metrics/layout_kernels.txt"
+    names = [ln.strip() for ln in path.read_text().splitlines()
+             if ln.strip() and not ln.startswith("#")]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        pipe(*request)
+        torch.cuda.synchronize()
+    events = prof.events()
+    (span,) = [e for e in events if e.device_type == DeviceType.CPU
+               and e.name == "refid.vfi.network"]
+    inside = [k.name for e in events if e.device_type == DeviceType.CPU
+              and e.thread == span.thread and span.time_range.start <= e.time_range.start
+              and e.time_range.end <= span.time_range.end for k in e.kernels]
+    assert inside, "the profiler attached no kernel to the network's ops"
+    return [k for k in inside if any(n in k for n in names)]
+
+
+def test_channels_last_vfi_pipeline_on_the_card(cuda):
+    """The float bf16 pipeline at production widths on a 128x192 window (t =
+    23) serves channels_last: every module of the network (the convs, the
+    LayerNorms, EGACA, the recurrent stages and decoders, the residual
+    blocks, ``pred``) returns channels_last where its output has more than
+    one pixel; its answer is as close to the float32 NCHW answer (TF32 off)
+    as the same weights served NCHW in bf16 are; and no cuDNN layout kernel
+    runs inside its network span, where the NCHW network launches them."""
+    from portbench.weights import seeded_state
+    from refid_tpu_torch import BlurVFIPipeline, RefidConfig
+    from refid_tpu_torch.models import FinalBidirectionAttenfusion
+
+    def nchw(pipe):
+        pipe.channels_last = False
+        pipe.model.to(memory_format=torch.contiguous_format)
+        return pipe
+
+    h, w = 128, 192
+    rng = np.random.RandomState(23)
+    request = (rng.rand(h, w, 3).astype(np.float32), rng.rand(h, w, 3).astype(np.float32),
+               np.stack([np.sort(rng.rand(1 << 15)), rng.randint(0, w, 1 << 15),
+                         rng.randint(0, h, 1 << 15), rng.randint(0, 2, 1 << 15)],
+                        1).astype(np.float32))
+    with torch.device("meta"):
+        meta = FinalBidirectionAttenfusion(RefidConfig())
+    state = seeded_state(meta, 22, cuda)
+    bf16 = RefidConfig(dtype=torch.bfloat16)
+    cl = BlurVFIPipeline(state, bf16, device=cuda)
+    nc = nchw(BlurVFIPipeline(state, bf16, device=cuda))
+    assert cl.channels_last
+    nchw_outputs = []
+
+    def hook(name):
+        def check(module, inputs, out):
+            for y in out if isinstance(out, tuple) else (out,):
+                if (isinstance(y, torch.Tensor) and y.dim() == 4 and y.shape[-1] * y.shape[-2] > 1
+                        and not y.is_contiguous(memory_format=torch.channels_last)):
+                    nchw_outputs.append(name)
+        return check
+
+    handles = [m.register_forward_hook(hook(name)) for name, m in cl.model.named_modules()
+               if name]
+    cl(*request)
+    for handle in handles:
+        handle.remove()
+    assert len(handles) > 100 and nchw_outputs == []
+    tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        want = nchw(BlurVFIPipeline(state, RefidConfig(), device=cuda))(*request)
+        got, plain = cl(*request), nc(*request)
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    assert got.shape == (23, h, w, 3) and got.is_contiguous()
+
+    def rms(x):
+        return float(x.float().square().mean().sqrt())
+
+    err, err_nchw = rms(got - want), rms(plain - want)
+    assert err <= 1.5 * err_nchw and err_nchw <= 1.5 * err, (err, err_nchw)
+    assert rms(got - plain) < 0.05 * rms(want), (rms(got - plain), rms(want))
+    assert _layout_kernels_in_the_network(nc, request)
+    assert _layout_kernels_in_the_network(cl, request) == []
+
+
 # --- row shards (parallel/spatial.py): C8 with its own row padding, Q8 on a
 # device amax ---------------------------------------------------------------
 

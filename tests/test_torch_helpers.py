@@ -97,6 +97,16 @@ def to_nchw(y):
     return np.moveaxis(np.asarray(y), -1, -3)
 
 
+def served_nchw(pipe):
+    """A float ``BlurVFIPipeline`` (served channels_last) switched to NCHW,
+    weights included: the layout that its int8 modes, its calibration and
+    its spatial plans compute in, for tests that hold those bit for bit
+    against the float path."""
+    pipe.channels_last = False
+    pipe.model.to(memory_format=torch.contiguous_format)
+    return pipe
+
+
 def max_diff(a, b):
     a, b = np.asarray(a), np.asarray(b)
     assert a.shape == b.shape, (a.shape, b.shape)

@@ -33,7 +33,7 @@ from refid_tpu_torch.models import FinalBidirectionAttenfusion
 from refid_tpu_torch.models.convert import state_dict_from_jax
 from refid_tpu_torch.serve import quant
 from tests.synthetic_data import make_gopro_tree
-from tests.test_torch_helpers import parity_db
+from tests.test_torch_helpers import parity_db, served_nchw
 
 torch.set_num_threads(1)
 
@@ -81,7 +81,8 @@ def toy():
         jax_out[mode] = np.asarray(pipe(*request))
         jax_pipes[mode] = pipe
     state = state_dict_from_jax(params, tcfg)
-    exact = BlurVFIPipeline(state, tcfg, m=M, n=N, device="cpu")(*request).numpy()
+    # in NCHW, the layout the int8 modes and calibration compute in
+    exact = served_nchw(BlurVFIPipeline(state, tcfg, m=M, n=N, device="cpu"))(*request).numpy()
     return {"params": params, "jcfg": jcfg, "tcfg": tcfg, "state": state,
             "request": request, "jax": jax_out, "jax_pipes": jax_pipes, "exact": exact}
 
@@ -313,7 +314,7 @@ def test_sharp_vfi_pipeline_serves_int8():
         state = FinalBidirectionAttenfusion(cfg).state_dict()
     s0, s1, _ = _window(5)
     ev = _events(np.random.RandomState(6), 400)
-    exact = SharpVFIPipeline(state, cfg, n=3, device="cpu")(s0, s1, ev).numpy()
+    exact = served_nchw(SharpVFIPipeline(state, cfg, n=3, device="cpu"))(s0, s1, ev).numpy()
     for mode in (True, "scale0", "static"):
         pipe = SharpVFIPipeline(state, cfg, n=3, int8=mode, device="cpu")
         if mode == "static":

@@ -48,7 +48,7 @@ from refid_tpu_torch.models.convert import evhinet_state_dict_from_jax, state_di
 from refid_tpu_torch.models.evhinet import EVHINet
 from refid_tpu_torch.serve import quant
 from tests import torch_dist
-from tests.test_torch_helpers import parity_db, random_params
+from tests.test_torch_helpers import parity_db, random_params, served_nchw
 
 torch.set_num_threads(1)
 
@@ -173,8 +173,9 @@ def test_sharded_evhinet_int8_equals_unsharded_and_matches_jax(setup, mode):
 
 
 def _whole(setup, mode):
+    """The whole frame in NCHW, the layout of the sharded pipelines."""
     pipe = BlurVFIPipeline(setup["state"], setup["tcfg"], m=M, n=N, int8=mode, device="cpu")
-    return pipe(*setup["request"])
+    return (pipe if mode else served_nchw(pipe))(*setup["request"])
 
 
 @pytest.mark.parametrize("mode", [False, True], ids=["float", "int8"])
