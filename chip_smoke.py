@@ -1154,7 +1154,7 @@ def phase_int8_serve(requests):
              quantize_launches=quants, windows=served, ms_per_window=times,
              mean_ms_per_window=ms, frames_per_s=23 * 1e3 / ms, db_vs_f32=dbs[mode],
              bf16_db_vs_f32=bf16_db, calibrate_ms=calib_ms,
-             calibrated_sites=None if pipe._int8_scales is None else len(pipe._int8_scales),
+             calibrated_sites=None if pipe.served.scales is None else len(pipe.served.scales),
              max_memory_allocated=peak, profiled_device_busy_ms=busy,
              idle_share=idle_share(busy, ms),
              int8_device_ms=int8_ms, int8_share=int8_ms / busy,
@@ -1352,11 +1352,11 @@ def phase_evhinet_serve(requests):
                             **({"int8": True} if mode is True else {}))
         q_static = None
         if mode == "static":
-            rec = RecordingQuant("calib", task._int8_weights)
+            rec = RecordingQuant("calib", task.served.weights)
             evhinet_forward(task, *requests[0], rec)
             shapes = rec.shapes
             amax, _ = quant.calibration_stats(rec)
-            q_static = lambda: quant.QuantState("static", task._int8_weights, amax)
+            q_static = lambda: quant.QuantState("static", task.served.weights, amax)
 
         def run(request):
             if q_static is None:
@@ -3007,14 +3007,14 @@ def spatial_int8(mesh):
         plan = pipe.last_plan
         whole = BlurVFIPipeline(state, RefidConfig(), int8=mode, device="cuda")
         if mode == "static":                    # the shards' scales
-            whole._int8_scales, whole._int8_exclude = pipe._int8_scales, pipe._int8_exclude
+            whole.served.scales, whole.served.exclude = pipe.served.scales, pipe.served.exclude
         with torch.autocast("cuda", dtype=torch.bfloat16):
             want = whole(*requests[-1])
         if mode == "static":
             calibrated = BlurVFIPipeline(state, RefidConfig(), int8=mode, device="cuda")
             with torch.autocast("cuda", dtype=torch.bfloat16):
                 calibrated.calibrate(*requests[0])
-            amax_equal = calibrated._int8_raw_amax == pipe._int8_raw_amax
+            amax_equal = calibrated.served.raw_amax == pipe.served.raw_amax
             del calibrated
         result[str(mode)] = {
             "sites": INT8_SITES[mode], "windows": SPATIAL_INT8_WINDOWS,

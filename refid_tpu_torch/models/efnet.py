@@ -144,10 +144,6 @@ class EFNet(nn.Module):
         self.cat12 = nn.Conv2d(2 * prev, prev, 1, 1, 0)
         self.last = nn.Conv2d(prev, in_chn, 3, 1, 1)
 
-    # the task reads it on every call; it matters only under val.int8,
-    # which EFNet refuses
-    int8_side = 4
-
     @property
     def row_block(self) -> int:
         raise ValueError(_NO_SPATIAL)

@@ -9,16 +9,9 @@ the compact event list and the two frames cross the bus.  A request is the
 profiler span ``refid.vfi.request`` (``core/timer.py::span``) and its
 stages ``refid.vfi.pad``, ``.voxelize``, ``.pack`` and ``.network``.
 
-A float pipeline without a spatial plan serves in channels_last: every conv
-of that path is cuDNN's, whose bf16 kernels on sm_90 are NHWC, so an NCHW
-network pays a layout pass into and out of each conv.  At construction the
-network's 4-D weights are converted once; each request packs the image
-input as ``(h, w, c)`` in memory, straight from the HWC frames and the
-bins, and the pairs as ``(t, h, w, 2)``, so that every ``event[:, k]`` is
-a channels_last view; the model call is then also the span
-``refid.vfi.channels_last``.  The int8 modes (C8 and Q8 read NCHW) and
-spatial plans serve NCHW, with the weights converted back to it if another
-pipeline converted them; calibration packs NCHW too.
+The network call is ``serve/network.py``'s; where it serves channels_last,
+:meth:`BlurVFIPipeline._pack` packs the inputs NHWC straight from the HWC
+frames and the bins.
 
 The public layout is the JAX package's: frames ``(h, w, 3)`` RGB in [0, 1],
 events ``(N, 4)`` ``[t, x, y, p]`` sorted by t, output ``(t, h, w, 3)``.
@@ -28,8 +21,7 @@ True (dynamic activation scales), ``"scale0"`` (also the scale-0 encoder
 trunks) and ``"static"`` (calibrated scales, the widest coverage), which
 needs :meth:`BlurVFIPipeline.calibrate` or :meth:`load_calibration` first.
 Calibration files are the JAX package's JSON (``amax``, ``rms``,
-``exclude``), so one calibration serves both packages.  Each weight is
-quantized once, on the first request, and kept on the pipeline.
+``exclude``), so one calibration serves both packages.
 
 Spatial serving (``mesh=``, ``parallel/mesh.py::make_mesh(data=1,
 spatial=S)``): one stream split by image height over the S ranks of the
@@ -47,7 +39,6 @@ across the group.
 
 from __future__ import annotations
 
-import json
 from typing import Mapping, Optional, Tuple, Union
 
 import numpy as np
@@ -63,10 +54,8 @@ from refid_tpu_torch.models.convert import load_state
 from refid_tpu_torch.models.refid import (
     INT8_NEEDS, FinalBidirectionAttenfusion, RefidConfig, int8_applicable,
 )
-from refid_tpu_torch.parallel.spatial import SpatialPlan, spatial_scope
-from refid_tpu_torch.serve.quant import (
-    INT8_MODES, QuantState, WeightCache, calibration_stats,
-)
+from refid_tpu_torch.serve.network import ServedNetwork
+from refid_tpu_torch.serve.quant import INT8_MODES
 
 __all__ = ["BlurVFIPipeline", "SharpVFIPipeline"]
 
@@ -86,11 +75,10 @@ class BlurVFIPipeline:
     re-expressions of the same forward) are not accepted.  ``mesh`` (a
     ``parallel.mesh.Mesh``) splits each window by height over its spatial
     group (module docstring); ``last_plan`` then holds the last window's
-    :class:`~refid_tpu_torch.parallel.spatial.SpatialPlan` and its exchange
-    counts.  ``device`` defaults to ``'cuda'`` and raises when no CUDA
-    device is present.  ``channels_last`` says whether the pipeline serves
-    in that memory format: True without int8 and without a spatial split
-    (module docstring).
+    :class:`~refid_tpu_torch.parallel.spatial.SpatialPlan`.  ``device``
+    defaults to ``'cuda'`` and raises when no CUDA device is present.
+    ``channels_last`` says whether the pipeline serves in that memory
+    format.
     """
 
     def __init__(self, model_or_state: Union[nn.Module, Mapping[str, torch.Tensor]],
@@ -106,15 +94,6 @@ class BlurVFIPipeline:
                              f"got {int8!r}")
         if int8 and not int8_applicable(cfg):
             raise ValueError(f"int8 serving needs {INT8_NEEDS}")
-        self.mesh = mesh
-        self.last_plan = None
-        self.int8 = int8
-        self.channels_last = not int8 and (mesh is None or mesh.spatial == 1)
-        self._int8_scales = None        # calibrated amaxes (headroom applied)
-        self._int8_raw_amax = None
-        self._int8_rms = None
-        self._int8_exclude = None       # site indices served in exact math
-        self._int8_weights = WeightCache()
         self.device = resolve_device(device)
         self.cfg = cfg
         self.m, self.n = m, n
@@ -128,8 +107,12 @@ class BlurVFIPipeline:
         else:
             model = FinalBidirectionAttenfusion(cfg)
             load_state(model, model_or_state)
-        fmt = torch.channels_last if self.channels_last else torch.contiguous_format
-        self.model = model.to(self.device, memory_format=fmt).eval()
+        self.served = ServedNetwork(model.eval(), int8, mesh, self.device, "refid.vfi",
+                                    packs_nhwc=True)
+        self.model = self.served.net
+
+    channels_last = property(lambda self: self.served.channels_last)
+    last_plan = property(lambda self: self.served.last_plan)
 
     # --- task-specific hooks (overridden by SharpVFIPipeline) --------------
 
@@ -155,7 +138,10 @@ class BlurVFIPipeline:
         frame = torch.as_tensor(np.asarray(frame, dtype=np.float32))
         return frame.to(self.device).permute(2, 0, 1)
 
-    def _run(self, blur0, blur1, events, capacity, q) -> torch.Tensor:
+    def _pack(self, blur0, blur1, events, capacity, nhwc: bool):
+        """The network's inputs ``lq (1, c, h, w)`` and ``pairs (1, t, 2, h,
+        w)``; ``(h, w, c)`` and ``(t, h, w, 2)`` in memory where ``nhwc``, so
+        that every ``pairs[:, k]`` is a channels_last view."""
         h, w = blur0.shape[:2]
         with span("refid.vfi.pad"):
             ev, n_ev = self._pad_events(events, capacity)
@@ -163,37 +149,15 @@ class BlurVFIPipeline:
             vox = voxelize_padded(ev, n_ev, self.num_bins, w, h)   # (bins, h, w)
             if self.norm_voxel:
                 vox = voxel_norm(vox)
-        channels_last = self.channels_last and q is None
         with span("refid.vfi.pack"):
             blocks = self._lq_blocks(vox, self._frame(blur0), self._frame(blur1))
-            if channels_last:     # (h, w, c) and (t, h, w, 2) in memory
+            if nhwc:
                 lq = torch.cat([b.permute(1, 2, 0) for b in blocks], -1).permute(2, 0, 1)
                 pairs = torch.stack([vox[:-1], vox[1:]], -1).permute(0, 3, 1, 2)
             else:
                 lq = torch.cat(blocks, 0)
                 pairs = torch.stack([vox[:-1], vox[1:]], 1)
-            lq, pairs = lq[None], pairs[None]                     # pairs (1, t, 2, h, w)
-        with span("refid.vfi.network"):
-            if channels_last:
-                with span("refid.vfi.channels_last"):
-                    return self.model(lq, pairs, q)[0].permute(0, 2, 3, 1)
-            if self.mesh is None or self.mesh.spatial == 1:
-                return self.model(lq, pairs, q)[0].permute(0, 2, 3, 1)
-            plan = self.last_plan = SpatialPlan(self.mesh, h, self.model.row_block)
-            with spatial_scope(plan):
-                out = self.model(plan.shard(lq), plan.shard(pairs), q)[0]
-            return plan.gather(out).permute(0, 2, 3, 1)
-
-    def _quant_state(self) -> Optional[QuantState]:
-        if not self.int8:
-            return None
-        if self.int8 != "static":
-            return QuantState(self.int8, self._int8_weights)
-        if self._int8_scales is None:
-            raise ValueError("int8='static' serving requires calibration: "
-                             "call pipe.calibrate(...) first")
-        return QuantState("static", self._int8_weights, self._int8_scales,
-                          self._int8_exclude)
+            return lq[None], pairs[None]
 
     @torch.inference_mode()
     def __call__(self, blur0, blur1, events,
@@ -202,7 +166,8 @@ class BlurVFIPipeline:
         sorted by t.  Returns the (2m+n, h, w, 3) sharp frames on the
         pipeline's device."""
         with span("refid.vfi.request"):
-            return self._run(blur0, blur1, events, capacity, self._quant_state())
+            lq, pairs = self._pack(blur0, blur1, events, capacity, self.channels_last)
+            return self.served(lq, pairs)[0].permute(0, 2, 3, 1)
 
     @torch.inference_mode()
     def calibrate(self, blur0, blur1, events, capacity: Optional[int] = None,
@@ -234,43 +199,19 @@ class BlurVFIPipeline:
             events = events[keep].copy()
             events[:, 1] -= x0
             events[:, 2] -= y0
-        q = QuantState("calib", self._int8_weights)
-        out = self._run(blur0, blur1, events, capacity, q)
-        raw, rms = calibration_stats(q)
-        if accumulate and self._int8_raw_amax is not None:
-            if len(raw) != len(self._int8_raw_amax):
-                raise ValueError(f"calibration site-count mismatch on accumulate: "
-                                 f"{len(raw)} vs {len(self._int8_raw_amax)} recorded")
-            raw = [max(a, b) for a, b in zip(raw, self._int8_raw_amax)]
-            if self._int8_rms is not None:
-                rms = [max(a, b) for a, b in zip(rms, self._int8_rms)]
-        self._int8_raw_amax = tuple(raw)
-        self._int8_rms = tuple(rms)
-        self._int8_scales = tuple(a * headroom for a in raw)
-        if exclude_crest is not None:
-            self._int8_exclude = tuple(i for i, (a, r) in enumerate(zip(raw, rms))
-                                       if a > exclude_crest * max(r, 1e-12))
-        return out
+        lq, pairs = self._pack(blur0, blur1, events, capacity, nhwc=False)
+        out = self.served.calibrate(lq, pairs, headroom, accumulate, exclude_crest)
+        return out[0].permute(0, 2, 3, 1)
 
     def save_calibration(self, path: str) -> None:
         """Write the recorded scales as the JAX package's JSON."""
-        if self._int8_scales is None:
-            raise ValueError("no calibration recorded: call calibrate()")
-        with open(path, "w") as f:
-            json.dump({"amax": list(self._int8_scales),
-                       "rms": list(self._int8_rms or ()),
-                       "exclude": list(self._int8_exclude or ())}, f)
+        self.served.save_calibration(path)
 
     def load_calibration(self, path: str) -> None:
         """Read scales that either package's ``save_calibration`` wrote; they
         already hold their headroom and are the floor of any later
         ``accumulate``."""
-        with open(path) as f:
-            d = json.load(f)
-        self._int8_scales = tuple(float(a) for a in d["amax"])
-        self._int8_raw_amax = self._int8_scales
-        self._int8_rms = tuple(float(a) for a in d.get("rms", ())) or None
-        self._int8_exclude = tuple(int(i) for i in d.get("exclude", ())) or None
+        self.served.load_calibration(path)
 
 
 class SharpVFIPipeline(BlurVFIPipeline):

@@ -32,9 +32,8 @@ broadcasts the state from rank 0, and only rank 0 saves checkpoints.  With
 ``spatial > 1`` each training batch is cut to the rank's rows
 (``parallel.mesh.shard_batch``) and the step runs under a spatial plan, for
 every network, loss and int8 mode; so does every prediction (validation,
-the test and demo CLIs, each tile of a tiled evaluation): the ranks of a
-spatial group make the same call, each runs its rows of the frame, and the
-output is gathered on every rank.  A frame (or tile) whose rows leave a
+the test and demo CLIs, each tile of a tiled evaluation), through
+``serve/network.py``.  A frame (or tile) whose rows leave a
 shard fewer than two rows at the network's deepest scale raises
 ``ValueError``.
 """
@@ -55,8 +54,8 @@ from refid_tpu_torch.eval import metrics as metric_module
 from refid_tpu_torch.models import archs as _archs  # noqa: F401 (registers archs)
 from refid_tpu_torch.models.convert import known_unused_keys, load_state
 from refid_tpu_torch.parallel.mesh import make_mesh, rank, replicate, shard_batch
-from refid_tpu_torch.parallel.spatial import SpatialPlan, spatial_scope
-from refid_tpu_torch.serve.quant import QuantState, WeightCache
+from refid_tpu_torch.parallel.spatial import SpatialPlan
+from refid_tpu_torch.serve.network import ServedNetwork
 from refid_tpu_torch.train.losses import build_loss
 from refid_tpu_torch.train.trainer import Trainer
 
@@ -94,15 +93,17 @@ class RestorationTaskBase:
         val = opt.get("val") or {}
         self.device = resolve_device(device)
         self.is_train = opt.get("is_train", True)
-        self.net = self._build_net().to(self.device)
+        net = self._build_net()
         # the network maps val.int8 to its int8 mode and raises where it
         # cannot serve in int8
-        self.int8 = self.net.task_int8_mode(val.get("int8", False))
+        self.int8 = net.task_int8_mode(val.get("int8", False))
         if self.int8 and val.get("folded_predict", True) is False:
             raise ValueError("val.int8 requires the folded predict path "
                              "(val.folded_predict: false given)")
-        self._int8_weights = WeightCache()
         self.mesh = mesh or make_mesh(data=-1, spatial=(opt.get("mesh") or {}).get("spatial", 1))
+        self.served = ServedNetwork(net, self.int8, self.mesh, self.device, "refid.task",
+                                    packs_nhwc=False)
+        self.net = self.served.net
         self.trainer: Optional[Trainer] = None
         self.start_iter = 0
         self.start_epoch = 0
@@ -241,40 +242,16 @@ class RestorationTaskBase:
         """The network's output on the task's device, NHWC: ``(b, t_out, h,
         w, 3)`` for the recurrent networks, ``(b, h, w, 3)`` for EVHINet; from
         NHWC numpy ``lq (b, h, w, C)`` and ``voxel (b, t, h, w, 2)`` (or the
-        single-image ``(b, h, w, bins)``): in eval mode under
-        ``torch.inference_mode`` (the options' compute dtype), the training
-        mode restored afterwards.  ``use_ema`` runs the trainer's EMA weights
-        when it keeps them; ``val.int8`` the int8 forward, where the frame's
-        sides are multiples of the network's ``int8_side``.  With
-        ``mesh.spatial > 1`` each rank of the spatial group runs its rows of
-        the frame and every rank returns the whole output.  The upload is
-        the profiler span ``refid.task.upload``, the network call
-        ``refid.task.network``."""
+        single-image ``(b, h, w, bins)``), in the options' compute dtype,
+        through ``serve/network.py::ServedNetwork.predict`` (the span
+        ``refid.task.network``).  ``use_ema`` runs the trainer's EMA weights
+        when it keeps them.  The upload is the span ``refid.task.upload``."""
         with span("refid.task.upload"):
             lq_t, vox_t = (to_nchw(torch.from_numpy(np.ascontiguousarray(a, np.float32))
                                    .to(self.device)) for a in (lq, voxel))
-        q = None
-        k = self.net.int8_side
-        if self.int8 and lq_t.shape[-2] % k == 0 and lq_t.shape[-1] % k == 0:
-            q = QuantState(self.int8, self._int8_weights)
-        plan = None
-        if self.mesh.spatial > 1:
-            plan = SpatialPlan(self.mesh, lq_t.shape[-2], self.net.row_block)
-            lq_t, vox_t = plan.shard(lq_t), plan.shard(vox_t)
         tr = self.trainer
-        training = self.net.training
-        self.net.eval()
-        try:
-            with torch.inference_mode(), spatial_scope(plan), span("refid.task.network"):
-                if use_ema and tr is not None and tr.ema is not None:
-                    out = torch.func.functional_call(self.net, tr.ema, (lq_t, vox_t, q))
-                else:
-                    out = self.net(lq_t, vox_t, q)
-                if plan is not None:
-                    out = plan.gather(out)
-        finally:
-            self.net.train(training)
-        return out.movedim(-3, -1)
+        ema = tr.ema if use_ema and tr is not None else None
+        return self.served.predict(lq_t, vox_t, ema).movedim(-3, -1)
 
     def predict(self, lq: np.ndarray, voxel: np.ndarray,
                 use_ema: bool = False) -> np.ndarray:

@@ -617,7 +617,7 @@ def test_int8_pipeline_on_the_card_matches_the_cpu(cuda, mode):
         if mode == "static":
             card.calibrate(b0, b1, ev)
             cpu.calibrate(b0, b1, ev)
-            np.testing.assert_allclose(card._int8_raw_amax, cpu._int8_raw_amax, rtol=1e-5)
+            np.testing.assert_allclose(card.served.raw_amax, cpu.served.raw_amax, rtol=1e-5)
         int8_cuda.reset_launches()
         got = card(b0, b1, ev).cpu().numpy()
         sites = int8_cuda.CONV_LAUNCHES
@@ -669,7 +669,7 @@ def test_channels_last_vfi_pipeline_on_the_card(cuda):
     from refid_tpu_torch.models import FinalBidirectionAttenfusion
 
     def nchw(pipe):
-        pipe.channels_last = False
+        pipe.served.channels_last = False
         pipe.model.to(memory_format=torch.contiguous_format)
         return pipe
 

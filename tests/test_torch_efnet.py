@@ -196,7 +196,7 @@ def test_int8_and_spatial_plans_raise():
     task = build_task(dict(opt, val={}), "cpu")
     with pytest.raises(ValueError, match="EFNet"):
         task.net(torch.zeros(1, 3, H, W), torch.zeros(1, 6, H, W), object())
-    task.mesh = SimpleNamespace(spatial=2)
+    task.served.mesh = SimpleNamespace(spatial=2)
     img, _, vox = _request()
     with pytest.raises(ValueError, match="EFNet"):
         task.predict(img[None], vox.permute(1, 2, 0).numpy()[None])

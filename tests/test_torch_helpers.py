@@ -102,7 +102,7 @@ def served_nchw(pipe):
     weights included: the layout that its int8 modes, its calibration and
     its spatial plans compute in, for tests that hold those bit for bit
     against the float path."""
-    pipe.channels_last = False
+    pipe.served.channels_last = False
     pipe.model.to(memory_format=torch.contiguous_format)
     return pipe
 

@@ -225,9 +225,9 @@ def test_calibration_matches_jax(toy):
     pipe = _port(toy, "static")
     out = pipe.calibrate(*toy["request"]).numpy()
     jp = toy["jax_pipes"]["static"]
-    assert len(pipe._int8_raw_amax) == len(jp._int8_raw_amax) == 110
-    np.testing.assert_allclose(pipe._int8_raw_amax, jp._int8_raw_amax, rtol=1e-5)
-    np.testing.assert_allclose(pipe._int8_rms, jp._int8_rms, rtol=1e-5)
+    assert len(pipe.served.raw_amax) == len(jp._int8_raw_amax) == 110
+    np.testing.assert_allclose(pipe.served.raw_amax, jp._int8_raw_amax, rtol=1e-5)
+    np.testing.assert_allclose(pipe.served.rms, jp._int8_rms, rtol=1e-5)
     np.testing.assert_array_equal(out, toy["exact"])
 
 
@@ -236,10 +236,10 @@ def test_static_needs_calibration_and_exclude_all_is_exact(toy):
     with pytest.raises(ValueError, match="calibrat"):
         pipe(*toy["request"])
     pipe.calibrate(*toy["request"])
-    pipe._int8_exclude = tuple(range(len(pipe._int8_scales)))
+    pipe.served.exclude = tuple(range(len(pipe.served.scales)))
     np.testing.assert_allclose(pipe(*toy["request"]).numpy(), toy["exact"], atol=2e-5,
                                rtol=2e-5)
-    pipe._int8_scales = pipe._int8_scales[:-1]          # one site short
+    pipe.served.scales = pipe.served.scales[:-1]          # one site short
     with pytest.raises(ValueError, match="site-count"):
         pipe(*toy["request"])
 
@@ -248,15 +248,15 @@ def test_exclude_crest_is_monotone(toy):
     pipe = _port(toy, "static")
     request = _window(19)
     pipe.calibrate(*request, exclude_crest=1e9)
-    assert pipe._int8_exclude == ()
+    assert pipe.served.exclude == ()
     all_int8 = pipe(*request).numpy()
     pipe.calibrate(*request, exclude_crest=1.0)
-    assert len(pipe._int8_exclude) == len(pipe._int8_scales)
+    assert len(pipe.served.exclude) == len(pipe.served.scales)
     pipe.calibrate(*request, exclude_crest=3.0)
-    mid = set(pipe._int8_exclude)
+    mid = set(pipe.served.exclude)
     pipe.calibrate(*request, exclude_crest=6.0)
-    assert set(pipe._int8_exclude) <= mid and 0 < len(mid) < len(pipe._int8_scales)
-    pipe._int8_exclude = tuple(sorted(mid))
+    assert set(pipe.served.exclude) <= mid and 0 < len(mid) < len(pipe.served.scales)
+    pipe.served.exclude = tuple(sorted(mid))
     got_mid = pipe(*request).numpy()
     exact = _port(toy, False)(*request).numpy()
     assert parity_db(exact, got_mid) >= parity_db(exact, all_int8) - 0.5
@@ -268,16 +268,16 @@ def test_accumulate_and_headroom_follow_jax(toy):
     w1, w2 = _window(1), _window(2, gain=2.0)
     pipe = _port(toy, "static")
     pipe.calibrate(*w1)
-    s1 = np.array(pipe._int8_scales)
+    s1 = np.array(pipe.served.scales)
     pipe.calibrate(*w2, headroom=3.0)
-    s2 = np.array(pipe._int8_raw_amax)
-    np.testing.assert_allclose(pipe._int8_scales, 3.0 * s2, rtol=1e-7)
+    s2 = np.array(pipe.served.raw_amax)
+    np.testing.assert_allclose(pipe.served.scales, 3.0 * s2, rtol=1e-7)
     pipe.calibrate(*w1, headroom=2.0)
     pipe.calibrate(*w2, accumulate=True, headroom=1.5)
-    np.testing.assert_allclose(pipe._int8_raw_amax, np.maximum(s1, s2), rtol=1e-7)
-    np.testing.assert_allclose(pipe._int8_scales, 1.5 * np.maximum(s1, s2), rtol=1e-7)
+    np.testing.assert_allclose(pipe.served.raw_amax, np.maximum(s1, s2), rtol=1e-7)
+    np.testing.assert_allclose(pipe.served.scales, 1.5 * np.maximum(s1, s2), rtol=1e-7)
     pipe.calibrate(*w1)
-    np.testing.assert_allclose(pipe._int8_scales, s1, rtol=1e-7)
+    np.testing.assert_allclose(pipe.served.scales, s1, rtol=1e-7)
     assert np.isfinite(pipe(*_window(3)).numpy()).all()
 
 
@@ -288,7 +288,7 @@ def test_calibration_json_crosses_packages(toy, tmp_path):
     jp.save_calibration(str(tmp_path / "jax.json"))
     pipe = _port(toy, "static")
     pipe.load_calibration(str(tmp_path / "jax.json"))
-    assert pipe._int8_scales == jp._int8_scales and pipe._int8_rms == jp._int8_rms
+    assert pipe.served.scales == jp._int8_scales and pipe.served.rms == jp._int8_rms
     db_jax_file = parity_db(toy["jax"]["static"], pipe(*toy["request"]).numpy())
     assert db_jax_file >= PACKAGE_DB["static"]
 
@@ -299,7 +299,7 @@ def test_calibration_json_crosses_packages(toy, tmp_path):
         assert json.load(f).keys() == json.load(g).keys() == {"amax", "rms", "exclude"}
     jp2 = JaxBlur(toy["params"], toy["jcfg"], m=M, n=N, int8="static")
     jp2.load_calibration(str(tmp_path / "port.json"))
-    assert jp2._int8_exclude == pipe._int8_exclude
+    assert jp2._int8_exclude == pipe.served.exclude
     db_port_file = parity_db(np.asarray(jp2(*toy["request"])), want_port)
     assert db_port_file >= PACKAGE_DB["static"]
 

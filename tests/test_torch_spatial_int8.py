@@ -138,8 +138,8 @@ def test_sharded_int8_pipeline_equals_unsharded_and_matches_jax(setup, mode, tmp
     if mode == "static":
         pipe.calibrate(*setup["request"])
         assert len(amax) == SITES[mode]
-        np.testing.assert_allclose(amax, pipe._int8_raw_amax, rtol=1e-5)
-        np.testing.assert_allclose(rms, pipe._int8_rms, rtol=1e-5)
+        np.testing.assert_allclose(amax, pipe.served.raw_amax, rtol=1e-5)
+        np.testing.assert_allclose(rms, pipe.served.rms, rtol=1e-5)
         with open(tmp_path / "shards.json", "w") as f:     # serve the shards' scales
             json.dump({"amax": list(amax)}, f)
         pipe.load_calibration(str(tmp_path / "shards.json"))

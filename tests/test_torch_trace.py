@@ -84,12 +84,12 @@ def test_a_static_int8_request_opens_a_span_per_site(model):
     pipe = BlurVFIPipeline(model, model.cfg, m=M, n=N, int8="static", device="cpu")
     pipe.calibrate(*_request(2))
     states = []
-    make = pipe._quant_state
-    pipe._quant_state = lambda: states.append(make()) or states[-1]
+    make = pipe.served._quant_state
+    pipe.served._quant_state = lambda: states.append(make()) or states[-1]
     _, spans = _profiled(lambda: pipe(*_request(3)))
     (network,) = _named(spans, "refid.vfi.network")
     sites = _named(spans, "refid.int8.site")
-    assert states[0].sites == len(pipe._int8_scales) > 0
+    assert states[0].sites == len(pipe.served.scales) > 0
     assert len(sites) == states[0].sites
     assert sites == _named(_inside(spans, network), "refid.int8.site")
 

@@ -299,7 +299,7 @@ def int8_job(rank, work):
             pipe.calibrate(*inp["request"])
         out = pipe(*inp["request"])
         plan = pipe.last_plan
-        res[mode] = (out, pipe._int8_raw_amax, pipe._int8_rms, plan.exchanges, plan.reductions)
+        res[mode] = (out, pipe.served.raw_amax, pipe.served.rms, plan.exchanges, plan.reductions)
     for mode, mkldnn in ((False, True), (False, False), (True, False)):
         with torch.backends.mkldnn.flags(enabled=mkldnn):
             pipe = BlurVFIPipeline(inp["state"], RefidConfig(**inp["cfg"]), m=2, n=1, int8=mode,
