@@ -82,11 +82,20 @@ random weights:
   kernels as a shard runs them (row padding 0, a device amax) after
   ``int8_kernel_check``.
 
+The conv epilogue CE (``csrc/conv_epilogue.cu``) is held bit for bit against
+its plain version at the window's output shapes and timed at three, right
+after VN; from then on a global forward pre-hook counts the biased cuDNN
+convs of the port's conv modules with gradients off, and CE's launches must
+equal them phase by phase (``conv_epilogue_path``) and in each spatial rank;
+one bf16 window's network call, whole and on the shards, is bit-equal with
+and without CE.
+
 Each phase prints one JSON line; the last two lines are the ``kernels``
 line and ``{"ok": true, "device": {...}}``.  Any failed phase exits
 non-zero without the ``ok`` line; so does a machine without CUDA.
 """
 
+import contextlib
 import importlib.util
 import json
 import logging
@@ -125,9 +134,11 @@ from refid_tpu_torch.events.voxel import (
 from refid_tpu_torch.models import archs as _archs  # noqa: F401 (registers the archs)
 from refid_tpu_torch.models.convert import known_unused_keys, load_state
 from refid_tpu_torch.models.evhinet import EVHINet
+from refid_tpu_torch.models.layers import ConvTranspose2d
 from refid_tpu_torch.models.refid import FinalBidirectionAttenfusion
 from refid_tpu_torch.ops import build, int8_cuda, probe_cuda
-from refid_tpu_torch.parallel.spatial import SpatialPlan, spatial_scope
+from refid_tpu_torch.ops import conv_epilogue as ce
+from refid_tpu_torch.parallel.spatial import HaloConv2d, SpatialPlan, spatial_scope
 from refid_tpu_torch.probes import band_conv as probe_bc
 from refid_tpu_torch.probes import poison as probe_poison
 from refid_tpu_torch.serve import quant
@@ -286,6 +297,21 @@ EVHINET_INT8_SHAPES = {
     "half_merge": (128, 256, 360, 640, 1), "upblk0_conv_1": (256, 128, 360, 640, 3),
     "upblk0_identity": (256, 128, 360, 640, 1), "quarter_conv_1": (128, 256, 180, 320, 3),
     "quarter_3x3": (256, 256, 180, 320, 3), "quarter_identity": (128, 256, 180, 320, 1)}
+
+# the conv epilogue CE (csrc/conv_epilogue.cu) at the window's outputs:
+# (shape, layout, dtype, act); the 16-byte bias rows (channels_last, C % 8 ==
+# 0), planes (NCHW) and the stepped read (3 channels), each activation, and
+# float32.  CE_TIMED: the first three, timed
+CE_SHAPES = [((1, 64, 720, 1280), "cl", torch.bfloat16, 0.2),
+             ((1, 128, 360, 640), "cl", torch.bfloat16, "relu"),
+             ((1, 32, 720, 1280), "cl", torch.bfloat16, (0.2, 0.2)),
+             ((1, 3, 720, 1280), "cl", torch.bfloat16, None),
+             ((1, 64, 720, 1280), "nchw", torch.bfloat16, 0.2),
+             ((1, 3, 720, 1280), "nchw", torch.bfloat16, None),
+             ((1, 256, 180, 320), "nchw", torch.float32, (0.2, 0.2)),
+             ((1, 64, 720, 1280), "cl", torch.float32, 0.1)]
+CE_TIMED = 3
+CUDNN_BACKENDS = (torch._C._ConvBackend.Cudnn, torch._C._ConvBackend.CudnnTranspose)
 
 
 def emit(phase, **fields):
@@ -693,6 +719,166 @@ def phase_norm_kernel_timing(grid, calls=200):
          torch_chain_wall_ms=statistics.median(walls["torch_chain"]), wall_ms_in_turns=walls,
          numpy_ms=numpy_ms, torch_chain_max_abs_diff=chain_err, **timing)
     return timing
+
+
+
+def ce_output(shape, layout, dtype, seed, specials=True):
+    """A conv-output-like tensor on the card; with ``specials``, signed
+    zeros, infinities and bf16 ties among its values."""
+    gen = torch.Generator(CUDA).manual_seed(seed)
+    y = torch.randn(shape, generator=gen, device=CUDA) * 3
+    if specials:
+        flat = y.view(-1)
+        flat[::97] = -0.0
+        flat[5::101] = float("inf")
+        flat[7::103] = -float("inf")
+        flat[11::89] = 1.0 + 2.0 ** -8
+    y = y.to(dtype)
+    return y.contiguous(memory_format=torch.channels_last) if layout == "cl" else y
+
+
+def phase_conv_epilogue_check():
+    """CE (``ops/conv_epilogue.py::conv_epilogue_``) against its plain
+    version ``epilogue_reference`` (the cuDNN backend's ``add_``, then
+    PyTorch's activation) at each of CE_SHAPES, bit for bit
+    (``torch.equal`` of the bits), one launch a call.  Returns CE's
+    launches and the largest |diff| (0 where every output is equal)."""
+    before = ce.LAUNCHES
+    rows, worst = [], 0.0
+    for k, (shape, layout, dtype, act) in enumerate(CE_SHAPES):
+        y = ce_output(shape, layout, dtype, 20 + k)
+        bias = torch.randn(shape[1], generator=torch.Generator(CUDA).manual_seed(k), device=CUDA)
+        want = ce.epilogue_reference(y.clone(), bias, act)
+        got = y.clone()
+        check(ce.conv_epilogue_(got, bias, act) is got, "conv_epilogue: not in place")
+        bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+        equal = torch.equal(got.view(bits), want.view(bits))
+        finite = torch.isfinite(want) & torch.isfinite(got)
+        err = float((got.float() - want.float())[finite].abs().max())
+        worst = max(worst, err)
+        rows.append({"shape": list(shape), "layout": layout, "dtype": str(dtype), "act": act,
+                     "bit_equal": equal, "max_abs_err": err})
+        check(equal, f"conv_epilogue {shape} {layout} {dtype} act {act!r}: not bit-equal to "
+              f"the eager chain (max |diff| {err})")
+        del y, want, got
+    launches = ce.LAUNCHES - before
+    check(launches == len(CE_SHAPES), f"conv_epilogue: {launches} launches for "
+          f"{len(CE_SHAPES)} calls")
+    emit("kernel_check", kernel="conv_epilogue", cases=rows, launches=launches)
+    return launches, worst
+
+
+def phase_conv_epilogue_timing(calls=200):
+    """CE at the first CE_TIMED of CE_SHAPES: CUDA events per call, the
+    profiler's device time a launch, the plain version (``add_`` +
+    activation) by CUDA events, the bound (the output read and written once
+    at the HBM rate), and the wrapper's host time a call (a small output,
+    no wait).  Returns the first shape's figures, for the ``kernels`` line."""
+    rows = []
+    for k, (shape, layout, dtype, act) in enumerate(CE_SHAPES[:CE_TIMED]):
+        y = ce_output(shape, layout, dtype, 40 + k, specials=False)
+        bias = torch.randn(shape[1], device=CUDA)
+        ms = time_ms(lambda: ce.conv_epilogue_(y, bias, act), calls, CUDA)
+        plain_ms = time_ms(lambda: ce.epilogue_reference(y, bias, act), calls, CUDA)
+        launches = [t for name, t in device_records(lambda: ce.conv_epilogue_(y, bias, act),
+                                                    20, "conv_epilogue_kernel")
+                    if "conv_epilogue_kernel" in name]
+        check(0 < len(launches) <= 20, f"conv_epilogue: profiler saw {len(launches)} launches")
+        bytes_moved = 2 * y.numel() * y.element_size()
+        row = {"shape": list(shape), "layout": layout, "dtype": str(dtype), "act": act,
+               "bytes": bytes_moved, "ms": ms, "plain_ms": plain_ms,
+               "device_ms": sum(launches) / len(launches) / 1e3,
+               **bound(bytes_moved, 0, F32_OPS_PER_S), "library_ms": None}
+        row["bound_share"] = row["bound_ms"] / ms
+        rows.append(row)
+        del y
+    small = torch.zeros(1, 8, 8, 8, device=CUDA)
+    bias = torch.zeros(8, device=CUDA)
+    for _ in range(10):
+        ce.conv_epilogue_(small, bias, 0.2)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(1000):
+        ce.conv_epilogue_(small, bias, 0.2)
+    host_us = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    emit("kernel_timing", kernel="conv_epilogue", rows=rows, host_us=host_us)
+    timing = {k: v for k, v in rows[0].items() if k not in ("layout", "dtype", "act")}
+    return {**timing, "host_us": host_us}
+
+
+class ConvEpilogueWatch:
+    """Counts, by a global forward pre-hook, the calls of the port's conv
+    modules (``HaloConv2d``, ``models/layers.py::ConvTranspose2d``) that CE
+    must finish: a bias, gradients off, a float32 or bfloat16 CUDA input,
+    and PyTorch's own backend for the call cuDNN's
+    (``torch._C._select_conv_backend``, asked on each call).  ``check``
+    holds CE's launches since the last check against those calls."""
+
+    def __init__(self):
+        self.calls, self.paused, self.at = 0, False, (0, ce.LAUNCHES)
+        self.launches = {}
+        self.handle = torch.nn.modules.module.register_module_forward_pre_hook(self.hook)
+
+    def hook(self, module, args):
+        if (self.paused or not isinstance(module, (HaloConv2d, ConvTranspose2d))
+                or module.bias is None or torch.is_grad_enabled() or not args):
+            return
+        x = args[0]
+        if x.is_cuda and x.dtype in (torch.float32, torch.bfloat16) and \
+                torch._C._select_conv_backend(
+                    x, module.weight, module.bias, module.stride, module.padding,
+                    module.dilation, module.transposed, module.output_padding, module.groups,
+                    None) in CUDNN_BACKENDS:
+            self.calls += 1
+
+    def check(self, phase, engaged=True):
+        """CE launched once for each counted call since the last check, and,
+        where ``engaged``, at least once.  Returns its launches."""
+        calls, launches = self.calls - self.at[0], ce.LAUNCHES - self.at[1]
+        self.at = (self.calls, ce.LAUNCHES)
+        self.launches[phase] = launches
+        check(launches == calls and (launches > 0 or not engaged),
+              f"{phase}: the conv epilogue launched {launches} times for {calls} biased "
+              "cuDNN convs")
+        return launches
+
+    @contextlib.contextmanager
+    def eager(self):
+        """The conv layer held on PyTorch's own ops (no CE), uncounted."""
+        self.paused = True
+        try:
+            with mock.patch.object(ce, "engages", lambda module, x: False):
+                yield
+        finally:
+            self.paused = False
+
+
+def network_equal_eager(watch, pipe, request):
+    """One bf16 window's network call (``pipe.served`` on one packed input:
+    K1's atomics add in a varying order, so two whole requests may differ)
+    through CE and again with the conv layer on PyTorch's own ops.  Returns
+    CE's launches in the call and whether the two outputs are equal bit for
+    bit."""
+    with torch.inference_mode(), torch.autocast("cuda", dtype=torch.bfloat16):
+        lq, pairs = pipe._pack(*request, None, pipe.channels_last)
+        before = ce.LAUNCHES
+        got = pipe.served(lq, pairs)
+        launches = ce.LAUNCHES - before
+        with watch.eager():
+            want = pipe.served(lq, pairs)
+    torch.cuda.synchronize()
+    return launches, torch.equal(got, want)
+
+
+def phase_conv_epilogue_serve(watch, pipe, request):
+    """A 720p bf16 window's network call through CE against the conv layer's
+    eager path, bit for bit (``network_equal_eager``)."""
+    launches, equal = network_equal_eager(watch, pipe, request)
+    watch.check("conv_epilogue_serve")
+    emit("conv_epilogue_serve", dtype="bf16", frame=[HEIGHT, WIDTH], launches=launches,
+         channels_last=pipe.channels_last, bit_equal_eager=equal)
+    check(equal, "conv_epilogue_serve: the bf16 window differs from the eager path's")
 
 
 def set_tf32(enabled):
@@ -2805,6 +2991,7 @@ def spatial_rank(rank, world, port, work):
     torch.cuda.set_device(0)
     dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
                             world_size=world, rank=rank)
+    watch = ConvEpilogueWatch()                  # this rank's conv layer calls
     try:
         out = {"rank": rank, "collectives": gloo_cuda_collectives()}
         if not all(v is True for v in out["collectives"].values()):
@@ -2860,22 +3047,25 @@ def spatial_rank(rank, world, port, work):
                                   "single_process_losses": ref_losses}
         del model, batches
         torch.cuda.empty_cache()
-        out["serve"] = spatial_serve(rank, spatial_mesh)
+        out["serve"] = spatial_serve(rank, spatial_mesh, watch)
         torch.cuda.empty_cache()
         out["int8"] = spatial_int8(spatial_mesh)
         torch.cuda.empty_cache()
         out["ablation"] = spatial_ablation(spatial_mesh)
         out["evhinet"] = spatial_evhinet(spatial_mesh)
+        out["conv_epilogue"] = {"launches": ce.LAUNCHES, "calls": watch.calls}
     finally:
         dist.destroy_process_group()
     with open(os.path.join(work, f"spatial_{rank}.json"), "w") as f:
         json.dump(out, f)
 
 
-def spatial_serve(rank, mesh):
+def spatial_serve(rank, mesh, watch):
     """SPATIAL_WINDOWS 720p windows (2**20 events, bf16 autocast, full width)
-    through ``BlurVFIPipeline(mesh=)``, every rank making the same call;
-    then rank 0 serves the last window unsharded for the dB."""
+    through ``BlurVFIPipeline(mesh=)``, every rank making the same call; the
+    last window's sharded network call through CE against the conv layer on
+    PyTorch's own ops (``network_equal_eager``), to be bit-equal; then rank 0
+    serves the last window unsharded for the dB."""
     import torch.distributed as dist
 
     model = FinalBidirectionAttenfusion(RefidConfig())
@@ -2901,6 +3091,8 @@ def spatial_serve(rank, mesh):
             times.append((time.perf_counter() - t0) * 1e3)
     launches = voxel_cuda.LAUNCHES               # ... and ends here
     plan = pipe.last_plan                        # None on a single rank
+    dist.barrier()
+    ce_launches, ce_equal = network_equal_eager(watch, pipe, requests[-1])
     result = {"ms_per_window": times, "mean_ms_per_window": sum(times) / len(times),
               "rows": plan.rows if plan else [(0, HEIGHT)],
               "exchanges_per_window": plan.exchanges if plan else 0,
@@ -2909,7 +3101,8 @@ def spatial_serve(rank, mesh):
               "pooled_reductions_per_window": plan.reductions if plan else 0,
               "max_memory_allocated": torch.cuda.max_memory_allocated(),
               "voxelize_launches": launches, "finite": bool(torch.isfinite(got).all()),
-              "shape": list(got.shape)}
+              "shape": list(got.shape), "conv_epilogue_launches_per_window": ce_launches,
+              "conv_epilogue_equal_eager": ce_equal}
     del pipe
     if rank == 0:
         single = BlurVFIPipeline(state, RefidConfig(), device="cuda")
@@ -3250,7 +3443,15 @@ def phase_spatial_others(ranks):
           f"(bars {SPATIAL_FORWARD_DB} / {PARITY_DB}), loss / grad norm relative errors "
           f"{[(e['loss_rel_err'], e['grad_norm_rel_err']) for e in ev]} (bar "
           f"{SPATIAL_STEP_RTOL}) or K2 / VN not once a rank")
-    return {"voxelize_int8": sum(r["launches"]["voxelize"] for r in int8)
+    watched = [r["conv_epilogue"] for r in ranks]
+    equal = [r["serve"]["conv_epilogue_equal_eager"] for r in ranks]
+    emit("spatial_conv_epilogue", ranks=world, per_rank=watched, serve_equal_eager=equal)
+    check(all(w["launches"] == w["calls"] > 0 for w in watched),
+          f"spatial: the conv epilogue's launches against biased cuDNN convs {watched}")
+    check(all(equal), f"spatial_serve: a shard through the conv epilogue differs from the "
+          f"eager path's {equal}")
+    return {"conv_epilogue": sum(w["launches"] for w in watched),
+            "voxelize_int8": sum(r["launches"]["voxelize"] for r in int8)
             + sum(s["voxelize_launches"] for s in served),
             "voxel_grid": sum(e["voxel_grid_launches"] for e in ev),
             "voxel_norm": sum(e["voxel_norm_launches"] for e in ev),
@@ -3347,11 +3548,15 @@ def main():
     norm_launches, norm_err, norm_grid = phase_norm_kernel_check()
     norm_timing = phase_norm_kernel_timing(norm_grid)
     del norm_grid
+    ce_launches, ce_err = phase_conv_epilogue_check()
+    ce_timing = phase_conv_epilogue_timing()
+    watch = ConvEpilogueWatch()                  # the conv layer's calls from here on
 
     model = FinalBidirectionAttenfusion(RefidConfig())
     fill_random(model, seed=0)
     state = model.state_dict()
     conv_flops = phase_parity(state) * HEIGHT * WIDTH
+    watch.check("parity")
 
     rng = np.random.RandomState(2)
     requests = [(rng.rand(HEIGHT, WIDTH, 3).astype(np.float32),
@@ -3369,6 +3574,8 @@ def main():
           f"voxelize launched {launches} times for {2 * len(requests)} windows")
     emit("serve_bf16_vs_f32", db=parity_db(out32.float(), out16.float()))
     phase_profile(pipe, requests[-1], bf16_ms)
+    watch.check("serve")
+    phase_conv_epilogue_serve(watch, pipe, requests[-1])
     del pipe, out32, out16
 
     t0 = time.perf_counter()
@@ -3380,6 +3587,7 @@ def main():
     emit("int8_path", launches=int8_launches, db_vs_f32=int8_db,
          seconds=time.perf_counter() - t0)
     check(min(int8_launches.values()) > 0, f"an int8 kernel was not launched: {int8_launches}")
+    watch.check("int8_serve")
     del requests
 
     t0 = time.perf_counter()
@@ -3394,10 +3602,12 @@ def main():
          voxel_norm_launches=serve_vn, db_vs_f32=evhinet_db,
          seconds=time.perf_counter() - t0)
     norm_launches += serve_vn
+    watch.check("evhinet_serve")
     del ev_requests
     launches += phase_voxel_grid_padded()        # K1's other entry, its own path
 
     phase_train_parity(state)
+    watch.check("train_parity", engaged=False)
     logging.getLogger("refid_tpu_torch").setLevel(logging.WARNING)   # the CLI's log
     with tempfile.TemporaryDirectory() as work:
         data_root = os.path.join(work, "gopro")
@@ -3417,9 +3627,11 @@ def main():
         batch = next(iter(task.train_loader))
         phase_train_profile(task, batch)            # ... and ends here
         del task, batch
+        watch.check("train", engaged=False)          # validation only
         phase_metric_parity(data_root)
         eval_k2, eval_results = phase_eval(data_root, work, state)   # the eval path
         grid_launches += eval_k2
+        watch.check("eval")
         t0 = time.perf_counter()
         evhinet_k2, evhinet_vn, evhinet_results = phase_evhinet_eval(
             data_root, work, evhinet_state(1, filled=True))
@@ -3427,6 +3639,7 @@ def main():
              voxel_norm_launches=evhinet_vn, seconds=time.perf_counter() - t0)
         norm_launches += evhinet_vn
         grid_launches += serve_k2 + evhinet_k2
+        watch.check("evhinet_eval")
         t0 = time.perf_counter()                   # released-checkpoint evaluation
         highrev, bsergb = layout_trees(data_root, work)
         released_launches = phase_eval_released(
@@ -3435,6 +3648,7 @@ def main():
         emit("eval_released_path", launches=released_launches, seconds=time.perf_counter() - t0)
         grid_launches += released_launches["voxel_grid"]
         norm_launches += released_launches["voxel_norm"]
+        watch.check("eval_released")
         t0 = time.perf_counter()                   # the IO and training tail
         grid_launches += phase_png(data_root, work)
         phase_evhinet_train_parity(evhinet_state(1, filled=True))
@@ -3444,6 +3658,7 @@ def main():
             grid_launches += phase_evhinet_train(data_root, work, dtype)
         grid_launches += phase_datasets(data_root, highrev, bsergb)
         emit("io_train_tail", seconds=time.perf_counter() - t0)
+        watch.check("io_train_tail", engaged=False)
 
         t0 = time.perf_counter()
         probe_errs, p1, p2, p3_plain_ms, p4_plain_ms, device_ms = phase_probe_kernel_check()
@@ -3457,13 +3672,16 @@ def main():
         emit("probe_path", launches=probe_launches, seconds=time.perf_counter() - t0)
         check(min(probe_launches.values()) > 0,
               f"a probe kernel was not launched: {probe_launches}")
+        watch.check("probes", engaged=False)
 
         t0 = time.perf_counter()                   # the ablation lineages
         phase_ablation_parity()
         launches += phase_ablation_serve()          # K1, each window
+        watch.check("ablation_serve")
         torch.backends.cudnn.allow_tf32 = True       # PyTorch's defaults
         torch.backends.cuda.matmul.allow_tf32 = False
         grid_launches += phase_ablation_train(data_root, work)   # K2, each item
+        watch.check("ablation_train", engaged=False)
         emit("ablation_path", seconds=time.perf_counter() - t0)
 
         t0 = time.perf_counter()                   # distribution and the process loader
@@ -3471,11 +3689,17 @@ def main():
         torch.backends.cuda.matmul.allow_tf32 = False
         grid_launches += phase_mp_loader(data_root, work)  # K2, each item, in this process
         grid_launches += phase_ddp_train(data_root, work)  # K2, each item
+        watch.check("mp_loader_ddp", engaged=False)
         spatial_launches = phase_spatial(work)       # K1, K2, C8, Q8 in each rank
         launches += spatial_launches["voxelize"] + spatial_launches["voxelize_int8"]
         grid_launches += spatial_launches["voxel_grid"]
         norm_launches += spatial_launches["voxel_norm"]
+        watch.check("spatial", engaged=False)        # the ranks count their own
         emit("distribution_path", seconds=time.perf_counter() - t0)
+    watch.handle.remove()
+    ce_launches += sum(watch.launches.values()) + spatial_launches["conv_epilogue"]
+    emit("conv_epilogue_path", launches=watch.launches,
+         spatial_launches=spatial_launches["conv_epilogue"], total=ce_launches)
 
     def rate_entry(variant, plain_ms, library, kernel):
         r = rates[variant]
@@ -3538,7 +3762,12 @@ def main():
         + spatial_launches["conv_int8"] + released_launches["conv_int8"],
         "max_abs_err": max(int8_errs["conv_int8"], evhinet_errs["conv_int8"],
                            shard_errs["conv_int8"]),
-        **int8_timing["conv_int8"]}]
+        **int8_timing["conv_int8"]}, {
+        "name": "conv_epilogue", "route": "cuda",
+        "source": "refid_tpu_torch/csrc/conv_epilogue.cu",
+        "replaces": None,        # XLA fuses a conv's bias and activation on the TPU
+        "plain": "refid_tpu_torch/ops/conv_epilogue.py::epilogue_reference",
+        "launches": ce_launches, "max_abs_err": ce_err, **ce_timing}]
     # each wrapper's host time a call, from the launch_path phase (VN's whole
     # call is its timing's wall_ms); P2's launch floor there, an empty
     # kernel's device time

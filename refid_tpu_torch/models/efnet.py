@@ -45,6 +45,7 @@ from refid_tpu_torch.core.timer import span
 from refid_tpu_torch.models.arch_util import EventImageChannelAttentionTransformerBlock
 from refid_tpu_torch.models.evhinet import EVConvBlock, HINConvBlock, SAM, UpBlock
 from refid_tpu_torch.parallel import spatial
+from refid_tpu_torch.parallel.spatial import HaloConv2d
 
 __all__ = ["EFNet", "EFConvBlock", "EICA_BLOCKS"]
 
@@ -71,7 +72,7 @@ class EFConvBlock(HINConvBlock):
                 out_size, num_heads, ffn_expansion_factor, bias=False, eps=1e-5)
         if emgc:
             for name in ("emgc_enc", "emgc_dec", "emgc_enc_mask", "emgc_dec_mask"):
-                setattr(self, name, nn.Conv2d(out_size, out_size, 3, 1, 1))
+                setattr(self, name, HaloConv2d(out_size, out_size, 3, 1, 1))
 
     def forward(self, x, enc=None, dec=None, mask=None, event=None):
         global EICA_BLOCKS
@@ -117,9 +118,9 @@ class EFNet(nn.Module):
             raise ValueError("EFNet is ported with fuse_before_downsample: true (the "
                              "published setting) only")
         self.depth, self.dtype = depth, dtype
-        self.conv_ev1 = nn.Conv2d(ev_chn, wf, 3, 1, 1)
-        self.conv_01 = nn.Conv2d(in_chn, wf, 3, 1, 1)
-        self.conv_02 = nn.Conv2d(in_chn, wf, 3, 1, 1)
+        self.conv_ev1 = HaloConv2d(ev_chn, wf, 3, 1, 1)
+        self.conv_01 = HaloConv2d(in_chn, wf, 3, 1, 1)
+        self.conv_02 = HaloConv2d(in_chn, wf, 3, 1, 1)
         self.down_path_ev = nn.ModuleList()
         self.down_path_1 = nn.ModuleList()
         self.down_path_2 = nn.ModuleList()
@@ -138,11 +139,11 @@ class EFNet(nn.Module):
             for ups, skips in ((self.up_path_1, self.skip_conv_1),
                                (self.up_path_2, self.skip_conv_2)):
                 ups.append(UpBlock(prev, c, relu_slope))
-                skips.append(nn.Conv2d(c, c, 3, 1, 1))
+                skips.append(HaloConv2d(c, c, 3, 1, 1))
             prev = c
         self.sam12 = SAM(prev)
-        self.cat12 = nn.Conv2d(2 * prev, prev, 1, 1, 0)
-        self.last = nn.Conv2d(prev, in_chn, 3, 1, 1)
+        self.cat12 = HaloConv2d(2 * prev, prev, 1, 1, 0)
+        self.last = HaloConv2d(prev, in_chn, 3, 1, 1)
 
     @property
     def row_block(self) -> int:

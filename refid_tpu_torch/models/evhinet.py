@@ -55,6 +55,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from refid_tpu_torch.models.layers import conv_transpose_up
+from refid_tpu_torch.ops.conv_epilogue import Act, activate
 from refid_tpu_torch.parallel import spatial
 from refid_tpu_torch.parallel.spatial import HaloConv2d
 
@@ -95,8 +96,10 @@ def evhinet_int8_applicable(net) -> bool:
     return isinstance(net, EVHINet) and net.depth == 3 and net.fac_place == 2
 
 
-def _conv(module: nn.Conv2d, x, q):
-    return module(x) if q is None else q.conv(module, x)
+def _conv(module: nn.Conv2d, x, q, act: Act = None):
+    """``module`` then ``act``: through the conv layer's entry point, or as
+    an int8 site (no fused activation) followed by ``act``."""
+    return module(x, act=act) if q is None else activate(q.conv(module, x), act)
 
 
 class HINConvBlock(nn.Module):
@@ -111,17 +114,19 @@ class HINConvBlock(nn.Module):
         self.relu_slope = relu_slope
         self.conv_1 = HaloConv2d(in_size, out_size, 3, 1, 1)
         self.conv_2 = HaloConv2d(out_size, out_size, 3, 1, 1)
-        self.identity = nn.Conv2d(in_size, out_size, 1, 1, 0)
+        self.identity = HaloConv2d(in_size, out_size, 1, 1, 0)
         self.norm = nn.InstanceNorm2d(out_size // 2, affine=True) if use_hin else None
         self.downsample = (HaloConv2d(out_size, out_size, 4, 2, 1, bias=False)
                            if downsample else None)
 
     def forward(self, x, filt=None, q=None):
-        out = _conv(self.conv_1, x, q)
-        if self.norm is not None:
+        if self.norm is None:
+            out = _conv(self.conv_1, x, q, self.relu_slope)
+        else:
+            out = _conv(self.conv_1, x, q)
             out = half_instance_norm(out, self.norm.weight, self.norm.bias)
-        out = F.leaky_relu(out, self.relu_slope)
-        out = F.leaky_relu(_conv(self.conv_2, out, q), self.relu_slope)
+            out = F.leaky_relu(out, self.relu_slope)
+        out = _conv(self.conv_2, out, q, self.relu_slope)
         out = out + _conv(self.identity, x, q)
         if filt is not None:
             out = fac_bias(out, filt)
@@ -138,7 +143,7 @@ class EVConvBlock(HINConvBlock):
                  relu_slope: float = 0.2, use_hin: bool = True,
                  merge_size: Optional[int] = None):
         super().__init__(in_size, out_size, downsample, relu_slope, use_hin)
-        self.conv_before_merge = nn.Conv2d(
+        self.conv_before_merge = HaloConv2d(
             out_size, 2 * out_size if merge_size is None else merge_size, 1, 1, 0)
 
     def forward(self, x, q=None):
@@ -163,9 +168,9 @@ class SAM(nn.Module):
 
     def __init__(self, n_feat: int):
         super().__init__()
-        self.conv1 = nn.Conv2d(n_feat, n_feat, 3, 1, 1)
+        self.conv1 = HaloConv2d(n_feat, n_feat, 3, 1, 1)
         self.conv2 = HaloConv2d(n_feat, 3, 3, 1, 1)
-        self.conv3 = nn.Conv2d(3, n_feat, 3, 1, 1)
+        self.conv3 = HaloConv2d(3, n_feat, 3, 1, 1)
 
     def forward(self, x, x_img):
         return self.conv2(x) + x_img

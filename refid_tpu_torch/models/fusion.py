@@ -29,19 +29,19 @@ class CrossmodalAtten(nn.Module):
         super().__init__()
         self.norm1 = LayerNorm2d(c)
         self.norm1_e = LayerNorm2d(c)
-        self.conv1 = nn.Conv2d(c, c, 1)
+        self.conv1 = HaloConv2d(c, c, 1)
         self.conv2 = HaloConv2d(c, c, 3, 1, 1, groups=c)
-        self.conv1_e = nn.Conv2d(c, c, 1)
+        self.conv1_e = HaloConv2d(c, c, 1)
         self.conv2_e = HaloConv2d(c, c, 3, 1, 1, groups=c)
         self.se_1 = SELayer(c, c // 2, c)
         self.se_2 = SELayer(c, c // 2, c)    # unused, as upstream
-        self.conv3 = nn.Conv2d(2 * c, c, 1)
+        self.conv3 = HaloConv2d(2 * c, c, 1)
         self.beta = nn.Parameter(torch.zeros(1, c, 1, 1))
         self.norm2 = LayerNorm2d(c)
-        self.conv4 = nn.Conv2d(c, 2 * c, 1)
-        self.conv5 = nn.Conv2d(2 * c, c_out, 1)
+        self.conv4 = HaloConv2d(c, 2 * c, 1)
+        self.conv5 = HaloConv2d(2 * c, c_out, 1)
         self.gamma = nn.Parameter(torch.zeros(1, c_out, 1, 1))
-        self.conv_y_side = nn.Conv2d(c, c_out, 1)
+        self.conv_y_side = HaloConv2d(c, c_out, 1)
 
     def forward(self, event_feat, image_feat):
         x = F.gelu(self.conv2(self.conv1(self.norm1(image_feat))))
@@ -62,8 +62,8 @@ class ImgEvFusion(nn.Module):
 
     def __init__(self, c: int):
         super().__init__()
-        self.se_0 = nn.Sequential(SpatialAvgPool(), nn.Conv2d(c, c, 1), nn.Sigmoid())
-        self.se_1 = nn.Sequential(SpatialAvgPool(), nn.Conv2d(c, c, 1), nn.Sigmoid())
+        self.se_0 = nn.Sequential(SpatialAvgPool(), HaloConv2d(c, c, 1), nn.Sigmoid())
+        self.se_1 = nn.Sequential(SpatialAvgPool(), HaloConv2d(c, c, 1), nn.Sigmoid())
 
     def forward(self, ev, feat_0, feat_1):
         return feat_0 * self.se_0(ev) + feat_1 * self.se_1(ev)

@@ -8,6 +8,12 @@ state_dict loads as it is.
 ``ResidualBlock`` and ``ConvResidualBlocks`` take an optional int8 quant
 state ``q`` (``serve/quant.py::QuantState``): with it, their convs run as
 int8 sites, in the JAX serving forward's order; without it, nothing changes.
+
+Every biased conv goes through the conv layer's entry point
+(``ops/conv_epilogue.py::biased_conv``: :class:`HaloConv2d`, 1x1 convs
+included, and :class:`ConvTranspose2d`), and an activation that follows a
+conv directly is passed to it as ``act``, so that on the card one pass adds
+the bias and applies it.
 """
 
 from __future__ import annotations
@@ -18,11 +24,12 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from refid_tpu_torch.ops.conv_epilogue import Act, biased_conv
 from refid_tpu_torch.parallel.spatial import HaloConv2d, SpatialAvgPool
 
 __all__ = [
     "ConvLayer", "ImageEncoderConvBlock", "ResidualBlock", "ResidualBlockNoBN",
-    "ConvResidualBlocks", "LayerNorm2d", "SELayer", "conv_transpose_up",
+    "ConvResidualBlocks", "LayerNorm2d", "SELayer", "ConvTranspose2d", "conv_transpose_up",
 ]
 
 
@@ -37,10 +44,7 @@ class ConvLayer(nn.Module):
         self.relu_slope = relu_slope
 
     def forward(self, x):
-        out = self.conv2d(x)
-        if self.relu_slope is not None:
-            out = F.leaky_relu(out, self.relu_slope)
-        return out
+        return self.conv2d(x, act=self.relu_slope)
 
 
 class ImageEncoderConvBlock(nn.Module):
@@ -51,12 +55,11 @@ class ImageEncoderConvBlock(nn.Module):
         super().__init__()
         self.conv_1 = HaloConv2d(in_ch, out_ch, 3, 1, 1)
         self.conv_2 = HaloConv2d(out_ch, out_ch, 3, 1, 1)
-        self.identity = nn.Conv2d(in_ch, out_ch, 1, 1, 0)
+        self.identity = HaloConv2d(in_ch, out_ch, 1, 1, 0)
         self.down = HaloConv2d(out_ch, out_ch, 4, 2, 1, bias=False)
 
     def forward(self, x):
-        out = F.leaky_relu(self.conv_1(x), 0.2)
-        out = F.leaky_relu(self.conv_2(out), 0.2)
+        out = self.conv_2(self.conv_1(x, act=0.2), act=0.2)
         return self.down(out + self.identity(x))
 
 
@@ -70,7 +73,7 @@ class ResidualBlock(nn.Module):
 
     def forward(self, x, q=None):
         if q is None:
-            return F.relu(self.conv2(F.relu(self.conv1(x))) + x)
+            return F.relu(self.conv2(self.conv1(x, act="relu")) + x)
         return F.relu(q.conv(self.conv2, q.conv(self.conv1, x, relu=True)) + x)
 
 
@@ -91,7 +94,7 @@ class ResidualBlockNoBN(nn.Module):
                 conv.bias.zero_()
 
     def forward(self, x):
-        return x + self.conv2(F.relu(self.conv1(x)))
+        return x + self.conv2(self.conv1(x, act="relu"))
 
 
 class ConvResidualBlocks(nn.Module):
@@ -106,8 +109,8 @@ class ConvResidualBlocks(nn.Module):
                             for _ in range(num_block)]))
 
     def forward(self, x, q=None):
-        if q is None:
-            return self.main(x)
+        if q is None:   # main[1], the leaky ReLU, applied by main[0]'s entry point
+            return self.main[2](self.main[0](x, act=self.main[1].negative_slope))
         h = q.conv(self.main[0], x, slope=0.1)
         for block in self.main[2]:
             h = h + q.conv(block.conv2, q.conv(block.conv1, h, relu=True))
@@ -132,13 +135,34 @@ class LayerNorm2d(nn.Module):
 
 class SELayer(nn.Sequential):
     """Squeeze-excite gate: avg pool -> 1x1 -> relu -> 1x1 -> sigmoid.  The
-    two convs are children ``1`` and ``3``, as in upstream's Sequential."""
+    two convs are children ``1`` and ``3``, as in upstream's Sequential; the
+    ReLU (child ``2``) is applied by the first conv's entry point."""
 
     def __init__(self, in_ch: int, mid: int, out: int):
-        super().__init__(SpatialAvgPool(), nn.Conv2d(in_ch, mid, 1),
-                         nn.ReLU(), nn.Conv2d(mid, out, 1), nn.Sigmoid())
+        super().__init__(SpatialAvgPool(), HaloConv2d(in_ch, mid, 1),
+                         nn.ReLU(), HaloConv2d(mid, out, 1), nn.Sigmoid())
+
+    def forward(self, x):
+        return self[4](self[3](self[1](self[0](x), act="relu")))
 
 
-def conv_transpose_up(in_ch: int, out_ch: int) -> nn.ConvTranspose2d:
+class ConvTranspose2d(nn.ConvTranspose2d):
+    """``nn.ConvTranspose2d`` through the conv layer's entry point
+    (``ops/conv_epilogue.py::biased_conv``), with the activation ``act``
+    that follows it."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.cudnn_choice = {}      # biased_conv's cache of PyTorch's backend choice
+
+    def forward(self, x, act: Act = None):
+        return biased_conv(self, x, act, self._conv)
+
+    def _conv(self, x, bias):
+        return F.conv_transpose2d(x, self.weight, bias, self.stride, self.padding,
+                                  self.output_padding, self.groups, self.dilation)
+
+
+def conv_transpose_up(in_ch: int, out_ch: int) -> ConvTranspose2d:
     """The decoders' 2x2 stride-2 transposed conv."""
-    return nn.ConvTranspose2d(in_ch, out_ch, 2, stride=2)
+    return ConvTranspose2d(in_ch, out_ch, 2, stride=2)

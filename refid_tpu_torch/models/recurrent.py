@@ -157,16 +157,17 @@ class RecurrentEncoderStage(nn.Module):
             self.down = HaloConv2d(out_ch, out_ch, 4, 2, 1, bias=False)
 
     def _first_conv(self, x, q):
-        if q is None:
-            # the DCN's one leaky ReLU; ConvLayer's own, then the stage's
-            return F.leaky_relu(self.conv(x), 0.2)
-        return q.conv(self.conv.conv2d, x, slope=0.04,
-                      exact=lambda v: F.leaky_relu(self.conv(v), 0.2))
+        if q is not None:
+            return q.conv(self.conv.conv2d, x, slope=0.04,
+                          exact=lambda v: self._first_conv(v, None))
+        if isinstance(self.conv, ConvLayer):   # ConvLayer's own leaky ReLU, then the stage's
+            return self.conv.conv2d(x, act=(self.conv.relu_slope, 0.2))
+        return F.leaky_relu(self.conv(x), 0.2)  # the DCN's one
 
     def forward(self, x, y: Optional[torch.Tensor], prev_state,
                 bi_direction_state=None, q=None, q_trunk=None):
         if self.stage_type == "rec_conv":
-            x = F.relu(self.conv(x if y is None else x + y))
+            x = self.conv.conv2d(x if y is None else x + y, act="relu")
             return self.recurrent_block(x, prev_state)
         if y is not None and self.atten_fuse is not None:
             x = self.atten_fuse(x, y)
@@ -246,4 +247,4 @@ class UpsampleConvLayer(nn.Module):
         up = F.interpolate(x, scale_factor=2, mode="bilinear", align_corners=False)
         if plan is not None:
             up = up[..., 2:-2, :]
-        return F.relu(self.conv2d(up)), prev_state
+        return self.conv2d(up, act="relu"), prev_state

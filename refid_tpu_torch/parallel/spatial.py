@@ -59,6 +59,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 from torch.nn.modules.utils import _pair
 
+from refid_tpu_torch.ops.conv_epilogue import Act, biased_conv
+
 __all__ = ["MAX_HALO", "row_split", "halo_exchange", "SpatialPlan", "spatial_scope",
            "active", "HaloConv2d", "SpatialAvgPool", "halo_conv2d"]
 
@@ -323,15 +325,28 @@ def halo_conv2d(x, weight, bias=None, stride=(1, 1), padding=(0, 0), groups: int
 
 
 class HaloConv2d(nn.Conv2d):
-    """``nn.Conv2d`` whose height padding, under an active plan, comes from
-    the neighbouring shards (:func:`halo_conv2d`)."""
+    """The port's conv module: every ``Conv2d`` of the networks, sharded or
+    not, 1x1 included.  It is ``nn.Conv2d`` whose height padding, under an
+    active plan, comes from the neighbouring shards (:func:`halo_conv2d`;
+    a 1x1 conv needs none), and which applies the activation ``act`` that
+    follows it (``ops/conv_epilogue.py``: None, ``"relu"``, a leaky slope
+    or a tuple of slopes) through the conv layer's entry point
+    :func:`~refid_tpu_torch.ops.conv_epilogue.biased_conv`, which may finish
+    the output in one pass with the bias."""
 
-    def forward(self, x):
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.cudnn_choice = {}      # biased_conv's cache of PyTorch's backend choice
+
+    def forward(self, x, act: Act = None):
+        return biased_conv(self, x, act, self._conv)
+
+    def _conv(self, x, bias):
         if _ACTIVE is None or self.kernel_size[0] == 1:
-            return super().forward(x)
+            return self._conv_forward(x, self.weight, bias)
         if self.dilation != (1, 1) or self.padding_mode != "zeros":
             raise ValueError("spatial sharding takes undilated zero-padded convs")
-        return halo_conv2d(x, self.weight, self.bias, self.stride, self.padding, self.groups)
+        return halo_conv2d(x, self.weight, bias, self.stride, self.padding, self.groups)
 
 
 class SpatialAvgPool(nn.AdaptiveAvgPool2d):

@@ -54,6 +54,7 @@ import torch.nn.functional as F
 from torch.nn.modules.utils import _pair
 
 from refid_tpu_torch.core.timer import span
+from refid_tpu_torch.ops.conv_epilogue import activate
 from refid_tpu_torch.parallel import spatial
 
 __all__ = ["K_DEPTH", "PRODUCTION_SHAPE_DB", "PRODUCTION_DB_GATE", "PRODUCTION_DB_CARD",
@@ -262,11 +263,11 @@ def _output_dtype(x: torch.Tensor, out_dtype):
 
 
 def _exact(p, x, stride, padding, slope, relu):
+    act = "relu" if relu else slope
+    if isinstance(p, spatial.HaloConv2d):     # through the conv layer's entry point
+        return p(x, act=act)
     weight, bias = _params(p)
-    y = spatial.halo_conv2d(x, weight, bias, stride, padding)
-    if relu:
-        return F.relu(y)
-    return F.leaky_relu(y, slope) if slope is not None else y
+    return activate(spatial.halo_conv2d(x, weight, bias, stride, padding), act)
 
 
 def conv_int8(p, x, stride=1, padding=0, slope=None, relu=False, out_dtype=None,

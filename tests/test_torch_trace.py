@@ -65,6 +65,12 @@ def _named(spans, name):
     return [s for s in spans if s[0] == name]
 
 
+def _layers(spans):
+    """The spans of the layers above the conv layer: all but ``refid.conv``
+    (one a biased conv) and ``refid.conv.epilogue``."""
+    return [s for s in spans if not s[0].startswith("refid.conv")]
+
+
 def test_a_request_opens_its_stages_in_order(model):
     """The stages one after another; the float pipeline's model call, in
     channels_last, is also the span ``refid.vfi.channels_last``, inside the
@@ -73,9 +79,11 @@ def test_a_request_opens_its_stages_in_order(model):
     _, spans = _profiled(lambda: pipe(*_request(1)))
     (request,) = _named(spans, "refid.vfi.request")
     (network,) = _named(spans, "refid.vfi.network")
-    in_network = _inside(spans, network)
+    in_network = _layers(_inside(spans, network))
     assert [s[0] for s in in_network] == ["refid.vfi.channels_last"]
-    inside = [s for s in _inside(spans, request) if s[3] is not in_network[0][3]]
+    convs = _named(spans, "refid.conv")
+    assert convs and convs == _inside(spans, in_network[0])    # every conv in the model call
+    inside = [s for s in _layers(_inside(spans, request)) if s[3] is not in_network[0][3]]
     assert [s[0] for s in inside] == STAGES
     assert all(a[2] <= b[1] for a, b in zip(inside, inside[1:]))      # one after another
 
@@ -111,8 +119,11 @@ def test_predict_tensor_opens_upload_and_network(tmp_path):
     lq = rng.rand(1, 32, 48, 3).astype(np.float32)
     vox = rng.randn(1, 32, 48, 6).astype(np.float32)
     out, spans = _profiled(lambda: task.predict_tensor(lq, vox))
-    assert [s[0] for s in spans] == ["refid.task.upload", "refid.task.network"]
-    assert spans[0][2] <= spans[1][1]
+    layers = _layers(spans)
+    assert [s[0] for s in layers] == ["refid.task.upload", "refid.task.network"]
+    assert layers[0][2] <= layers[1][1]
+    convs = _named(spans, "refid.conv")
+    assert convs and convs == _inside(spans, layers[1])        # every conv in the network
     torch.testing.assert_close(out, task.predict_tensor(lq, vox), rtol=0, atol=0)
 
 
