@@ -1,12 +1,18 @@
-"""Arch utility ops and the EICA block (NCHW), mirroring
-``refid_tpu/models/arch_util.py`` (upstream basicsr ``arch_util.py``).
+"""Arch utility ops, the channel-attention core and the EICA block (NCHW),
+mirroring ``refid_tpu/models/arch_util.py`` (upstream basicsr
+``arch_util.py``).
 
 Library functions with no caller in the JAX package:
   * flow_warp        — bilinear warping by optical flow, zeros outside
   * resize_flow      — flow resampling with its magnitudes rescaled
   * pixel_unshuffle / pixel_shuffle — space-to-depth and back, in the JAX
     functions' channel order: output channel ``(dy * s + dx) * c + ch``
-    (``nn.PixelShuffle`` orders them ``ch * s * s + dy * s + dx``)
+    (``nn.PixelShuffle`` orders them ``ch * s * s + dy * s + dx``; Restormer,
+    ``models/restormer.py``, uses ``nn.PixelShuffle``'s, not these)
+  * channel_attention — attention over channels, per head: L2 norms over the
+    pixels, the Gram product, temperature, softmax, ``attn @ v``; its two
+    callers: EICA's ``MutualAttention`` (EFNet, ``models/efnet.py``) and
+    Restormer's MDTA (``models/restormer.py``)
   * MutualAttention + EventImageChannelAttentionTransformerBlock ("EICA") —
     channel-attention cross-modal transformer (its caller in this package:
     ``models/efnet.py``, at upstream EFNet's settings)
@@ -23,8 +29,8 @@ import torch.nn.functional as F
 from refid_tpu_torch.ops.deform_conv import _bilinear_rows
 
 __all__ = ["flow_warp", "resize_flow", "pixel_unshuffle", "pixel_shuffle",
-           "MutualAttention", "EventImageChannelAttentionTransformerBlock",
-           "SpatialCrossAttention"]
+           "channel_attention", "MutualAttention",
+           "EventImageChannelAttentionTransformerBlock", "SpatialCrossAttention"]
 
 
 def flow_warp(x, flow, align_corners=True):
@@ -74,6 +80,23 @@ def pixel_shuffle(x, scale: int):
     return x.permute(0, 3, 4, 1, 5, 2).reshape(b, c_out, h * scale, w * scale)
 
 
+def channel_attention(q, k, v, temperature, num_heads: int):
+    """Attention over the channels of ``q``, ``k``, ``v`` ``(b, c, h, w)``:
+    split head-major into ``(b, head, c/head, h*w)``, ``q`` and ``k``
+    L2-normalised over the pixels (eps 1e-12), ``A = softmax(q k^T *
+    temperature)`` (``temperature`` ``(head, 1, 1)``) over the last axis,
+    and ``A v`` merged back to ``(b, c, h, w)``: O(c^2 * hw)."""
+    b, c, h, w = q.shape
+
+    def heads(z):   # (b, c, h, w) -> (b, head, c/head, h*w)
+        return z.reshape(b, num_heads, c // num_heads, h * w)
+
+    q = F.normalize(heads(q), dim=-1, eps=1e-12)
+    k = F.normalize(heads(k), dim=-1, eps=1e-12)
+    attn = torch.softmax(q @ k.transpose(-2, -1) * temperature, dim=-1)
+    return (attn @ heads(v)).reshape(b, c, h, w)
+
+
 class MutualAttention(nn.Module):
     """Channel attention between image (query) and event (key / value):
     attention over channels, O(c^2 * hw)."""
@@ -90,15 +113,8 @@ class MutualAttention(nn.Module):
     def forward(self, x, y):
         if x.shape != y.shape:
             raise ValueError(f"image {tuple(x.shape)} and event {tuple(y.shape)} differ")
-        b, c, h, w = x.shape
-
-        def heads(z):   # (b, c, h, w) -> (b, head, c/head, h*w)
-            return z.reshape(b, self.num_heads, c // self.num_heads, h * w)
-
-        q = F.normalize(heads(self.q(x)), dim=-1, eps=1e-12)
-        k = F.normalize(heads(self.k(y)), dim=-1, eps=1e-12)
-        attn = torch.softmax(q @ k.transpose(-2, -1) * self.temperature, dim=-1)
-        return self.project_out((attn @ heads(self.v(y))).reshape(b, c, h, w))
+        return self.project_out(channel_attention(self.q(x), self.k(y), self.v(y),
+                                                  self.temperature, self.num_heads))
 
 
 class EventImageChannelAttentionTransformerBlock(nn.Module):

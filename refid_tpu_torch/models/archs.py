@@ -23,7 +23,9 @@ implements the intended semantics, and so does this one (the breakage map in
   half.  NoAtten's unused SE fusions are absent.
 
 ``EFNet`` (upstream EFNet_arch.py) has no JAX counterpart; it is held to
-the benchmark's plain reference (``models/efnet.py``).
+the benchmark's plain reference (``models/efnet.py``).  Nor has
+``Restormer`` (upstream restormer_arch.py, ``models/restormer.py``), fed the
+photo and the event voxel concatenated (``inp_channels`` 9 by default).
 
 ``compute_dtype: bfloat16`` maps to bf16 autocast with float32 parameters.
 """
@@ -36,9 +38,10 @@ from refid_tpu_torch.core.registry import ARCHS
 from refid_tpu_torch.models.efnet import EFNet
 from refid_tpu_torch.models.evhinet import EVHINet
 from refid_tpu_torch.models.refid import FinalBidirectionAttenfusion, RefidConfig
+from refid_tpu_torch.models.restormer import Restormer
 
 __all__ = ["final_bidirection_attenfusion", "final_bidirection", "single_multiconnect_evhinet",
-           "efnet",
+           "efnet", "restormer",
            "unet_recurrent", "unet_decoder_recurrent", "bidir_unet_recurrent",
            "unet_decoder_recurrent_bidir", "unet_decoder_recurrent_allbidir",
            "unet_ps_decoder_recurrent", "unet_decoder_recurrent_siamese",
@@ -129,6 +132,22 @@ def efnet(opt: dict) -> EFNet:
                  ffn_expansion_factor=opt.get("ffn_expansion_factor", 4),
                  fuse_before_downsample=opt.get("fuse_before_downsample", True),
                  relu_slope=opt.get("relu_slope", 0.2), dtype=_compute_dtype(opt))
+
+
+@ARCHS.register("Restormer")
+def restormer(opt: dict) -> Restormer:
+    """Transposed channel attention and gated depthwise FFNs in a four-level
+    U-Net (upstream restormer_arch.py), on the photo and its events."""
+    return Restormer(inp_channels=opt.get("inp_channels", 9),
+                     out_channels=opt.get("out_channels", 3), dim=opt.get("dim", 48),
+                     num_blocks=tuple(opt.get("num_blocks", (4, 6, 6, 8))),
+                     num_refinement_blocks=opt.get("num_refinement_blocks", 4),
+                     heads=tuple(opt.get("heads", (1, 2, 4, 8))),
+                     ffn_expansion_factor=opt.get("ffn_expansion_factor", 2.66),
+                     bias=opt.get("bias", False),
+                     layer_norm_type=opt.get("LayerNorm_type", "WithBias"),
+                     dual_pixel_task=opt.get("dual_pixel_task", False),
+                     dtype=_compute_dtype(opt))
 
 
 # --- the ablation lineages ----------------------------------------------------

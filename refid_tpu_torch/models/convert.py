@@ -28,6 +28,10 @@ keys) loads into the port's :class:`EFNet` under upstream's names, but for
 EICA's: its ``WithBias`` LayerNorms' ``norm1_*.body.`` and its MLP's
 ``ffn.fc1`` / ``ffn.fc2`` are the port block's ``norm1_*.`` and ``fc1`` /
 ``fc2``.
+
+An upstream Restormer checkpoint (recognised by its ``patch_embed.proj``
+keys) loads into the port's :class:`Restormer` unchanged: its module names
+are upstream's, the ``WithBias`` LayerNorms' ``norm*.body.`` included.
 """
 
 from __future__ import annotations
@@ -43,6 +47,7 @@ from refid_tpu_torch.models.efnet import EFNet
 from refid_tpu_torch.models.evhinet import EVHINet
 from refid_tpu_torch.models.recurrent import RecurrentEncoderStage
 from refid_tpu_torch.models.refid import RefidConfig
+from refid_tpu_torch.models.restormer import Restormer
 
 __all__ = ["state_dict_from_jax", "evhinet_state_dict_from_jax", "known_unused_keys",
            "load_state"]
@@ -255,7 +260,12 @@ def load_state(model: nn.Module, state_dict: Mapping[str, torch.Tensor]) -> None
     (``conv_ev1.`` keys) the keys outside the port's EVHINet (upstream's
     stage-2 modules); both are ignored and named in the log.  An EFNet
     checkpoint (``image_event_transformer`` keys) loads whole, EICA's keys
-    renamed to the port block's."""
+    renamed to the port block's; a Restormer checkpoint (``patch_embed.proj``
+    keys) loads whole under its own names."""
+    is_restormer = any(k.startswith("patch_embed.proj.") for k in state_dict)
+    if is_restormer != isinstance(model, Restormer):
+        raise ValueError(f"{'a' if is_restormer else 'no'} Restormer checkpoint "
+                         f"(patch_embed.proj keys) for a {type(model).__name__} network")
     is_efnet = any(".image_event_transformer." in k for k in state_dict)
     if is_efnet != isinstance(model, EFNet):
         raise ValueError(f"{'an' if is_efnet else 'no'} EFNet checkpoint "

@@ -3,7 +3,8 @@ PyTorch reference (``portbench/reference/efnet.py``; the JAX package has no
 EFNet), on seeded weights at wf 16 and 32x48 in float32: the network and
 the single-image task's served path, EICA's LayerNorm form, the weights'
 temperatures, the EICA counter, the registry and loader, the refusals of
-int8 and spatial plans, and EVHINet unchanged by the blocks EFNet shares."""
+int8 and spatial plans, EVHINet unchanged by the blocks EFNet shares, and
+EICA's attention unchanged by the channel-attention core Restormer shares."""
 
 from __future__ import annotations
 
@@ -282,3 +283,33 @@ def test_evhinet_is_bit_identical_with_the_shared_blocks(monkeypatch):
     parent = run()
     assert torch.equal(now, parent)
     assert np.isfinite(now.numpy()).all()
+
+
+class _ParentMutualAttention(MutualAttention):
+    """EICA's attention as it was before Restormer shared its core."""
+
+    def forward(self, x, y):
+        b, c, h, w = x.shape
+
+        def heads(z):
+            return z.reshape(b, self.num_heads, c // self.num_heads, h * w)
+
+        q = nn.functional.normalize(heads(self.q(x)), dim=-1, eps=1e-12)
+        k = nn.functional.normalize(heads(self.k(y)), dim=-1, eps=1e-12)
+        attn = torch.softmax(q @ k.transpose(-2, -1) * self.temperature, dim=-1)
+        return self.project_out((attn @ heads(self.v(y))).reshape(b, c, h, w))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mutual_attention_is_bit_identical_with_the_shared_core(dtype):
+    gen = torch.Generator().manual_seed(SEED)
+    now, parent = MutualAttention(16, 4), _ParentMutualAttention(16, 4)
+    state = {k: torch.randn(v.shape, generator=gen) for k, v in now.state_dict().items()}
+    now.load_state_dict(state)
+    parent.load_state_dict(state)
+    x, y = torch.randn(2, 16, 12, 20, generator=gen), torch.randn(2, 16, 12, 20, generator=gen)
+    with torch.no_grad(), torch.autocast("cpu", dtype=torch.bfloat16,
+                                         enabled=dtype == torch.bfloat16):
+        got, want = now(x, y), parent(x, y)
+    assert got.dtype == dtype
+    assert torch.equal(got, want)

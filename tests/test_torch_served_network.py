@@ -26,6 +26,9 @@ NETS = {
               {"type": "EFNet", "in_chn": 3, "ev_chn": 6, "wf": 16, "depth": 3,
                "num_heads": [1, 2, 4], "ffn_expansion_factor": 4,
                "fuse_before_downsample": True, "relu_slope": 0.2}),
+    "restormer": ("TestImageEventRestorationModel",
+                  {"type": "Restormer", "inp_channels": 9, "dim": 8, "num_blocks": [1, 1, 1, 1],
+                   "num_refinement_blocks": 1}),
 }
 CL = torch.channels_last
 
@@ -70,6 +73,7 @@ CASES = {
     "task-refid": (lambda: _task("refid"), False, False),
     "task-evhinet": (lambda: _task("evhinet"), False, False),
     "task-efnet": (lambda: _task("efnet"), False, False),
+    "task-restormer": (lambda: _task("restormer"), False, False),
     "task-int8-whole-blocks": (lambda: _task("refid", True), False, True),
     "task-int8-other-sides": (lambda: _task("refid", True, 12, 20), False, False),
 }
