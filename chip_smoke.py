@@ -90,6 +90,15 @@ equal them phase by phase (``conv_epilogue_path``) and in each spatial rank;
 one bf16 window's network call, whole and on the shards, is bit-equal with
 and without CE.
 
+The pre-norm PN (``csrc/prenorm.cu``, Restormer's residual add and LayerNorm)
+is held against its plain version at the network's five pre-norm shapes in
+each mode (``s`` bit for bit, ``y`` within one bf16 step) and timed at them,
+beside its byte bound, the plain version and the eager chain it replaces,
+right after CE.  Its ``kernels`` entry's launches are those of its main
+path: one 720p bf16 Restormer image through the single-image task, the
+benchmark cell's configuration and weights, counted from zero (96), its
+answer within 2 % of the same call on PyTorch's ops (``restormer_serve``).
+
 Each phase prints one JSON line; the last two lines are the ``kernels``
 line and ``{"ok": true, "device": {...}}``.  Any failed phase exits
 non-zero without the ``ok`` line; so does a machine without CUDA.
@@ -113,6 +122,7 @@ from unittest import mock
 import numpy as np
 import torch
 
+from portbench.drivers.restormer_serve import restormer_state
 from refid_tpu_torch import BlurVFIPipeline, RefidConfig
 from refid_tpu_torch.cli import demo as demo_cli
 from refid_tpu_torch.cli import test as test_cli
@@ -138,6 +148,7 @@ from refid_tpu_torch.models.layers import ConvTranspose2d
 from refid_tpu_torch.models.refid import FinalBidirectionAttenfusion
 from refid_tpu_torch.ops import build, int8_cuda, probe_cuda
 from refid_tpu_torch.ops import conv_epilogue as ce
+from refid_tpu_torch.ops import prenorm as pn
 from refid_tpu_torch.parallel.spatial import HaloConv2d, SpatialPlan, spatial_scope
 from refid_tpu_torch.probes import band_conv as probe_bc
 from refid_tpu_torch.probes import poison as probe_poison
@@ -311,6 +322,14 @@ CE_SHAPES = [((1, 64, 720, 1280), "cl", torch.bfloat16, 0.2),
              ((1, 256, 180, 320), "nchw", torch.float32, (0.2, 0.2)),
              ((1, 64, 720, 1280), "cl", torch.float32, 0.1)]
 CE_TIMED = 3
+# the pre-norm PN (csrc/prenorm.cu) at Restormer's pre-norm shapes (720p),
+# in each mode: the residual none (a stage's first norm), NCHW (norm2),
+# channels_last (norm1), and the add alone (a stage's end); bytes an element
+PN_SHAPES = [(1, 48, 720, 1280), (1, 96, 720, 1280), (1, 96, 360, 640), (1, 192, 180, 320),
+             (1, 384, 90, 160)]
+PN_MODES = {"none": 4, "nchw": 8, "cl": 8, "add": 6}
+RESTORMER_CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)), "portbench",
+                                "configs", "restormer_dim48.json")
 CUDNN_BACKENDS = (torch._C._ConvBackend.Cudnn, torch._C._ConvBackend.CudnnTranspose)
 
 
@@ -805,6 +824,154 @@ def phase_conv_epilogue_timing(calls=200):
     emit("kernel_timing", kernel="conv_epilogue", rows=rows, host_us=host_us)
     timing = {k: v for k, v in rows[0].items() if k not in ("layout", "dtype", "act")}
     return {**timing, "host_us": host_us}
+
+
+def pn_operands(shape, mode, seed):
+    """A bf16 NCHW stream, the mode's residual (None, NCHW or channels_last)
+    and a float32 scale and bias, on the card."""
+    gen = torch.Generator(CUDA).manual_seed(seed)
+    x = (torch.randn(shape, generator=gen, device=CUDA) * 2 + 0.5).bfloat16()
+    r = None
+    if mode != "none":
+        r = torch.randn(shape, generator=gen, device=CUDA).bfloat16()
+        if mode in ("cl", "add"):
+            r = r.contiguous(memory_format=torch.channels_last)
+    c = shape[1]
+    return (x, r, 1 + 0.1 * torch.randn(c, generator=gen, device=CUDA),
+            0.1 * torch.randn(c, generator=gen, device=CUDA))
+
+
+def pn_run(x, r, w, b, mode):
+    """PN in ``mode``: ``(s, y)``, ``y`` None for the add alone."""
+    if mode == "add":
+        with torch.inference_mode():
+            return pn.residual_add(x, r), None
+    return pn.prenorm(x, r, w, b, 1e-5)
+
+
+def phase_prenorm_check():
+    """PN (``ops/prenorm.py``) against its plain version ``prenorm_reference``
+    and the eager add at each of PN_SHAPES in each of PN_MODES: ``s`` bit
+    for bit with the eager add's strides, ``y`` channels_last and within
+    one bf16 step of the plain version (the share of elements that differ
+    reported), one launch a call.  Returns the largest |diff| of ``y``."""
+    before = pn.LAUNCHES
+    rows, worst = [], 0.0
+    for k, shape in enumerate(PN_SHAPES):
+        for mode in PN_MODES:
+            x, r, w, b = pn_operands(shape, mode, 60 + k)
+            s, y = pn_run(x, r, w, b, mode)
+            want_s = x if r is None else x + r
+            equal = (s.stride() == want_s.stride()
+                     and torch.equal(s.view(torch.int16), want_s.view(torch.int16)))
+            check(equal, f"prenorm {shape} {mode}: s is not the eager add's bits")
+            row = {"shape": list(shape), "mode": mode, "s_bit_equal": equal}
+            if y is not None:
+                want_y = pn.prenorm_reference(x, r, w, b, 1e-5)[1].float()
+                g = y.float()
+                # one bf16 step at the larger value, or at the channel's bias
+                # where y = x_hat w + b cancels (tests/test_torch_prenorm.py)
+                m = torch.maximum(torch.maximum(g.abs(), want_y.abs()),
+                                  b.abs().view(1, -1, 1, 1)).clamp_min(
+                    torch.finfo(torch.bfloat16).tiny)
+                step = torch.ldexp(torch.ones_like(m), torch.frexp(m).exponent - 8)
+                err = float((g - want_y).abs().max())
+                worst = max(worst, err)
+                row.update(max_abs_err=err, differ_share=float((g != want_y).float().mean()),
+                           within_one_step=bool(((g - want_y).abs() <= step).all()))
+                check(y.is_contiguous(memory_format=torch.channels_last)
+                      and row["within_one_step"],
+                      f"prenorm {shape} {mode}: y beyond one bf16 step of the plain version")
+            rows.append(row)
+            del x, r, s, y
+    launches = pn.LAUNCHES - before
+    check(launches == len(PN_SHAPES) * len(PN_MODES),
+          f"prenorm: {launches} launches for {len(PN_SHAPES) * len(PN_MODES)} calls")
+    emit("kernel_check", kernel="prenorm", cases=rows, launches=launches)
+    return worst
+
+
+def phase_prenorm_timing(calls=100):
+    """PN at each of PN_SHAPES in each of PN_MODES: CUDA events per call,
+    the profiler's device time a launch, the bound (PN_MODES' bytes an
+    element at the HBM rate), the plain version, and the eager chain the
+    network ran before PN (``x + r``, ``nn.LayerNorm`` on the channels-last
+    view under bf16 autocast, the next conv's cast to bf16) and
+    ``nn.LayerNorm``'s own kernel on a contiguous float32 input (the
+    library's call, ``library_ms``).  Returns the (1, 96, 720, 1280)
+    channels_last-residual row, for the ``kernels`` line."""
+    rows = []
+    for k, shape in enumerate(PN_SHAPES):
+        c = shape[1]
+        norm = torch.nn.LayerNorm(c, eps=1e-5).to(CUDA).requires_grad_(False)
+        for mode, per_element in PN_MODES.items():
+            x, r, w, b = pn_operands(shape, mode, 80 + k)
+
+            def eager():
+                s = x if r is None else x + r
+                if mode == "add":
+                    return s
+                with torch.autocast("cuda", dtype=torch.bfloat16):
+                    return s, norm(s.permute(0, 2, 3, 1)).permute(0, 3, 1, 2).bfloat16()
+
+            ms = time_ms(lambda: pn_run(x, r, w, b, mode), calls, CUDA)
+            launches = [t for name, t in device_records(lambda: pn_run(x, r, w, b, mode), 20,
+                                                        "prenorm_kernel")
+                        if "prenorm_kernel" in name]
+            check(0 < len(launches) <= 20, f"prenorm: profiler saw {len(launches)} launches")
+            bytes_moved = per_element * x.numel()
+            row = {"shape": list(shape), "mode": mode, "bytes": bytes_moved, "ms": ms,
+                   "device_ms": sum(launches) / len(launches) / 1e3,
+                   "eager_ms": time_ms(eager, 20, CUDA),
+                   **bound(bytes_moved, 0, F32_OPS_PER_S)}
+            if mode != "add":
+                row["plain_ms"] = time_ms(lambda: pn.prenorm_reference(x, r, w, b, 1e-5),
+                                          20, CUDA)
+                flat = x.float().permute(0, 2, 3, 1).contiguous()
+                row["library_ms"] = time_ms(lambda: norm(flat), 20, CUDA)
+                del flat
+            row["bound_share"] = row["bound_ms"] / ms
+            rows.append(row)
+            del x, r
+    emit("kernel_timing", kernel="prenorm", rows=rows)
+    main_row = next(r for r in rows if r["shape"] == [1, 96, 720, 1280] and r["mode"] == "cl")
+    return {k: v for k, v in main_row.items() if k != "mode"}
+
+
+def phase_restormer_serve(seed=26):
+    """Restormer as the benchmark's ``deblur720-restormer-bf16`` cell runs it
+    (``portbench/configs/restormer_dim48.json``: the published widths and
+    depths, the cell's seeded weights) through the single-image task in
+    bf16, one 720p image: PN's launches counted from zero over the call
+    (88 pre-norms and 8 stage ends: 96), and the answer within 2 % RMS of
+    the network's part (the answer less the photo) of the same call with
+    PN's rule held off (PyTorch's adds and ``nn.LayerNorm``; the two round
+    the norm's output at the same point from float32 statistics).
+    Returns PN's launches in the call."""
+    with open(RESTORMER_CONFIG) as f:
+        config = json.load(f)
+    task = build_task({"name": "chip_smoke_restormer",
+                       "model_type": "TestImageEventRestorationModel", "is_train": False,
+                       "network_g": dict(config["network_g"],
+                                         compute_dtype=config["compute_dtype"]),
+                       "val": {}}, CUDA)
+    load_state(task.net, restormer_state(config, seed, CUDA))
+    rng = np.random.RandomState(seed)
+    img = rng.rand(1, HEIGHT, WIDTH, 3).astype(np.float32)
+    voxel = rng.randn(1, HEIGHT, WIDTH, config["num_bins"]).astype(np.float32)
+    pn.LAUNCHES = 0                              # the main path's run starts here
+    got = task.predict_tensor(img, voxel)
+    launches = pn.LAUNCHES                       # ... and ends here
+    with mock.patch.object(pn, "engages", lambda x: False):
+        want = task.predict_tensor(img, voxel)
+    check(pn.LAUNCHES == launches, "prenorm launched with its rule held off")
+    network = want - torch.from_numpy(img).to(CUDA)
+    rel = float((got - want).square().mean().sqrt() / network.square().mean().sqrt())
+    emit("restormer_serve", launches=launches, rel_rms_vs_eager=rel)
+    check(launches == 96, f"a 720p Restormer call launched prenorm {launches} times, not 96")
+    check(rel < 0.02, f"Restormer on PN {rel:.4f} RMS of the network's part off the eager path")
+    del task, got, want, network
+    return launches
 
 
 class ConvEpilogueWatch:
@@ -3550,6 +3717,8 @@ def main():
     del norm_grid
     ce_launches, ce_err = phase_conv_epilogue_check()
     ce_timing = phase_conv_epilogue_timing()
+    pn_err = phase_prenorm_check()
+    pn_timing = phase_prenorm_timing()
     watch = ConvEpilogueWatch()                  # the conv layer's calls from here on
 
     model = FinalBidirectionAttenfusion(RefidConfig())
@@ -3577,6 +3746,8 @@ def main():
     watch.check("serve")
     phase_conv_epilogue_serve(watch, pipe, requests[-1])
     del pipe, out32, out16
+    pn_launches = phase_restormer_serve()        # PN's main path: its launches
+    watch.check("restormer", engaged=False)      # Restormer's convs have no bias
 
     t0 = time.perf_counter()
     int8_errs = phase_int8_kernel_check()
@@ -3767,7 +3938,12 @@ def main():
         "source": "refid_tpu_torch/csrc/conv_epilogue.cu",
         "replaces": None,        # XLA fuses a conv's bias and activation on the TPU
         "plain": "refid_tpu_torch/ops/conv_epilogue.py::epilogue_reference",
-        "launches": ce_launches, "max_abs_err": ce_err, **ce_timing}]
+        "launches": ce_launches, "max_abs_err": ce_err, **ce_timing}, {
+        "name": "prenorm", "route": "cuda",
+        "source": "refid_tpu_torch/csrc/prenorm.cu",
+        "replaces": None,        # XLA fuses the add, the norm and the casts on the TPU
+        "plain": "refid_tpu_torch/ops/prenorm.py::prenorm_reference",
+        "launches": pn_launches, "max_abs_err": pn_err, **pn_timing}]
     # each wrapper's host time a call, from the launch_path phase (VN's whole
     # call is its timing's wall_ms); P2's launch floor there, an empty
     # kernel's device time

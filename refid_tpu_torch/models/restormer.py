@@ -12,9 +12,10 @@ U-Net of transformer blocks at widths ``dim * 2**i``:
 * ``patch_embed.proj`` (3x3) of ``cat([x, event])``;
 * each :class:`TransformerBlock` is ``y + attn(norm1(y))``, then ``y +
   ffn(norm2(y))``: pre-norm ``WithBias`` LayerNorms over the channels of
-  each pixel, MDTA (:class:`Attention`: a 1x1 conv to q, k, v, a 3x3
-  depthwise conv, then :func:`~refid_tpu_torch.models.arch_util.channel_attention`,
-  the core EFNet's EICA shares) and GDFN (:class:`FeedForward`: a 1x1 conv
+  each pixel (each with the residual add in front of it, see below), MDTA
+  (:class:`Attention`: a 1x1 conv to q, k, v, a 3x3 depthwise conv, then
+  :func:`~refid_tpu_torch.models.arch_util.channel_attention`, the core
+  EFNet's EICA shares) and GDFN (:class:`FeedForward`: a 1x1 conv
   to ``2 d``, a 3x3 depthwise conv, ``gelu(x1) * x2``, a 1x1 conv back);
 * ``down*`` a 3x3 conv to half the channels and ``nn.PixelUnshuffle(2)``,
   ``up*`` a 3x3 conv to twice the channels and ``nn.PixelShuffle(2)``
@@ -23,11 +24,21 @@ U-Net of transformer blocks at widths ``dim * 2**i``:
   at levels 3 and 2; ``refinement`` at level 1; ``output(y) + x``, the
   photo's channels only.
 
-Every conv is the port's :class:`HaloConv2d` without a bias.  Each block
-runs inside the profiler span ``refid.restormer.block``, its attention half
-inside ``refid.restormer.mdta``, and adds one to ``TRANSFORMER_BLOCKS``
-(44 a forward at the published depths).  ``dtype=torch.bfloat16`` runs
-under bf16 autocast with float32 parameters and returns float32.
+Every conv is the port's :class:`HaloConv2d` without a bias.  A stage
+(:class:`Stage`) hands each block's FFN output on, not yet added, as the
+next block's residual: :class:`LayerNorm` takes the residual add in front of
+it and returns the sum (the stream) and its norm, and the stage's last FFN
+output is added by ``ops/prenorm.py::residual_add``.  Where
+``ops/prenorm.py::engages`` holds (a bf16 CUDA stream, gradients off: every
+served bf16 call) the add and the norm are one launch of
+``csrc/prenorm.cu``; elsewhere PyTorch's add and ``nn.LayerNorm``, the ops
+of the unfused forward in its order.  Each block runs inside the profiler
+span ``refid.restormer.block``, its attention half inside
+``refid.restormer.mdta``, each pre-norm inside ``refid.restormer.norm``
+(and, on the kernel, ``refid.restormer.norm_card`` inside it), and adds one
+to ``TRANSFORMER_BLOCKS`` (44 a forward at the published depths).
+``dtype=torch.bfloat16`` runs under bf16 autocast with float32 parameters
+and returns float32.
 
 Neither int8 serving nor spatial sharding applies: MDTA's L2
 normalisations, Gram products and softmax reduce over the whole frame, and
@@ -45,10 +56,11 @@ import torch.nn.functional as F
 
 from refid_tpu_torch.core.timer import span
 from refid_tpu_torch.models.arch_util import channel_attention
+from refid_tpu_torch.ops import prenorm
 from refid_tpu_torch.parallel import spatial
 from refid_tpu_torch.parallel.spatial import HaloConv2d
 
-__all__ = ["Restormer", "TransformerBlock", "TRANSFORMER_BLOCKS"]
+__all__ = ["Restormer", "Stage", "TransformerBlock", "TRANSFORMER_BLOCKS"]
 
 TRANSFORMER_BLOCKS = 0      # transformer blocks run, over the process's life
 
@@ -60,16 +72,25 @@ _NO_SPATIAL = ("Restormer cannot run under a spatial plan: MDTA's L2 normalisati
 
 class LayerNorm(nn.Module):
     """Upstream's ``LayerNorm(dim, 'WithBias')``: over the channels of each
-    pixel (biased variance, eps 1e-5 inside the root, a scale and a bias),
-    ``nn.LayerNorm`` on a channels-last view; state ``body.weight`` /
-    ``body.bias`` as upstream's."""
+    pixel (biased variance, eps 1e-5 inside the root, a scale and a bias);
+    state ``body.weight`` / ``body.bias`` as upstream's.  ``forward(x,
+    residual)`` returns ``(s, y)``: ``s = x + residual`` (``x`` without a
+    residual) and ``y`` its norm, by the kernel where
+    ``prenorm.engages(x)``, else ``nn.LayerNorm`` on a channels-last view."""
 
     def __init__(self, dim: int):
         super().__init__()
         self.body = nn.LayerNorm(dim, eps=1e-5)
 
-    def forward(self, x):
-        return self.body(x.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
+    def forward(self, x, residual=None):
+        with span("refid.restormer.norm"):
+            if prenorm.engages(x):
+                with span("refid.restormer.norm_card"):
+                    return prenorm.prenorm(x, residual, self.body.weight, self.body.bias,
+                                           self.body.eps)
+            if residual is not None:
+                x = x + residual
+            return x, self.body(x.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
 
 
 class Attention(nn.Module):
@@ -105,6 +126,11 @@ class FeedForward(nn.Module):
 
 
 class TransformerBlock(nn.Module):
+    """``forward(pair)``: ``pair`` is ``(stream, residual)``, whose sum is
+    the block's input (``residual`` None: the stream alone); returns the
+    pair ``(stream after the attention residual, FFN output)``, whose sum
+    is the block's output."""
+
     def __init__(self, dim: int, num_heads: int, ffn_expansion_factor: float):
         super().__init__()
         self.norm1 = LayerNorm(dim)
@@ -112,14 +138,17 @@ class TransformerBlock(nn.Module):
         self.norm2 = LayerNorm(dim)
         self.ffn = FeedForward(dim, ffn_expansion_factor)
 
-    def forward(self, x):
+    def forward(self, pair):
         global TRANSFORMER_BLOCKS
+        x, residual = pair
         with span("refid.restormer.block"):
             with span("refid.restormer.mdta"):
-                x = x + self.attn(self.norm1(x))
-            x = x + self.ffn(self.norm2(x))
+                x, y = self.norm1(x, residual)
+                residual = self.attn(y)
+            x, y = self.norm2(x, residual)
+            residual = self.ffn(y)
         TRANSFORMER_BLOCKS += 1
-        return x
+        return x, residual
 
 
 class OverlapPatchEmbed(nn.Module):
@@ -151,8 +180,21 @@ class Upsample(nn.Module):
         return self.body(x)
 
 
-def _blocks(n: int, dim: int, heads: int, factor: float) -> nn.Sequential:
-    return nn.Sequential(*[TransformerBlock(dim, heads, factor) for _ in range(n)])
+class Stage(nn.Sequential):
+    """Transformer blocks in turn (upstream's ``nn.Sequential``, its state
+    names kept): each block's FFN output goes on as the next block's
+    residual, and the last one is added by ``prenorm.residual_add``."""
+
+    def forward(self, x):
+        pair = (x, None)
+        for block in self:
+            pair = block(pair)
+        x, residual = pair          # residual None: no block added to the stream
+        return x if residual is None else prenorm.residual_add(x, residual)
+
+
+def _blocks(n: int, dim: int, heads: int, factor: float) -> Stage:
+    return Stage(*[TransformerBlock(dim, heads, factor) for _ in range(n)])
 
 
 class Restormer(nn.Module):

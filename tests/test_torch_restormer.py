@@ -28,7 +28,8 @@ from refid_tpu_torch.core.registry import ARCHS
 from refid_tpu_torch.models import arch_util
 from refid_tpu_torch.models import restormer as restormer_module
 from refid_tpu_torch.models.convert import load_state
-from refid_tpu_torch.models.restormer import Restormer
+from refid_tpu_torch.models.restormer import Restormer, Stage
+from refid_tpu_torch.ops import prenorm
 from refid_tpu_torch.tasks.base import build_task
 
 SEED = 2 ** 33 + 25
@@ -266,12 +267,214 @@ def test_each_block_is_a_span_and_counted():
     assert restormer_module.TRANSFORMER_BLOCKS - before == blocks
     spans = sorted(((e.name, e.time_range.start, e.time_range.end) for e in prof.events()
                     if e.name.startswith("refid.restormer.")), key=lambda s: (s[1], -s[2]))
-    assert [s[0] for s in spans] == ["refid.restormer.block", "refid.restormer.mdta"] * blocks
-    for block, mdta in zip(spans[::2], spans[1::2]):
+    # each block: its attention half holding norm1, then norm2 (88 pre-norms
+    # a forward); on the CPU no pre-norm runs on the card
+    assert [s[0] for s in spans] == ["refid.restormer.block", "refid.restormer.mdta",
+                                     "refid.restormer.norm", "refid.restormer.norm"] * blocks
+    assert sum(s[0] == "refid.restormer.norm" for s in spans) == 88
+    for block, mdta, norm1, norm2 in zip(*(spans[k::4] for k in range(4))):
         assert block[1] <= mdta[1] and mdta[2] <= block[2]
+        assert mdta[1] <= norm1[1] and norm1[2] <= mdta[2]
+        assert mdta[2] <= norm2[1] and norm2[2] <= block[2]
     network = [e for e in prof.events() if e.name == "refid.task.network"]
     assert len(network) == 1
     net_span = network[0].time_range
     assert all(net_span.start <= a and b <= net_span.end for _, a, b in spans)
     assert torch.equal(out, task.predict_tensor(img[None], voxel[None]))
     assert restormer_module.TRANSFORMER_BLOCKS - before == 2 * blocks
+
+
+# ---- the pre-norm (ops/prenorm.py): the eager path off the card ----
+
+STAGES = ("encoder_level1", "encoder_level2", "encoder_level3", "latent", "decoder_level3",
+          "decoder_level2", "decoder_level1", "refinement")
+
+
+def _unfused_norm(norm, x):
+    return norm.body(x.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
+
+
+def _unfused_stage(stage, x):
+    for block in stage:
+        x = x + block.attn(_unfused_norm(block.norm1, x))
+        x = x + block.ffn(_unfused_norm(block.norm2, x))
+    return x
+
+
+def _unfused_forward(net, x, event):
+    """The forward before the pre-norm took the residual adds: each block
+    ``x + attn(norm1(x))``, then ``x + ffn(norm2(x))``, each norm
+    ``nn.LayerNorm`` on a channels-last view, each stage an
+    ``nn.Sequential``."""
+    def run(x, event):
+        enc1 = _unfused_stage(net.encoder_level1, net.patch_embed(torch.cat([x, event], 1)))
+        enc2 = _unfused_stage(net.encoder_level2, net.down1_2(enc1))
+        enc3 = _unfused_stage(net.encoder_level3, net.down2_3(enc2))
+        latent = _unfused_stage(net.latent, net.down3_4(enc3))
+        dec3 = _unfused_stage(net.decoder_level3, net.reduce_chan_level3(
+            torch.cat([net.up4_3(latent), enc3], 1)))
+        dec2 = _unfused_stage(net.decoder_level2, net.reduce_chan_level2(
+            torch.cat([net.up3_2(dec3), enc2], 1)))
+        dec1 = _unfused_stage(net.decoder_level1, torch.cat([net.up2_1(dec2), enc1], 1))
+        return net.output(_unfused_stage(net.refinement, dec1)) + x
+
+    if net.dtype != torch.bfloat16:
+        return run(x, event)
+    with torch.autocast("cpu", dtype=torch.bfloat16):
+        return run(x, event).float()
+
+
+@pytest.mark.parametrize("grad", [False, True], ids=["no_grad", "grad"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_the_eager_path_is_the_unfused_forward_bit_for_bit(dtype, grad):
+    """Off the card (and in float32 anywhere) the stages, blocks and norms
+    run PyTorch's adds and ``nn.LayerNorm`` in the unfused forward's order:
+    the same bits, and no launch."""
+    net = _port(_state(), compute_dtype=dtype)
+    x, vox = _inputs()
+    before = prenorm.LAUNCHES
+    with torch.set_grad_enabled(grad):
+        got = net(x, vox)
+        want = _unfused_forward(net, x, vox)
+    assert prenorm.LAUNCHES == before
+    assert got.dtype == want.dtype == torch.float32
+    assert torch.equal(got, want)
+
+
+def test_stages_keep_the_sequential_state_names():
+    net = _port(_state())
+    for name in STAGES:
+        stage = getattr(net, name)
+        assert isinstance(stage, Stage)
+        assert list(stage.state_dict()) == list(nn.Sequential(*stage).state_dict())
+    assert "encoder_level1.0.norm1.body.weight" in net.state_dict()
+    assert "refinement.0.norm2.body.bias" in net.state_dict()
+
+
+def test_the_rule_engages_only_a_bf16_cuda_stream_without_gradients():
+    card = SimpleNamespace(is_cuda=True, dtype=torch.bfloat16)
+    with torch.no_grad():
+        assert prenorm.engages(card)
+        assert not prenorm.engages(SimpleNamespace(is_cuda=True, dtype=torch.float32))
+        assert not prenorm.engages(torch.zeros(1, 8, 2, 2, dtype=torch.bfloat16))
+    with torch.enable_grad():
+        assert not prenorm.engages(card)
+    with torch.inference_mode():
+        assert prenorm.engages(card)
+
+
+def test_an_engaged_call_the_kernel_cannot_take_raises(monkeypatch):
+    """Where the rule engages, the kernel runs or the call raises: a CPU
+    stream (here) is not handed to PyTorch's ops unseen."""
+    net = _port(_state(), compute_dtype="bfloat16")
+    monkeypatch.setattr(prenorm, "engages", lambda x: True)
+    with torch.no_grad(), pytest.raises(ValueError, match="pre-norm kernel takes"):
+        net(*_inputs())
+    x = torch.zeros(1, 8, 4, 4, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="pre-norm kernel takes"):
+        prenorm.residual_add(x, x)
+
+
+def test_the_plain_version_is_the_bf16_add_then_a_float32_norm():
+    gen = torch.Generator().manual_seed(3)
+    x = torch.randn(1, 16, 5, 6, generator=gen).bfloat16()
+    r = torch.randn(1, 16, 5, 6, generator=gen).bfloat16().contiguous(
+        memory_format=torch.channels_last)
+    w, b = torch.randn(16, generator=gen), torch.randn(16, generator=gen)
+    s, y = prenorm.prenorm_reference(x, r, w, b, 1e-5)
+    assert torch.equal(s, x + r) and s.dtype == torch.bfloat16
+    assert y.dtype == torch.bfloat16 and y.is_contiguous(memory_format=torch.channels_last)
+    norm = nn.LayerNorm(16, eps=1e-5)
+    with torch.no_grad():
+        norm.weight.copy_(w)
+        norm.bias.copy_(b)
+        want = norm(s.float().permute(0, 2, 3, 1)).permute(0, 3, 1, 2).bfloat16()
+    assert torch.equal(y, want)
+    assert prenorm.prenorm_reference(x, None, w, b, 1e-5)[0] is x
+
+
+@pytest.mark.parametrize("r_layout", ["none", "nchw", "channels_last"])
+@pytest.mark.parametrize("x_layout", ["nchw", "channels_last"])
+def test_the_plain_version_does_not_depend_on_the_layouts(x_layout, r_layout):
+    """``s`` is the eager add in the stream's layout (the stream itself
+    without a residual); ``y`` is channels_last and the float32 norm of a
+    contiguous NHWC copy of ``s``, bit for bit, whatever the layouts."""
+    def laid(t, layout):
+        return t.contiguous(memory_format=torch.channels_last) if layout == "channels_last" else t
+
+    gen = torch.Generator().manual_seed(4)
+    x = laid(torch.randn(2, 24, 5, 7, generator=gen).bfloat16(), x_layout)
+    r = None if r_layout == "none" else laid(
+        torch.randn(2, 24, 5, 7, generator=gen).bfloat16(), r_layout)
+    w, b = 1 + 0.1 * torch.randn(24, generator=gen), 0.1 * torch.randn(24, generator=gen)
+    s, y = prenorm.prenorm_reference(x, r, w, b, 1e-5)
+    if r is None:
+        assert s is x
+    else:
+        want = x + r
+        assert s.stride() == want.stride() == x.stride() and torch.equal(s, want)
+    assert y.dtype == torch.bfloat16 and y.is_contiguous(memory_format=torch.channels_last)
+    flat = s.float().permute(0, 2, 3, 1).contiguous()
+    assert torch.equal(y.permute(0, 2, 3, 1), F.layer_norm(flat, (24,), w, b, 1e-5).bfloat16())
+
+
+@pytest.mark.parametrize("residual", ["none", "nchw", "channels_last"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_a_block_takes_and_returns_a_stream_residual_pair(dtype, residual):
+    """A block's input is the sum of the pair it takes and its output the
+    sum of the pair it returns: off the card, ``x + attn(norm1(x))`` then
+    ``+ ffn(norm2(.))`` on the sum, bit for bit, as the unfused block."""
+    net = _port(_state(), compute_dtype=dtype)
+    block = net.encoder_level2[0]
+    gen = torch.Generator().manual_seed(5)
+    cast = getattr(torch, dtype)
+    x = torch.randn(1, 16, 6, 10, generator=gen).to(cast)
+    r = None if residual == "none" else torch.randn(1, 16, 6, 10, generator=gen).to(cast)
+    if residual == "channels_last":
+        r = r.contiguous(memory_format=torch.channels_last)
+    with torch.no_grad(), torch.autocast("cpu", dtype=torch.bfloat16,
+                                         enabled=dtype == "bfloat16"):
+        stream, out = block((x, r))
+        want = x if r is None else x + r
+        want = want + block.attn(_unfused_norm(block.norm1, want))
+        want = want + block.ffn(_unfused_norm(block.norm2, want))
+    assert torch.equal(stream + out, want)
+
+def _stand_in(calls):
+    """The kernel's launch done by the plain version on the CPU."""
+    def launch(x, residual, params, eps):
+        calls.append("norm" if params is not None else "add")
+        if params is None:
+            return x + residual, None
+        return prenorm.prenorm_reference(x, residual, *params, eps)
+    return launch
+
+
+def test_the_kernel_path_nests_its_spans_and_launches_96_times(monkeypatch):
+    """At the published depths, with the rule engaged and the kernel's
+    launch replaced by its plain version: 88 pre-norms, each
+    ``refid.restormer.norm`` holding one ``refid.restormer.norm_card``, and
+    8 stage ends through the add alone; the answer is the eager bf16
+    network's within bf16 rounding (the plain norm takes a bf16 input where
+    CPU autocast's LayerNorm may not)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    state = _state(**PUBLISHED_DEPTHS)
+    net = _port(state, compute_dtype="bfloat16", **PUBLISHED_DEPTHS)
+    x, vox = _inputs()
+    with torch.no_grad():
+        want = net(x, vox)
+    calls = []
+    monkeypatch.setattr(prenorm, "engages", lambda x: x.dtype == torch.bfloat16
+                        and not torch.is_grad_enabled())
+    monkeypatch.setattr(prenorm, "_launch", _stand_in(calls))
+    with torch.no_grad(), profile(activities=[ProfilerActivity.CPU]) as prof:
+        got = net(x, vox)
+    assert calls.count("norm") == 88 and calls.count("add") == 8
+    spans = sorted(((e.name, e.time_range.start, e.time_range.end) for e in prof.events()
+                    if e.name.startswith("refid.restormer.norm")), key=lambda s: (s[1], -s[2]))
+    assert [s[0] for s in spans] == ["refid.restormer.norm", "refid.restormer.norm_card"] * 88
+    for norm, card in zip(spans[::2], spans[1::2]):
+        assert norm[1] <= card[1] and card[2] <= norm[2]
+    rel = float((got - want).square().mean().sqrt() / want.square().mean().sqrt())
+    assert rel < 0.03
