@@ -98,6 +98,10 @@ right after CE.  Its ``kernels`` entry's launches are those of its main
 path: one 720p bf16 Restormer image through the single-image task, the
 benchmark cell's configuration and weights, counted from zero (96), its
 answer within 2 % of the same call on PyTorch's ops (``restormer_serve``).
+It is checked and timed at Uformer's three widths too, its stream
+channels_last, and one 720p Uformer-B image through the task launches it 89
+times (80 pre-norms, 9 layer ends), builds its 40 window biases once and
+answers within 2 % of the call with PN and SDPA off (``uformer_serve``).
 
 Each phase prints one JSON line; the last two lines are the ``kernels``
 line and ``{"ok": true, "device": {...}}``.  Any failed phase exits
@@ -123,6 +127,7 @@ import numpy as np
 import torch
 
 from portbench.drivers.restormer_serve import restormer_state
+from portbench.drivers.uformer_serve import uformer_state
 from refid_tpu_torch import BlurVFIPipeline, RefidConfig
 from refid_tpu_torch.cli import demo as demo_cli
 from refid_tpu_torch.cli import test as test_cli
@@ -141,6 +146,7 @@ from refid_tpu_torch.events.voxel import (
     events_to_voxel_grid, events_to_voxel_grid_padded, events_to_voxel_grid_reference,
     pad_events, voxel_norm, voxel_norm_np, voxelize_padded_reference,
 )
+from refid_tpu_torch.models import arch_util, uformer
 from refid_tpu_torch.models import archs as _archs  # noqa: F401 (registers the archs)
 from refid_tpu_torch.models.convert import known_unused_keys, load_state
 from refid_tpu_torch.models.evhinet import EVHINet
@@ -328,8 +334,14 @@ CE_TIMED = 3
 PN_SHAPES = [(1, 48, 720, 1280), (1, 96, 720, 1280), (1, 96, 360, 640), (1, 192, 180, 320),
              (1, 384, 90, 160)]
 PN_MODES = {"none": 4, "nchw": 8, "cl": 8, "add": 6}
+# and at Uformer's: tokens, so the stream and the residual are channels_last
+# (full resolution at 32 and 64 channels, the bottleneck at 512)
+UF_PN_SHAPES = [(1, 32, 768, 1280), (1, 64, 768, 1280), (1, 512, 48, 80)]
+UF_PN_MODES = {"none": 4, "cl": 8, "add": 6}
 RESTORMER_CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)), "portbench",
                                 "configs", "restormer_dim48.json")
+UFORMER_CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)), "portbench",
+                              "configs", "uformer_b.json")
 CUDNN_BACKENDS = (torch._C._ConvBackend.Cudnn, torch._C._ConvBackend.CudnnTranspose)
 
 
@@ -826,11 +838,14 @@ def phase_conv_epilogue_timing(calls=200):
     return {**timing, "host_us": host_us}
 
 
-def pn_operands(shape, mode, seed):
-    """A bf16 NCHW stream, the mode's residual (None, NCHW or channels_last)
-    and a float32 scale and bias, on the card."""
+def pn_operands(shape, mode, seed, stream="nchw"):
+    """A bf16 stream (NCHW, or channels_last where ``stream`` is "cl"), the
+    mode's residual (None, NCHW or channels_last) and a float32 scale and
+    bias, on the card."""
     gen = torch.Generator(CUDA).manual_seed(seed)
     x = (torch.randn(shape, generator=gen, device=CUDA) * 2 + 0.5).bfloat16()
+    if stream == "cl":
+        x = x.contiguous(memory_format=torch.channels_last)
     r = None
     if mode != "none":
         r = torch.randn(shape, generator=gen, device=CUDA).bfloat16()
@@ -849,17 +864,19 @@ def pn_run(x, r, w, b, mode):
     return pn.prenorm(x, r, w, b, 1e-5)
 
 
-def phase_prenorm_check():
+def phase_prenorm_check(shapes=PN_SHAPES, modes=PN_MODES, stream="nchw", network="restormer"):
     """PN (``ops/prenorm.py``) against its plain version ``prenorm_reference``
-    and the eager add at each of PN_SHAPES in each of PN_MODES: ``s`` bit
-    for bit with the eager add's strides, ``y`` channels_last and within
-    one bf16 step of the plain version (the share of elements that differ
-    reported), one launch a call.  Returns the largest |diff| of ``y``."""
+    and the eager add at each of ``shapes`` (Restormer's PN_SHAPES, NCHW
+    streams; or Uformer's UF_PN_SHAPES, channels_last) in each of ``modes``:
+    ``s`` bit for bit with the eager add's strides, ``y`` channels_last and
+    within one bf16 step of the plain version (the share of elements that
+    differ reported), one launch a call.  Returns the largest |diff| of
+    ``y``."""
     before = pn.LAUNCHES
     rows, worst = [], 0.0
-    for k, shape in enumerate(PN_SHAPES):
-        for mode in PN_MODES:
-            x, r, w, b = pn_operands(shape, mode, 60 + k)
+    for k, shape in enumerate(shapes):
+        for mode in modes:
+            x, r, w, b = pn_operands(shape, mode, 60 + k, stream)
             s, y = pn_run(x, r, w, b, mode)
             want_s = x if r is None else x + r
             equal = (s.stride() == want_s.stride()
@@ -885,27 +902,30 @@ def phase_prenorm_check():
             rows.append(row)
             del x, r, s, y
     launches = pn.LAUNCHES - before
-    check(launches == len(PN_SHAPES) * len(PN_MODES),
-          f"prenorm: {launches} launches for {len(PN_SHAPES) * len(PN_MODES)} calls")
-    emit("kernel_check", kernel="prenorm", cases=rows, launches=launches)
+    check(launches == len(shapes) * len(modes),
+          f"prenorm: {launches} launches for {len(shapes) * len(modes)} calls")
+    emit("kernel_check", kernel="prenorm", network=network, cases=rows, launches=launches)
     return worst
 
 
-def phase_prenorm_timing(calls=100):
-    """PN at each of PN_SHAPES in each of PN_MODES: CUDA events per call,
+def phase_prenorm_timing(calls=100, shapes=PN_SHAPES, modes=PN_MODES, stream="nchw",
+                         network="restormer"):
+    """PN at each of ``shapes`` in each of ``modes`` (as
+    :func:`phase_prenorm_check` takes them): CUDA events per call,
     the profiler's device time a launch, the bound (PN_MODES' bytes an
     element at the HBM rate), the plain version, and the eager chain the
     network ran before PN (``x + r``, ``nn.LayerNorm`` on the channels-last
     view under bf16 autocast, the next conv's cast to bf16) and
     ``nn.LayerNorm``'s own kernel on a contiguous float32 input (the
     library's call, ``library_ms``).  Returns the (1, 96, 720, 1280)
-    channels_last-residual row, for the ``kernels`` line."""
+    channels_last-residual row, for the ``kernels`` line (None where
+    ``shapes`` lack it)."""
     rows = []
-    for k, shape in enumerate(PN_SHAPES):
+    for k, shape in enumerate(shapes):
         c = shape[1]
         norm = torch.nn.LayerNorm(c, eps=1e-5).to(CUDA).requires_grad_(False)
-        for mode, per_element in PN_MODES.items():
-            x, r, w, b = pn_operands(shape, mode, 80 + k)
+        for mode, per_element in modes.items():
+            x, r, w, b = pn_operands(shape, mode, 80 + k, stream)
 
             def eager():
                 s = x if r is None else x + r
@@ -933,9 +953,10 @@ def phase_prenorm_timing(calls=100):
             row["bound_share"] = row["bound_ms"] / ms
             rows.append(row)
             del x, r
-    emit("kernel_timing", kernel="prenorm", rows=rows)
-    main_row = next(r for r in rows if r["shape"] == [1, 96, 720, 1280] and r["mode"] == "cl")
-    return {k: v for k, v in main_row.items() if k != "mode"}
+    emit("kernel_timing", kernel="prenorm", network=network, rows=rows)
+    main_row = next((r for r in rows if r["shape"] == [1, 96, 720, 1280] and r["mode"] == "cl"),
+                    None)
+    return main_row and {k: v for k, v in main_row.items() if k != "mode"}
 
 
 def phase_restormer_serve(seed=26):
@@ -970,6 +991,56 @@ def phase_restormer_serve(seed=26):
     emit("restormer_serve", launches=launches, rel_rms_vs_eager=rel)
     check(launches == 96, f"a 720p Restormer call launched prenorm {launches} times, not 96")
     check(rel < 0.02, f"Restormer on PN {rel:.4f} RMS of the network's part off the eager path")
+    del task, got, want, network
+    return launches
+
+
+def phase_uformer_serve(seed=27):
+    """Uformer-B as the benchmark's ``deblur720-uformer-bf16`` cell runs it
+    (``portbench/configs/uformer_b.json``: the published widths and depths,
+    the cell's seeded weights) through the single-image task in bf16, one
+    720p image (1280x768 padded) twice: 40 LeWin blocks a call, PN's
+    launches counted from zero over the first (80 pre-norms and 9 layer
+    ends: 89), the 40 window biases built in the first call and none in the
+    second, and the answer within 2 % RMS of the network's part (the answer
+    less the photo) of the same call with PN's and SDPA's rules held off
+    (PyTorch's adds, ``nn.LayerNorm`` and the explicit window products in
+    float32).  Returns PN's launches in the call."""
+    with open(UFORMER_CONFIG) as f:
+        config = json.load(f)
+    task = build_task({"name": "chip_smoke_uformer",
+                       "model_type": "TestImageEventRestorationModel", "is_train": False,
+                       "network_g": dict(config["network_g"],
+                                         compute_dtype=config["compute_dtype"]),
+                       "val": {}}, CUDA)
+    load_state(task.net, uformer_state(config, seed, CUDA))
+    rng = np.random.RandomState(seed)
+    img = rng.rand(1, HEIGHT, WIDTH, 3).astype(np.float32)
+    voxel = rng.randn(1, HEIGHT, WIDTH, config["num_bins"]).astype(np.float32)
+    blocks, masks = uformer.LEWIN_BLOCKS, uformer.WINDOW_MASKS_BUILT
+    pn.LAUNCHES = 0                              # the main path's run starts here
+    got = task.predict_tensor(img, voxel)
+    launches = pn.LAUNCHES                       # ... and ends here
+    first_masks = uformer.WINDOW_MASKS_BUILT - masks
+    t0 = time.perf_counter()
+    task.predict_tensor(img, voxel)
+    torch.cuda.synchronize()
+    warm_ms = (time.perf_counter() - t0) * 1e3
+    ran, built = uformer.LEWIN_BLOCKS - blocks, uformer.WINDOW_MASKS_BUILT - masks
+    with mock.patch.object(pn, "engages", lambda x: False), \
+            mock.patch.object(arch_util, "window_engages", lambda q: False):
+        want = task.predict_tensor(img, voxel)
+    check(pn.LAUNCHES == 2 * launches, "prenorm launched with its rule held off")
+    network = want - torch.from_numpy(img).to(CUDA)
+    rel = float((got - want).square().mean().sqrt() / network.square().mean().sqrt())
+    emit("uformer_serve", launches=launches, blocks=ran, masks_built=[first_masks, built],
+         warm_call_ms=warm_ms, rel_rms_vs_eager=rel)
+    check(ran == 80, f"two 720p Uformer calls ran {ran} LeWin blocks, not 80")
+    check(launches == 89, f"a 720p Uformer call launched prenorm {launches} times, not 89")
+    check(first_masks == built == 40,
+          f"Uformer built {first_masks} window biases in its first call and {built} in two")
+    check(rel < 0.02, f"Uformer on PN and SDPA {rel:.4f} RMS of the network's part off the "
+                      "eager path")
     del task, got, want, network
     return launches
 
@@ -3719,6 +3790,8 @@ def main():
     ce_timing = phase_conv_epilogue_timing()
     pn_err = phase_prenorm_check()
     pn_timing = phase_prenorm_timing()
+    pn_err = max(pn_err, phase_prenorm_check(UF_PN_SHAPES, UF_PN_MODES, "cl", "uformer"))
+    phase_prenorm_timing(shapes=UF_PN_SHAPES, modes=UF_PN_MODES, stream="cl", network="uformer")
     watch = ConvEpilogueWatch()                  # the conv layer's calls from here on
 
     model = FinalBidirectionAttenfusion(RefidConfig())
@@ -3748,6 +3821,8 @@ def main():
     del pipe, out32, out16
     pn_launches = phase_restormer_serve()        # PN's main path: its launches
     watch.check("restormer", engaged=False)      # Restormer's convs have no bias
+    phase_uformer_serve()
+    watch.check("uformer")                       # Uformer's convs all have biases
 
     t0 = time.perf_counter()
     int8_errs = phase_int8_kernel_check()

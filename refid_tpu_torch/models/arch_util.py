@@ -13,6 +13,13 @@ Library functions with no caller in the JAX package:
     pixels, the Gram product, temperature, softmax, ``attn @ v``; its two
     callers: EICA's ``MutualAttention`` (EFNet, ``models/efnet.py``) and
     Restormer's MDTA (``models/restormer.py``)
+  * window_attention — self-attention within windows of tokens with an
+    additive bias, per head (Uformer's W-MSA, ``models/uformer.py``), and
+    :func:`window_engages`, the rule that runs it as
+    ``F.scaled_dot_product_attention``
+  * pre_norm — a pre-norm transformer block's residual add and LayerNorm
+    over the channels of a 4-D stream, on the pre-norm kernel where
+    ``ops/prenorm.py::engages`` holds (Restormer's and Uformer's blocks)
   * MutualAttention + EventImageChannelAttentionTransformerBlock ("EICA") —
     channel-attention cross-modal transformer (its caller in this package:
     ``models/efnet.py``, at upstream EFNet's settings)
@@ -22,14 +29,19 @@ Library functions with no caller in the JAX package:
 
 from __future__ import annotations
 
+from typing import Optional, Tuple
+
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from refid_tpu_torch.core.timer import span
+from refid_tpu_torch.ops import prenorm
 from refid_tpu_torch.ops.deform_conv import _bilinear_rows
 
 __all__ = ["flow_warp", "resize_flow", "pixel_unshuffle", "pixel_shuffle",
-           "channel_attention", "MutualAttention",
+           "channel_attention", "window_engages", "window_attention", "pre_norm",
+           "MutualAttention",
            "EventImageChannelAttentionTransformerBlock", "SpatialCrossAttention"]
 
 
@@ -95,6 +107,46 @@ def channel_attention(q, k, v, temperature, num_heads: int):
     k = F.normalize(heads(k), dim=-1, eps=1e-12)
     attn = torch.softmax(q @ k.transpose(-2, -1) * temperature, dim=-1)
     return (attn @ heads(v)).reshape(b, c, h, w)
+
+
+def window_engages(q: torch.Tensor) -> bool:
+    """True where :func:`window_attention` of the queries ``q`` runs as
+    ``F.scaled_dot_product_attention``: a bfloat16 CUDA tensor with
+    gradients off (every served bf16 call).  Its mask is then built in
+    ``q``'s dtype."""
+    return q.is_cuda and q.dtype == torch.bfloat16 and not torch.is_grad_enabled()
+
+
+def window_attention(q, k, v, bias):
+    """Self-attention within windows: ``q``, ``k``, ``v`` ``(windows, head,
+    n, d)``, ``softmax(q k^T / sqrt(d) + bias) v`` over the last axis, with
+    ``bias`` additive and broadcastable to ``(windows, head, n, n)``.  Where
+    :func:`window_engages` holds, one ``F.scaled_dot_product_attention``
+    call (``bias`` in ``q``'s dtype); elsewhere the explicit product,
+    bias, softmax and product."""
+    if window_engages(q):
+        return F.scaled_dot_product_attention(q, k, v, attn_mask=bias)
+    attn = (q * q.shape[-1] ** -0.5) @ k.transpose(-2, -1) + bias
+    return torch.softmax(attn, -1) @ v
+
+
+def pre_norm(x: torch.Tensor, residual: Optional[torch.Tensor], norm: nn.LayerNorm,
+             spans: Tuple[str, str]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A pre-norm block's add and norm on the 4-D stream ``x`` (NCHW or
+    channels_last) and the residual in front of it (None: none): ``(s, y)``
+    with ``s = x + residual`` and ``y`` ``norm`` over the channels of each
+    pixel of ``s``.  Where ``prenorm.engages(x)``, one launch of the
+    pre-norm kernel with ``norm``'s weight, bias and eps (``y`` bf16
+    channels_last); else PyTorch's add and ``norm`` on a channels-last view.
+    The whole runs inside the span ``spans[0]``, the kernel's launch inside
+    ``spans[1]``."""
+    with span(spans[0]):
+        if prenorm.engages(x):
+            with span(spans[1]):
+                return prenorm.prenorm(x, residual, norm.weight, norm.bias, norm.eps)
+        if residual is not None:
+            x = x + residual
+        return x, norm(x.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
 
 
 class MutualAttention(nn.Module):

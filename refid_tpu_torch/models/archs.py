@@ -25,7 +25,9 @@ implements the intended semantics, and so does this one (the breakage map in
 ``EFNet`` (upstream EFNet_arch.py) has no JAX counterpart; it is held to
 the benchmark's plain reference (``models/efnet.py``).  Nor has
 ``Restormer`` (upstream restormer_arch.py, ``models/restormer.py``), fed the
-photo and the event voxel concatenated (``inp_channels`` 9 by default).
+photo and the event voxel concatenated (``inp_channels`` 9 by default), nor
+``Uformer`` (upstream Uformer's model.py, ``models/uformer.py``; ``dd_in`` 9
+by default).
 
 ``compute_dtype: bfloat16`` maps to bf16 autocast with float32 parameters.
 """
@@ -39,9 +41,10 @@ from refid_tpu_torch.models.efnet import EFNet
 from refid_tpu_torch.models.evhinet import EVHINet
 from refid_tpu_torch.models.refid import FinalBidirectionAttenfusion, RefidConfig
 from refid_tpu_torch.models.restormer import Restormer
+from refid_tpu_torch.models.uformer import Uformer
 
 __all__ = ["final_bidirection_attenfusion", "final_bidirection", "single_multiconnect_evhinet",
-           "efnet", "restormer",
+           "efnet", "restormer", "uformer",
            "unet_recurrent", "unet_decoder_recurrent", "bidir_unet_recurrent",
            "unet_decoder_recurrent_bidir", "unet_decoder_recurrent_allbidir",
            "unet_ps_decoder_recurrent", "unet_decoder_recurrent_siamese",
@@ -148,6 +151,21 @@ def restormer(opt: dict) -> Restormer:
                      layer_norm_type=opt.get("LayerNorm_type", "WithBias"),
                      dual_pixel_task=opt.get("dual_pixel_task", False),
                      dtype=_compute_dtype(opt))
+
+
+@ARCHS.register("Uformer")
+def uformer(opt: dict) -> Uformer:
+    """Shifted-window self-attention and LeFF in a five-level U-Net (upstream
+    Uformer's model.py; the defaults are ``get_arch``'s ``Uformer_B``), on
+    the photo and its events."""
+    return Uformer(dd_in=opt.get("dd_in", 9), embed_dim=opt.get("embed_dim", 32),
+                   depths=tuple(opt.get("depths", (1, 2, 8, 8, 2, 8, 8, 2, 1))),
+                   num_heads=tuple(opt.get("num_heads", (1, 2, 4, 8, 16, 16, 8, 4, 2))),
+                   win_size=opt.get("win_size", 8), mlp_ratio=opt.get("mlp_ratio", 4.0),
+                   modulator=opt.get("modulator", True), shift_flag=opt.get("shift_flag", True),
+                   token_projection=opt.get("token_projection", "linear"),
+                   token_mlp=opt.get("token_mlp", "leff"), qkv_bias=opt.get("qkv_bias", True),
+                   dtype=_compute_dtype(opt))
 
 
 # --- the ablation lineages ----------------------------------------------------

@@ -32,6 +32,11 @@ EICA's: its ``WithBias`` LayerNorms' ``norm1_*.body.`` and its MLP's
 An upstream Restormer checkpoint (recognised by its ``patch_embed.proj``
 keys) loads into the port's :class:`Restormer` unchanged: its module names
 are upstream's, the ``WithBias`` LayerNorms' ``norm*.body.`` included.
+
+An upstream Uformer checkpoint (recognised by its ``input_proj.proj`` keys)
+loads into the port's :class:`Uformer` under its own names.  Upstream saves
+each block's ``attn.relative_position_index`` buffer, which the port
+computes: each must equal the port's, and is then dropped.
 """
 
 from __future__ import annotations
@@ -48,6 +53,7 @@ from refid_tpu_torch.models.evhinet import EVHINet
 from refid_tpu_torch.models.recurrent import RecurrentEncoderStage
 from refid_tpu_torch.models.refid import RefidConfig
 from refid_tpu_torch.models.restormer import Restormer
+from refid_tpu_torch.models.uformer import Uformer
 
 __all__ = ["state_dict_from_jax", "evhinet_state_dict_from_jax", "known_unused_keys",
            "load_state"]
@@ -253,6 +259,23 @@ def _efnet_port_name(key: str) -> str:
     return key
 
 
+def _drop_uformer_indices(model: nn.Module, state_dict: Mapping[str, torch.Tensor]
+                          ) -> Dict[str, torch.Tensor]:
+    """``state_dict`` without upstream's saved ``relative_position_index``
+    buffers, each of which must equal the port's."""
+    buffers = dict(model.named_buffers())
+    out = {}
+    for key, value in state_dict.items():
+        if key.endswith(".attn.relative_position_index"):
+            mine = buffers.get(key)
+            if mine is None or not torch.equal(torch.as_tensor(value).to(mine.device).long(),
+                                               mine):
+                raise ValueError(f"{key}: not the port's relative position index")
+            continue
+        out[key] = value
+    return out
+
+
 def load_state(model: nn.Module, state_dict: Mapping[str, torch.Tensor]) -> None:
     """Load ``state_dict`` into ``model``; only known-unused keys may be
     missing.  No key may be unexpected, except upstream's dead bottleneck
@@ -261,11 +284,19 @@ def load_state(model: nn.Module, state_dict: Mapping[str, torch.Tensor]) -> None
     stage-2 modules); both are ignored and named in the log.  An EFNet
     checkpoint (``image_event_transformer`` keys) loads whole, EICA's keys
     renamed to the port block's; a Restormer checkpoint (``patch_embed.proj``
-    keys) loads whole under its own names."""
+    keys) loads whole under its own names, and so does a Uformer checkpoint
+    (``input_proj.proj`` keys), its saved relative position indices checked
+    against the port's and dropped."""
     is_restormer = any(k.startswith("patch_embed.proj.") for k in state_dict)
     if is_restormer != isinstance(model, Restormer):
         raise ValueError(f"{'a' if is_restormer else 'no'} Restormer checkpoint "
                          f"(patch_embed.proj keys) for a {type(model).__name__} network")
+    is_uformer = any(k.startswith("input_proj.proj.") for k in state_dict)
+    if is_uformer != isinstance(model, Uformer):
+        raise ValueError(f"{'a' if is_uformer else 'no'} Uformer checkpoint "
+                         f"(input_proj.proj keys) for a {type(model).__name__} network")
+    if is_uformer:
+        state_dict = _drop_uformer_indices(model, state_dict)
     is_efnet = any(".image_event_transformer." in k for k in state_dict)
     if is_efnet != isinstance(model, EFNet):
         raise ValueError(f"{'an' if is_efnet else 'no'} EFNet checkpoint "

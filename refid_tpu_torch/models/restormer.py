@@ -55,7 +55,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from refid_tpu_torch.core.timer import span
-from refid_tpu_torch.models.arch_util import channel_attention
+from refid_tpu_torch.models.arch_util import channel_attention, pre_norm
 from refid_tpu_torch.ops import prenorm
 from refid_tpu_torch.parallel import spatial
 from refid_tpu_torch.parallel.spatial import HaloConv2d
@@ -64,6 +64,7 @@ __all__ = ["Restormer", "Stage", "TransformerBlock", "TRANSFORMER_BLOCKS"]
 
 TRANSFORMER_BLOCKS = 0      # transformer blocks run, over the process's life
 
+_NORM_SPANS = ("refid.restormer.norm", "refid.restormer.norm_card")
 _NO_INT8 = ("Restormer has no int8 path: no int8 replay of the network exists, and "
             "MDTA's channel attention reduces over the whole frame")
 _NO_SPATIAL = ("Restormer cannot run under a spatial plan: MDTA's L2 normalisations, "
@@ -75,22 +76,16 @@ class LayerNorm(nn.Module):
     pixel (biased variance, eps 1e-5 inside the root, a scale and a bias);
     state ``body.weight`` / ``body.bias`` as upstream's.  ``forward(x,
     residual)`` returns ``(s, y)``: ``s = x + residual`` (``x`` without a
-    residual) and ``y`` its norm, by the kernel where
-    ``prenorm.engages(x)``, else ``nn.LayerNorm`` on a channels-last view."""
+    residual) and ``y`` its norm (``arch_util.pre_norm``: by the kernel
+    where ``prenorm.engages(x)``, else ``nn.LayerNorm`` on a channels-last
+    view)."""
 
     def __init__(self, dim: int):
         super().__init__()
         self.body = nn.LayerNorm(dim, eps=1e-5)
 
     def forward(self, x, residual=None):
-        with span("refid.restormer.norm"):
-            if prenorm.engages(x):
-                with span("refid.restormer.norm_card"):
-                    return prenorm.prenorm(x, residual, self.body.weight, self.body.bias,
-                                           self.body.eps)
-            if residual is not None:
-                x = x + residual
-            return x, self.body(x.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
+        return pre_norm(x, residual, self.body, _NORM_SPANS)
 
 
 class Attention(nn.Module):

@@ -1,6 +1,7 @@
-"""Restormer's pre-norm: the residual add in front of a transformer block's
-LayerNorm, then the LayerNorm over the channels of each pixel, and the rule
-that decides how it runs.
+"""The pre-norm of Restormer's and Uformer's blocks: the residual add in
+front of a transformer block's LayerNorm, then the LayerNorm over the
+channels of each pixel, and the rule that decides how it runs (the models
+call it through ``models/arch_util.py::pre_norm``).
 
 :func:`engages` is the rule, decided from what the call can observe: a CUDA
 input in bfloat16 (the stream under bf16 autocast) with gradients off, which
@@ -125,8 +126,8 @@ def prenorm(x: torch.Tensor, residual: Optional[torch.Tensor], weight: torch.Ten
     ``x`` itself without a residual) and ``y`` (bf16, channels_last).  The
     operands are 4-D bfloat16 CUDA tensors of one shape, NCHW or
     channels_last, else ``ValueError``; a width the kernel does not take
-    (Restormer's 48 to 384 channels are taken, ``csrc/prenorm.cu`` says
-    which) raises the launcher's ``cudaErrorInvalidValue`` as
+    (Restormer's 48 to 384 channels and Uformer's 32 to 512 are taken,
+    ``csrc/prenorm.cu`` says which) raises the launcher's ``cudaErrorInvalidValue`` as
     ``RuntimeError``."""
     return _launch(x, residual, (weight, bias), eps)
 

@@ -55,11 +55,11 @@ def test_ablation_forward_matches_jax(name, rbt):
 
 
 def test_registry_names_equal_jax():
-    # every JAX name, and the port's own EFNet and Restormer (held to the
-    # benchmark's plain references, tests/test_torch_efnet.py and
-    # tests/test_torch_restormer.py)
-    assert sorted(ARCHS._map) == sorted(set(JAX_ARCHS._map) | {"EFNet", "Restormer"})
-    assert len(JAX_ARCHS._map) == 11 and len(ARCHS._map) == 13
+    # every JAX name, and the port's own EFNet, Restormer and Uformer (held
+    # to the benchmark's plain references, tests/test_torch_efnet.py,
+    # tests/test_torch_restormer.py and tests/test_torch_uformer.py)
+    assert sorted(ARCHS._map) == sorted(set(JAX_ARCHS._map) | {"EFNet", "Restormer", "Uformer"})
+    assert len(JAX_ARCHS._map) == 11 and len(ARCHS._map) == 14
 
 
 def _shared_fields(jcfg):

@@ -29,6 +29,9 @@ NETS = {
     "restormer": ("TestImageEventRestorationModel",
                   {"type": "Restormer", "inp_channels": 9, "dim": 8, "num_blocks": [1, 1, 1, 1],
                    "num_refinement_blocks": 1}),
+    "uformer": ("TestImageEventRestorationModel",
+                {"type": "Uformer", "dd_in": 9, "embed_dim": 8, "win_size": 2,
+                 "depths": [1, 1, 1, 1, 2, 1, 1, 1, 1], "num_heads": [1] * 9}),
 }
 CL = torch.channels_last
 
@@ -74,6 +77,7 @@ CASES = {
     "task-evhinet": (lambda: _task("evhinet"), False, False),
     "task-efnet": (lambda: _task("efnet"), False, False),
     "task-restormer": (lambda: _task("restormer"), False, False),
+    "task-uformer": (lambda: _task("uformer"), False, False),
     "task-int8-whole-blocks": (lambda: _task("refid", True), False, True),
     "task-int8-other-sides": (lambda: _task("refid", True, 12, 20), False, False),
 }
